@@ -1,0 +1,63 @@
+"""Frame-axis (temporal) attention: a hand-written Hopper kernel and its
+plain PyTorch version.
+
+`temporal_attention(q2, k2, v2, heads, f)` takes (L*F, C) rows ordered
+(location, frame) and runs multi-head self-attention over the F frames of
+each location. A CUDA tensor launches `csrc/temporal_attention.cu` (bf16,
+F <= 32) or raises; a CPU tensor takes `temporal_attention_plain`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+
+# launches of the CUDA kernel since the last reset
+launches = 0
+
+MAX_FRAMES = 32
+
+
+def temporal_attention_plain(q2, k2, v2, heads: int, f: int):
+    n, c = q2.shape
+    d = c // heads
+    qh, kh, vh = (t.reshape(n // f, f, heads, d).float() for t in (q2, k2, v2))
+    s = torch.einsum('lfhd,lghd->lhfg', qh, kh) * d ** -0.5
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum('lhfg,lghd->lfhd', p, vh)
+    return out.reshape(n, c).to(q2.dtype)
+
+
+def temporal_attention_kernel(q2, k2, v2, heads: int, f: int):
+    global launches
+    n, c = q2.shape
+    if any(t.device != q2.device for t in (k2, v2)):
+        raise ValueError('temporal_attention: tensors on different devices')
+    if any(t.dtype != torch.bfloat16 for t in (q2, k2, v2)):
+        raise TypeError('temporal_attention kernel takes bf16 tensors')
+    if any(tuple(t.shape) != (n, c) for t in (k2, v2)):
+        raise ValueError('temporal_attention: q, k, v shapes differ')
+    if not all(t.is_contiguous() for t in (q2, k2, v2)):
+        raise ValueError('temporal_attention kernel takes contiguous tensors')
+    if not 1 <= f <= MAX_FRAMES or n % f or c % heads:
+        raise ValueError(f'temporal_attention kernel: F={f} (<= {MAX_FRAMES})'
+                         f', rows={n}, C={c}, heads={heads}')
+    out = torch.empty_like(q2)
+    if n == 0:
+        return out
+    lib = _build.library()
+    stream = torch.cuda.current_stream(q2.device).cuda_stream
+    status = lib.vs_temporal_attention(q2.data_ptr(), k2.data_ptr(),
+                                       v2.data_ptr(), out.data_ptr(), n // f,
+                                       f, c, heads, stream)
+    _build.check(status, 'vs_temporal_attention')
+    launches += 1
+    return out
+
+
+def temporal_attention(q2, k2, v2, heads: int, f: int):
+    """q2/k2/v2: (L*F, C), rows (location, frame) -> (L*F, C)."""
+    if q2.is_cuda:
+        return temporal_attention_kernel(q2, k2, v2, heads, f)
+    return temporal_attention_plain(q2, k2, v2, heads, f)

@@ -1,0 +1,3 @@
+from .videoswap_pipeline import VideoSwapPipeline, rescale_noise_cfg
+
+__all__ = ['VideoSwapPipeline', 'rescale_noise_cfg']
