@@ -4,22 +4,28 @@
     python3 scripts/fault_control.py
 
 Plants one fault at a time in a kernel's wrapper, each a chunk of the
-kernel's work skipped, and runs chip_smoke.py's unet and small comparisons
-(GPU bf16 kernels against the CPU fp32 plain path) with it. A sound run
-comes first. For each fault it also prints the kernel-level error against
-the plain version at one level-0 shape, the check of chip_smoke.py's
+kernel's work skipped, and runs chip_smoke.py's unet, small and train_small
+comparisons (GPU bf16 kernels against the CPU fp32 plain path) with it. A
+sound run comes first. For each fault it also prints the kernel-level error
+against the plain version at one level-0 shape, the check of chip_smoke.py's
 kernels phase. The faults:
 
 - geglu_last_chunk:   the last 128 of the 4C intermediate columns (one or
                       two steps of the kernel's chunk loop) add nothing;
 - geglu_last_eighth:  the last 4C/8 intermediate columns add nothing;
 - temporal_last_head: the last of the 8 heads writes zeros;
-- flash_last_key_tile: the last 64-key tile is skipped wherever Sk > 64.
+- flash_last_key_tile: the last 64-key tile is skipped wherever Sk > 64;
+- flash_bwd_dkv_last_q_tile: the dK/dV kernel skips its last 64-query tile
+                      wherever Sq > 64;
+- flash_bwd_dq_last_k_tile: the dQ kernel skips its last 64-key tile
+                      wherever Sk > 64.
 
 The faulted wrappers call the real kernels on the GPU; CPU tensors go to
 the plain versions untouched, so the CPU reference stays sound. Prints one
-JSON object last; exits 0 only if the sound run passes both limits and
-every fault fails at least one of them.
+JSON object last; exits 0 only if the sound run passes every limit, every
+forward fault fails at least one of them, every backward fault fails the
+train_small gradient limit (its loss, a forward quantity, is untouched),
+and every fault fails the kernels-phase limit.
 """
 
 from __future__ import annotations
@@ -76,18 +82,50 @@ def _flash_last_key_tile():
                       faulted)
 
 
+def _flash_bwd_dkv_last_q_tile():
+    from videoswap_torch.ops import flash_attention as fa
+    launch = fa._launch_bwd_dkv
+
+    def faulted(q, k, v, dout, lse, delta, dk, dv):
+        sq = q.shape[1]
+        if sq > 64:
+            keep = (sq - 1) // 64 * 64
+            q, dout = q[:, :keep], dout[:, :keep]
+            lse, delta = (t[:, :keep].contiguous() for t in (lse, delta))
+        return launch(q, k, v, dout, lse, delta, dk, dv)
+    return mock.patch.object(fa, '_launch_bwd_dkv', faulted)
+
+
+def _flash_bwd_dq_last_k_tile():
+    from videoswap_torch.ops import flash_attention as fa
+    launch = fa._launch_bwd_dq
+
+    def faulted(q, k, v, dout, lse, delta, dq):
+        sk = k.shape[1]
+        if sk > 64:
+            keep = (sk - 1) // 64 * 64
+            k, v = k[:, :keep], v[:, :keep]
+        return launch(q, k, v, dout, lse, delta, dq)
+    return mock.patch.object(fa, '_launch_bwd_dq', faulted)
+
+
 FAULTS = {
     'sound': contextlib.nullcontext,
     'geglu_last_chunk': lambda: _geglu_skip(lambda inner: 128),
     'geglu_last_eighth': lambda: _geglu_skip(lambda inner: inner // 8),
     'temporal_last_head': _temporal_last_head,
     'flash_last_key_tile': _flash_last_key_tile,
+    'flash_bwd_dkv_last_q_tile': _flash_bwd_dkv_last_q_tile,
+    'flash_bwd_dq_last_k_tile': _flash_bwd_dq_last_k_tile,
 }
+BACKWARD_FAULTS = ('flash_bwd_dkv_last_q_tile', 'flash_bwd_dq_last_k_tile')
 
 
 def kernel_error(fault: str) -> float:
     """max |faulted wrapper - fp32 plain| at one level-0 shape of the
-    faulted kernel, as chip_smoke.py's kernels phase measures it."""
+    faulted kernel, as chip_smoke.py's kernels phase measures it (for the
+    backward kernels, relative to the largest |plain| entry, at the
+    training step's self-attention shape)."""
     import torch
 
     from videoswap_torch.models import layers
@@ -104,6 +142,15 @@ def kernel_error(fault: str) -> float:
                 cs._rand(gen, (c, 4 * c), (4 * c) ** -0.5),
                 cs._rand(gen, (c,), 0.1)]
         out, ref = layers.geglu_ffn(*args), gf.geglu_ffn_plain(*f32(args))
+    elif fault.startswith('flash_bwd'):
+        q, k, v, dout = (cs._rand(gen, (cs.FRAMES, 4096, 8, 40))
+                         for _ in range(4))
+        out, lse = fa.flash_attention_fwd(q, k, v)
+        grads = fa.flash_attention_bwd(q, k, v, out, lse, dout)
+        ref = fa.flash_attention_bwd_plain(*f32((q, k, v, out)), lse,
+                                           dout.float(), 2)
+        return max(float((g.float() - r).abs().max() / r.abs().max())
+                   for g, r in zip(grads, ref))
     elif fault.startswith('temporal'):
         q, k, v = (cs._rand(gen, (512 * cs.FRAMES, 320)) for _ in range(3))
         out = attention.temporal_attention(q, k, v, 8, cs.FRAMES)
@@ -124,25 +171,51 @@ def main() -> None:
     pipe = cs.build_pipeline('cuda', torch.bfloat16)
     cpu = cs.cpu_copy(pipe)
     ref_unet, ref_small = cs.unet_forward(cpu.unet), cs.small_sample(cpu)
+    cpu_trainer = cs.make_trainer(cpu, remat=False)
+    batch, draws = cs.small_train_inputs(cpu_trainer)
+    ref_loss, ref_grad = cs.small_train_grad(cpu_trainer, batch, draws)
+    trainer = cs.make_trainer(pipe)
     rows = {}
     for name, plant in FAULTS.items():
         with plant():
+            loss, grad = cs.small_train_grad(trainer, batch, draws)
             row = {'unet_rel_err': cs.rel_err(cs.unet_forward(pipe.unet),
                                               ref_unet),
                    'small_rel_err': cs.rel_err(cs.small_sample(pipe),
-                                               ref_small)}
+                                               ref_small),
+                   'train_loss_rel_err': abs(loss - ref_loss) / abs(ref_loss),
+                   'train_grad_rel_err': cs.rel_err(grad, ref_grad)}
             if name != 'sound':
-                row['kernel_max_abs_err'] = kernel_error(name)
+                row['kernel_err'] = kernel_error(name)
         row['unet_fails'] = row['unet_rel_err'] > cs.MODEL_REL_TOL
         row['small_fails'] = row['small_rel_err'] > cs.SAMPLE_REL_TOL
+        row['train_loss_fails'] = (row['train_loss_rel_err']
+                                   > cs.TRAIN_LOSS_TOL)
+        row['train_grad_fails'] = (row['train_grad_rel_err']
+                                   > cs.TRAIN_GRAD_TOL)
         rows[name] = row
         cs.log(f'# {name}: {json.dumps(row)}')
     sound = rows.pop('sound')
-    caught = all(r['unet_fails'] or r['small_fails'] for r in rows.values())
-    ok = not (sound['unet_fails'] or sound['small_fails']) and caught
+    kernel_tol = {'geglu': cs.TOL['geglu_ffn'],
+                  'temporal': cs.TOL['temporal_attention'],
+                  'flash_bwd_dkv': cs.TOL['flash_attention_bwd_dkv'],
+                  'flash_bwd_dq': cs.TOL['flash_attention_bwd_dq'],
+                  'flash_last': cs.TOL['flash_attention_fwd']}
+    caught = {}
+    for name, r in rows.items():
+        tol = next(t for key, t in kernel_tol.items()
+                   if name.startswith(key))
+        model = (r['train_grad_fails'] if name in BACKWARD_FAULTS else
+                 r['unet_fails'] or r['small_fails'] or r['train_loss_fails']
+                 or r['train_grad_fails'])
+        caught[name] = bool(model and r['kernel_err'] > tol)
+    ok = not any(v for k, v in sound.items() if k.endswith('_fails')) \
+        and all(caught.values())
     print(json.dumps({'ok': ok, 'unet_tol': cs.MODEL_REL_TOL,
-                      'small_tol': cs.SAMPLE_REL_TOL, 'sound': sound,
-                      'faults': rows}), flush=True)
+                      'small_tol': cs.SAMPLE_REL_TOL,
+                      'train_loss_tol': cs.TRAIN_LOSS_TOL,
+                      'train_grad_tol': cs.TRAIN_GRAD_TOL, 'sound': sound,
+                      'faults': rows, 'caught': caught}), flush=True)
     sys.exit(0 if ok else 1)
 
 

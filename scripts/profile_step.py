@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""Device-time breakdown and idle share of one full-width U-Net step.
+"""Device-time breakdown and idle share of one full-width step.
 
-    python3 scripts/profile_step.py [TRACE_PATH]
+    python3 scripts/profile_step.py [--train] [TRACE_PATH]
 
-The step is the main path's: 16 frames at 512x512, CFG-prefix dedup, adapter
-residuals, bf16, random weights from chip_smoke.py's seed. After 3 warm-up
+The step is the sample path's U-Net step: 16 frames at 512x512, CFG-prefix
+dedup, adapter residuals, bf16, random weights from chip_smoke.py's seed.
+With --train it is the training path's `VideoSwapTrainer.step` instead
+(chip_smoke.py's train phase: 16 frames at 512x512, cached VAE moments,
+'edges' gradient checkpointing, AdamW on the adapter). After 3 warm-up
 steps it times 10 steps on the host clock (each ended by a
 `torch.cuda.synchronize()`), then traces one more under `torch.profiler`
-and writes the Chrome trace to TRACE_PATH (default
-chiprun_out/step_trace.json).
+and writes the Chrome trace to TRACE_PATH (default build/step_trace.json,
+inside the build directory that version control ignores).
 
 Device busy time is the union of the traced step's kernel, memcpy and
 memset spans. Two idle shares are printed:
@@ -35,6 +38,7 @@ import chip_smoke as cs  # noqa: E402
 
 GROUPS = (('geglu', 'geglu_ffn kernel'),
           ('flash_fwd', 'flash forward kernel'),
+          ('flash_bwd', 'flash backward kernels'),
           ('temporal_attention', 'temporal attention kernel'),
           ('fprop', 'convolution (cuDNN)'), ('conv', 'convolution (cuDNN)'),
           ('gemm', 'matmul (cuBLAS)'), ('sm90_', 'matmul (cuBLAS)'),
@@ -63,16 +67,8 @@ def union_us(spans) -> float:
     return busy + (cur_e - cur_s if cur_e is not None else 0.0)
 
 
-def main() -> None:
+def unet_step(unet):
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    if not torch.cuda.is_available():
-        cs.die('no CUDA device: this script runs only on a GPU')
-    trace_path = Path(sys.argv[1] if len(sys.argv) > 1
-                      else 'chiprun_out/step_trace.json')
-    trace_path.parent.mkdir(parents=True, exist_ok=True)
-    cs.log(f'# nvidia-smi: {cs.card()}')
-    unet = cs.build_pipeline('cuda', torch.bfloat16).unet
     g = torch.Generator(device='cuda').manual_seed(cs.SEED)
     h8 = cs.SIZE // 8
     x = torch.randn((1, cs.FRAMES, h8, h8, 4), generator=g,
@@ -83,23 +79,57 @@ def main() -> None:
            for r, c in ((1, 320), (2, 640), (4, 1280), (8, 1280))]
     t = torch.tensor(501, device='cuda')
 
+    @torch.no_grad()
     def step():
         unet(x, t, text, res, cfg_prefix_dedup=True)
         torch.cuda.synchronize()
+    return step
 
+
+def train_step(pipe):
+    import torch
+    trainer = cs.make_trainer(pipe)
+    batch = {k: v.cuda() for k, v in
+             cs.train_batch(cs.FRAMES, cs.SIZE, cs.SEED + 5).items()}
     with torch.no_grad():
-        for _ in range(3):
-            step()
-        times = []
-        for _ in range(10):
-            t0 = time.perf_counter()
-            step()
-            times.append(time.perf_counter() - t0)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            step()
-            traced_s = time.perf_counter() - t0
+        mean, logvar = trainer.vae.encode_video_moments(
+            batch.pop('pixels').bfloat16())
+    batch.update(latent_mean=mean, latent_logvar=logvar)
+    gen = torch.Generator(device='cuda').manual_seed(cs.SEED)
+
+    def step():
+        trainer.step(batch, gen)
+        torch.cuda.synchronize()
+    return step
+
+
+def main() -> None:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    if not torch.cuda.is_available():
+        cs.die('no CUDA device: this script runs only on a GPU')
+    args = [a for a in sys.argv[1:] if a != '--train']
+    train = len(args) < len(sys.argv) - 1
+    trace_path = Path(args[0] if args else 'build/step_trace.json')
+    trace_path.parent.mkdir(parents=True, exist_ok=True)
+    cs.log(f'# nvidia-smi: {cs.card()}')
+    pipe = cs.build_pipeline('cuda', torch.bfloat16)
+    if train:
+        step = train_step(pipe)
+    else:
+        step = unet_step(pipe.unet)
+    for _ in range(3):
+        step()
+    times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        step()
+        times.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        traced_s = time.perf_counter() - t0
     prof.export_chrome_trace(str(trace_path))
     events = json.loads(trace_path.read_text())['traceEvents']
     kern = [e for e in events

@@ -201,7 +201,8 @@ def test_sample_refuses_what_is_not_ported(pipes):
 
 def test_port_runs_with_jax_blocked():
     """The port imports nothing of JAX, flax or videoswap_tpu: with both
-    blocked, import the package, build the tiny pipeline and sample."""
+    blocked, import the package, build the tiny pipeline and sample, then
+    build the models through `builders` and take a training step."""
     code = textwrap.dedent(f'''
         import sys
         sys.modules['jax'] = None
@@ -231,6 +232,20 @@ def test_port_runs_with_jax_blocked():
         out = pipe.sample('a cat', 2, 64, 64, num_inference_steps=1,
                           output_type='np', generator=g)
         assert out.shape == (1, 2, 64, 64, 3), out.shape
+        from videoswap_torch.builders import build_models
+        from videoswap_torch.pipelines import VideoSwapTrainer
+        built = build_models(
+            {{'unet': {{'unet_cfg': {UNET_KW!r}}}, 'vae_cfg': {VAE_KW!r},
+             'text_encoder_cfg': {CLIP_KW!r},
+             'adapter': {{'adapter_cfg': {ADAPTER_KW!r}}}}}, device='cpu')
+        trainer = VideoSwapTrainer(
+            tune_cfg={{'drop_rate': 0.2, 'min_timestep': 0.5}}, **built)
+        batch = {{'pixels': torch.rand(1, 2, 64, 64, 3) * 2 - 1,
+                 'input_ids': torch.zeros(1, 77, dtype=torch.long),
+                 'pred_tracks': torch.rand(2, 3, 2) * 64,
+                 'point_embedding': torch.randn(3, 12)}}
+        loss = trainer.step(batch, g)
+        assert torch.isfinite(loss), loss
         loaded = [m for m in sys.modules
                   if m.split('.')[0] in ('jax', 'flax', 'videoswap_tpu')
                   and sys.modules[m] is not None]

@@ -53,4 +53,68 @@ __device__ __forceinline__ uint32_t ldg32(const bf16* p) {
   return __ldg(reinterpret_cast<const unsigned int*>(p));
 }
 
+// Rows [r0, r0 + ROWS) of a (rows, d) bf16 matrix with row stride
+// `row_stride` (elements) -> shared (ROWS, DP) with leading dimension DP + 8,
+// zero-filled past `rows` and past d. d is a multiple of 8 and rows start
+// 16-byte aligned, so each thread moves 16 bytes at a time.
+template <int DP, int ROWS, int THREADS>
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
+                                          long long row_stride, int r0,
+                                          int rows, int d) {
+  constexpr int LD = DP + 8;
+  constexpr int V = DP / 8;
+  for (int i = threadIdx.x; i < ROWS * V; i += THREADS) {
+    const int r = i / V;
+    const int col = (i - r * V) * 8;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (r0 + r < rows && col < d)
+      val = *reinterpret_cast<const uint4*>(src + (long long)(r0 + r) * row_stride + col);
+    *reinterpret_cast<uint4*>(dst + r * LD + col) = val;
+  }
+}
+
+// A fragment (16x16) of rows [r, r + 16), columns [c, c + 16) of a
+// row-major shared tile with leading dimension LD
+__device__ __forceinline__ void frag_a(uint32_t a[4], const bf16* tile,
+                                       int LD, int r, int c) {
+  const int lane = threadIdx.x & 31;
+  const bf16* p = tile + (r + (lane >> 2)) * LD + c + 2 * (lane & 3);
+  a[0] = ld32(p);
+  a[1] = ld32(p + 8 * LD);
+  a[2] = ld32(p + 8);
+  a[3] = ld32(p + 8 * LD + 8);
+}
+
+// B fragment (16x8) with B[k][n] = tile[n0 + n][k0 + k]: the tile holds B
+// transposed (keys against head dim for Q.K^T)
+__device__ __forceinline__ void frag_bt(uint32_t b[2], const bf16* tile,
+                                        int LD, int n0, int k0) {
+  const int lane = threadIdx.x & 31;
+  const bf16* p = tile + (n0 + (lane >> 2)) * LD + k0 + 2 * (lane & 3);
+  b[0] = ld32(p);
+  b[1] = ld32(p + 8);
+}
+
+// B fragment (16x8) with B[k][n] = tile[k0 + k][n0 + n]: the tile holds B
+// as it is (keys against head dim for P.V)
+__device__ __forceinline__ void frag_b(uint32_t b[2], const bf16* tile,
+                                       int LD, int k0, int n0) {
+  const int lane = threadIdx.x & 31;
+  const bf16* p = tile + (k0 + 2 * (lane & 3)) * LD + n0 + (lane >> 2);
+  b[0] = pack_u16(p[0], p[LD]);
+  b[1] = pack_u16(p[8 * LD], p[9 * LD]);
+}
+
+// A fragment (16x16) from two fp32 C fragments (16x8 each, columns
+// [0, 8) and [8, 16)): the C and A layouts line up, so a product's result
+// feeds the next product without a shared-memory round trip
+__device__ __forceinline__ void frag_a_from_c(uint32_t a[4],
+                                              const float c0[4],
+                                              const float c1[4]) {
+  a[0] = pack_bf16(c0[0], c0[1]);
+  a[1] = pack_bf16(c0[2], c0[3]);
+  a[2] = pack_bf16(c1[0], c1[1]);
+  a[3] = pack_bf16(c1[2], c1[3]);
+}
+
 }  // namespace vs

@@ -39,22 +39,11 @@ constexpr int kBQ = 64;  // query rows per block (16 per warp)
 constexpr int kBK = 64;  // keys per tile
 constexpr int kThreads = 128;
 
-// rows [r0, r0 + 64) of a (rows, d) strided matrix -> shared (64, DP),
-// zero-filled past `rows` and past d (d is a multiple of 8)
 template <int DP>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
                                           long long row_stride, int r0,
                                           int rows, int d) {
-  constexpr int LD = DP + 8;
-  constexpr int V = DP / 8;
-  for (int i = threadIdx.x; i < 64 * V; i += kThreads) {
-    const int r = i / V;
-    const int col = (i - r * V) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < rows && col < d)
-      val = *reinterpret_cast<const uint4*>(src + (long long)(r0 + r) * row_stride + col);
-    *reinterpret_cast<uint4*>(dst + r * LD + col) = val;
-  }
+  vs::load_rows<DP, 64, kThreads>(dst, src, row_stride, r0, rows, d);
 }
 
 struct Strides {

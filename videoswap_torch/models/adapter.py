@@ -4,7 +4,9 @@ residual maps (the port of videoswap_tpu/models/adapter.py).
 The bilinear splat of every (frame, point, corner) is one vectorised
 scatter-add per level: corner indices clipped to the map independently,
 weights from the unclipped fractional offsets, points with x < 0 or y < 0
-invisible, `point_mask` selecting a subset of points.
+invisible, `point_mask` selecting a subset of points. With `loss_type` the adapter
+also returns the training loss mask: all ones ('global') or the union of
+radius-2 boxes around the visible points at the /8 resolution ('local').
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ class AdapterConfig(NamedTuple):
     channels: Sequence[int] = (320, 640, 1280, 1280)
     downsample_rate: Sequence[int] = (8, 16, 32, 64)
     mid_dim: int = 128
+    radius: int = 2
 
 
 def bilinear_splat(feat: torch.Tensor, tracks: torch.Tensor,
@@ -55,6 +58,24 @@ def bilinear_splat(feat: torch.Tensor, tracks: torch.Tensor,
     return out
 
 
+def local_loss_mask(tracks: torch.Tensor, valid: torch.Tensor, height: int,
+                    width: int, rate: int, radius: int) -> torch.Tensor:
+    """Union over frames and points of the half-open boxes
+    [p - radius, p + radius) (ends clipped to [0, size - 1]) around every
+    visible point: a [height, width] fp32 mask, the same for every frame."""
+    pos = torch.floor(tracks.float() / rate).to(torch.int64)
+    px, py = pos[..., 0].reshape(-1), pos[..., 1].reshape(-1)   # [F*P]
+    v = valid.reshape(-1)
+    x1, x2 = ((px + o).clamp(0, width - 1) for o in (-radius, radius))
+    y1, y2 = ((py + o).clamp(0, height - 1) for o in (-radius, radius))
+    gx = torch.arange(width, device=tracks.device)[None, None, :]
+    gy = torch.arange(height, device=tracks.device)[None, :, None]
+    inside = ((gx >= x1[:, None, None]) & (gx < x2[:, None, None])
+              & (gy >= y1[:, None, None]) & (gy < y2[:, None, None])
+              & v[:, None, None])
+    return inside.any(dim=0).float()
+
+
 class _MLP(nn.Module):
     def __init__(self, cin: int, mid: int, cout: int):
         super().__init__()
@@ -76,17 +97,29 @@ class SparsePointAdapter(nn.Module):
 
     def forward(self, pred_tracks: torch.Tensor, size: tuple[int, int],
                 point_embedding: torch.Tensor,
-                point_mask: Optional[torch.Tensor] = None):
+                point_mask: Optional[torch.Tensor] = None,
+                loss_type: Optional[str] = None):
         """pred_tracks [F, P, 2] (x, y) pixels; size (W, H); point_embedding
         [P, E]; point_mask [P] bool. Returns the per-level residuals
-        [F, H/r, W/r, C_l]."""
+        [F, H/r, W/r, C_l]; with `loss_type` ('global' or 'local') returns
+        (residuals, [F, H/8, W/8, 1] fp32 loss mask)."""
+        cfg = self.cfg
         w, h = size
         visible = (pred_tracks[..., 0] >= 0) & (pred_tracks[..., 1] >= 0)
         if point_mask is not None:
             visible = visible & point_mask[None, :]
         dtype = self.model_list[0].mlp[0].weight.dtype
         emb = point_embedding.to(dtype)
-        return [bilinear_splat(mlp(emb), pred_tracks, visible, h // rate,
-                               w // rate, rate)
-                for mlp, rate in zip(self.model_list,
-                                     self.cfg.downsample_rate)]
+        states = [bilinear_splat(mlp(emb), pred_tracks, visible, h // rate,
+                                 w // rate, rate)
+                  for mlp, rate in zip(self.model_list, cfg.downsample_rate)]
+        if loss_type is None:
+            return states
+        f, rate = pred_tracks.shape[0], cfg.downsample_rate[0]
+        h8, w8 = h // rate, w // rate
+        if loss_type == 'global':
+            mask = torch.ones((h8, w8), device=pred_tracks.device)
+        else:
+            mask = local_loss_mask(pred_tracks, visible, h8, w8, rate,
+                                   cfg.radius)
+        return states, mask[None, :, :, None].expand(f, h8, w8, 1)

@@ -4,8 +4,9 @@ videoswap_tpu/models/unet3d.py).
 Channels-last (B, F, H, W, C) activations, frames folded into the batch for
 the 2D ops; adapter residuals added to the LAST layer of each down block;
 ED-LoRA layer-wise text (B, L, 77, D) sliced per cross-attention layer by a
-static index; CFG-prefix dedup (see `AnimateDiffUNet3DModel.forward`).
-Submodule names follow the diffusers keys.
+static index; CFG-prefix dedup (see `AnimateDiffUNet3DModel.forward`);
+gradient checkpointing per level (`set_gradient_checkpointing`). Submodule
+names follow the diffusers keys.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from videoswap_torch.utils.registry import MODEL_REGISTRY
 
@@ -62,7 +64,20 @@ def _transformer(cfg, ch, cross_layer_idx):
                               norm_groups=cfg.norm_num_groups)
 
 
-class CrossAttnDownBlock3D(nn.Module):
+class _Block(nn.Module):
+    """A U-Net block whose ResnetBlock3D and Transformer3DModel layers (the
+    two the JAX package wraps in `nn.remat`) are recomputed in the backward
+    pass when `remat` is set and a graph is being recorded."""
+
+    remat = False
+
+    def _run(self, layer, *args, **kwargs):
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(layer, *args, use_reentrant=False, **kwargs)
+        return layer(*args, **kwargs)
+
+
+class CrossAttnDownBlock3D(_Block):
     def __init__(self, cfg: UNet3DConfig, in_channels: int, out_channels: int,
                  use_motion: bool, add_downsample: bool, place_idx: int):
         super().__init__()
@@ -87,8 +102,9 @@ class CrossAttnDownBlock3D(nn.Module):
         skips = []
         n = len(self.resnets)
         for i in range(n):
-            x = self.resnets[i](x, temb)
-            x = self.attentions[i](x, text, cfg_expand=cfg_expand and i == 0)
+            x = self._run(self.resnets[i], x, temb)
+            x = self._run(self.attentions[i], x, text,
+                          cfg_expand=cfg_expand and i == 0)
             if self.motion_modules is not None:
                 x = self.motion_modules[i](x)
             if i == n - 1 and adapter_residual is not None:
@@ -100,7 +116,7 @@ class CrossAttnDownBlock3D(nn.Module):
         return x, skips
 
 
-class DownBlock3D(nn.Module):
+class DownBlock3D(_Block):
     def __init__(self, cfg: UNet3DConfig, in_channels: int, out_channels: int,
                  use_motion: bool, add_downsample: bool):
         super().__init__()
@@ -118,7 +134,7 @@ class DownBlock3D(nn.Module):
     def forward(self, x, temb, adapter_residual=None):
         skips = []
         for i, resnet in enumerate(self.resnets):
-            x = resnet(x, temb)
+            x = self._run(resnet, x, temb)
             if self.motion_modules is not None:
                 x = self.motion_modules[i](x)
             skips.append(x)
@@ -132,7 +148,7 @@ class DownBlock3D(nn.Module):
         return x, skips
 
 
-class UNetMidBlock3DCrossAttn(nn.Module):
+class UNetMidBlock3DCrossAttn(_Block):
     def __init__(self, cfg: UNet3DConfig, use_motion: bool):
         super().__init__()
         ch = cfg.block_out_channels[-1]
@@ -145,14 +161,14 @@ class UNetMidBlock3DCrossAttn(nn.Module):
                                if use_motion else None)
 
     def forward(self, x, temb, text):
-        x = self.resnets[0](x, temb)
-        x = self.attentions[0](x, text)
+        x = self._run(self.resnets[0], x, temb)
+        x = self._run(self.attentions[0], x, text)
         if self.motion_modules is not None:
             x = self.motion_modules[0](x)
-        return self.resnets[1](x, temb)
+        return self._run(self.resnets[1], x, temb)
 
 
-class CrossAttnUpBlock3D(nn.Module):
+class CrossAttnUpBlock3D(_Block):
     def __init__(self, cfg: UNet3DConfig, in_channels: int,
                  prev_output_channel: int, out_channels: int,
                  use_motion: bool, add_upsample: bool, place_idx: int):
@@ -178,8 +194,8 @@ class CrossAttnUpBlock3D(nn.Module):
     def forward(self, x, skips, temb, text, upsample_size=None):
         for i in range(len(self.resnets)):
             x = torch.cat([x, skips.pop()], dim=-1)
-            x = self.resnets[i](x, temb)
-            x = self.attentions[i](x, text)
+            x = self._run(self.resnets[i], x, temb)
+            x = self._run(self.attentions[i], x, text)
             if self.motion_modules is not None:
                 x = self.motion_modules[i](x)
         if self.upsamplers is not None:
@@ -187,7 +203,7 @@ class CrossAttnUpBlock3D(nn.Module):
         return x
 
 
-class UpBlock3D(nn.Module):
+class UpBlock3D(_Block):
     def __init__(self, cfg: UNet3DConfig, in_channels: int,
                  prev_output_channel: int, out_channels: int,
                  use_motion: bool, add_upsample: bool):
@@ -208,7 +224,7 @@ class UpBlock3D(nn.Module):
     def forward(self, x, skips, temb, upsample_size=None):
         for i, resnet in enumerate(self.resnets):
             x = torch.cat([x, skips.pop()], dim=-1)
-            x = resnet(x, temb)
+            x = self._run(resnet, x, temb)
             if self.motion_modules is not None:
                 x = self.motion_modules[i](x)
         if self.upsamplers is not None:
@@ -220,11 +236,12 @@ class UpBlock3D(nn.Module):
 class AnimateDiffUNet3DModel(nn.Module):
     """The video U-Net: sample (B, F, H, W, 4) -> eps (B, F, H, W, 4).
 
-    Every spatial self- and cross-attention site runs the flash-attention
-    forward; the motion modules' frame axis runs temporal attention
-    (ops/attention.py)."""
+    Every spatial self- and cross-attention site runs flash attention; the
+    motion modules' frame axis runs temporal attention (ops/attention.py).
+    `gradient_checkpointing`: see `set_gradient_checkpointing`."""
 
-    def __init__(self, cfg: UNet3DConfig = UNet3DConfig()):
+    def __init__(self, cfg: UNet3DConfig = UNet3DConfig(),
+                 gradient_checkpointing: bool | str = False):
         super().__init__()
         if cfg.motion_window is not None:
             raise NotImplementedError(
@@ -273,6 +290,27 @@ class AnimateDiffUNet3DModel(nn.Module):
         self.conv_norm_out = GroupNorm(cfg.norm_num_groups, chans[0],
                                        eps=cfg.norm_eps)
         self.conv_out = InflatedConv(chans[0], cfg.out_channels)
+        self.set_gradient_checkpointing(gradient_checkpointing)
+
+    def set_gradient_checkpointing(self, mode: bool | str) -> None:
+        """False: keep every activation for the backward. True: recompute
+        the resnet and spatial-transformer layers of every block. 'edges':
+        recompute them only in the full-resolution (level 0) blocks, whose
+        activations are the largest, and keep everything deeper (the
+        training default)."""
+        if mode in ('save_flash', 'edges_sf'):
+            raise NotImplementedError(
+                f'gradient_checkpointing={mode!r} needs a selective '
+                'checkpoint policy and is not ported yet (ROADMAP.md)')
+        if mode not in (False, True, 'edges'):
+            raise ValueError(f'unknown gradient_checkpointing: {mode!r}')
+        top = len(self.down_blocks) - 1
+        levels = ([(b, i) for i, b in enumerate(self.down_blocks)]
+                  + [(self.mid_block, top)]
+                  + [(b, top - i) for i, b in enumerate(self.up_blocks)])
+        for block, level in levels:
+            block.remat = level == 0 if mode == 'edges' else bool(mode)
+        self.gradient_checkpointing = mode
 
     def forward(self, sample: torch.Tensor, timesteps,
                 encoder_hidden_states: torch.Tensor,

@@ -1,7 +1,9 @@
 """AutoencoderKL (SD-1.5 VAE), channels-last (the port of
 videoswap_tpu/models/vae.py): 4-level encoder/decoder (128, 256, 512, 512),
 GroupNorm(32, eps 1e-6), one-head mid-block attention, scaling 0.18215.
-`encode_video` / `decode_video` fold frames into the batch.
+`encode_video` / `decode_video` fold frames into the batch;
+`encode_video_moments` / `sample_video_from_moments` let a training loop
+encode a video once and draw a fresh posterior sample at every step.
 
 The mid-block attention (one head, d = 512, 4096 tokens at 512x512) is plain
 matmul + softmax, as in the JAX package, where XLA computes it outside any
@@ -221,6 +223,28 @@ class AutoencoderKL(nn.Module):
         b, f = video.shape[:2]
         z = self.encode(video.reshape(b * f, *video.shape[2:]), generator)
         return z.reshape(b, f, *z.shape[1:])
+
+    def encode_video_moments(self, video):
+        """(B, F, H, W, 3) -> posterior (mean, logvar), each
+        (B, F, H/8, W/8, 4), unscaled."""
+        b, f = video.shape[:2]
+        mean, logvar = self.encode_moments(
+            video.reshape(b * f, *video.shape[2:]))
+        return (mean.reshape(b, f, *mean.shape[1:]),
+                logvar.reshape(b, f, *logvar.shape[1:]))
+
+    def sample_video_from_moments(self, mean, logvar,
+                                  eps: Optional[torch.Tensor] = None,
+                                  generator: Optional[torch.Generator] = None):
+        """The scaled posterior sample `encode_video` draws, from cached
+        moments: `eps` (mean's shape, or frames folded into the batch) or,
+        without it, a standard normal draw from `generator`."""
+        if eps is None:
+            eps = torch.randn(mean.shape, generator=generator,
+                              device=mean.device, dtype=mean.dtype)
+        z = mean + torch.exp(0.5 * logvar) * eps.reshape(mean.shape).to(
+            mean.dtype)
+        return z * self.scaling_factor
 
     def decode_video(self, latents):
         """(B, F, h, w, 4) -> (B, F, 8h, 8w, 3) in [-1, 1] (unclipped)."""

@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
 The kernels live in `videoswap_torch/csrc/*.cu` with a plain C interface.
-At first use they are compiled with `nvcc` for `sm_90a` into one shared
-library under `build/videoswap_torch_kernels/` at the repository root and
-loaded with `ctypes`. The library's file name carries a digest of the
+At first use each source is compiled with `nvcc` for `sm_90a` into an
+object file, all sources at once in parallel processes, and the objects are
+linked into one shared library under `build/videoswap_torch_kernels/` at the
+repository root, loaded with `ctypes`. The library's file name carries a digest of the
 sources and flags, so an edited source is rebuilt and an unchanged one is
 reused. Nothing here runs at import time: the CPU tests import every module
 of the port on a machine without `nvcc`.
@@ -24,16 +25,21 @@ CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = (Path(__file__).resolve().parents[2] / 'build'
              / 'videoswap_torch_kernels')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-              '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+              '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_STRIDES = ctypes.POINTER(ctypes.c_longlong)
 # C entry point -> argument types; every entry point returns a cudaError_t
 _SIGNATURES = {
     'vs_geglu_ffn': [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     'vs_temporal_attention': [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     'vs_flash_attention_fwd': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               ctypes.POINTER(ctypes.c_longlong), _P],
+                               _STRIDES, _P],
+    'vs_flash_attention_bwd_dq': [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _I, _STRIDES, _P],
+    'vs_flash_attention_bwd_dkv': [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                   _I, _I, _I, _STRIDES, _P],
 }
 
 
@@ -71,16 +77,33 @@ def build() -> tuple[Path, float]:
     if out.exists():
         return out, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f'{out.name}.{os.getpid()}.tmp')
-    cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), *map(str, _sources())]
+    tag = f'{out.stem}.{os.getpid()}'
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    objs, procs = [], []
+    for src in _sources():
+        obj = BUILD_DIR / f'{tag}.{src.stem}.o'
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, '-c', '-o', str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = [(p.communicate()[0], p.returncode) for p in procs]
+    text = ''.join(f'== {src.name}\n{log}' for src, (log, _)
+                   in zip(_sources(), logs))
+    failed = [rc for _, rc in logs if rc]
+    tmp = out.with_name(f'{tag}.tmp')
+    if not failed:
+        link = subprocess.run([nvcc, '-shared', '-o', str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        text += link.stdout + link.stderr
+        failed = [link.returncode] if link.returncode else []
     seconds = time.perf_counter() - t0
-    log = out.with_suffix('.log')
-    log.write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise KernelBuildError(
-            f'nvcc failed ({proc.returncode}):\n{proc.stderr[-8000:]}')
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    out.with_suffix('.log').write_text(text)
+    if failed:
+        raise KernelBuildError(f'nvcc failed ({failed}):\n{text[-8000:]}')
     # atomic: a concurrent process never sees a partial file
     os.replace(tmp, out)
     return out, seconds

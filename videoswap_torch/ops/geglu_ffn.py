@@ -9,6 +9,12 @@ A CUDA tensor launches `csrc/geglu_ffn.cu` (bf16 only; C a multiple of 128
 up to 1280, or of 64 up to 320) or raises; a CPU tensor takes
 `geglu_ffn_plain`. The kernel uses the same `gelu_fast` polynomial as the
 plain version.
+
+`geglu_ffn` is differentiable. Its backward, `geglu_ffn_bwd_plain`, is plain
+PyTorch on either device, as the JAX package's is plain XLA: it recomputes
+the projection and writes out the derivative of `gelu_fast`, so it keeps
+no autograd graph of the polynomial, and it computes only the gradients
+asked for (dX alone when the weights are frozen).
 """
 
 from __future__ import annotations
@@ -47,6 +53,25 @@ def gelu_fast(x: torch.Tensor) -> torch.Tensor:
     """Division/exp-free GELU (|err| <= 4.7e-5), fp32 inside, result in the
     input dtype."""
     return (0.5 * x.float() * (1.0 + _erf_fast(x * (2.0 ** -0.5)))).to(x.dtype)
+
+
+def _gelu_fast_and_grad(x: torch.Tensor):
+    """gelu_fast(x) and its derivative, both fp32 (x fp32)."""
+    u = x * (2.0 ** -0.5)
+    s_raw = u * u * (1.0 / 9.0)
+    s = torch.clamp(s_raw, max=1.0)
+    q = torch.full_like(s, _ERF_HORNER[0])
+    dq = torch.zeros_like(s)
+    for c in _ERF_HORNER[1:]:
+        dq = dq * s + q
+        q = q * s + c
+    e_raw = u * q
+    erf = torch.clamp(e_raw, -1.0, 1.0)
+    # d(u q(s))/du, with s = min(u^2/9, 1) and the clamp of erf to [-1, 1]
+    derf = q + u * dq * torch.where(s_raw < 1.0, u * (2.0 / 9.0), 0.0)
+    derf = torch.where(e_raw.abs() <= 1.0, derf, 0.0)
+    return (0.5 * x * (1.0 + erf),
+            0.5 * (1.0 + erf) + 0.5 * x * derf * (2.0 ** -0.5))
 
 
 def geglu_ffn_plain(x, w1, b1, w2, b2):
@@ -97,8 +122,61 @@ def geglu_ffn_kernel(x, w1, b1, w2, b2):
     return out
 
 
+def geglu_ffn_bwd_plain(x, w1, b1, w2, b2, dout,
+                        needs=(True, True, True, True, True)):
+    """Gradients of geglu_ffn_plain for (x, w1, b1, w2, b2), None where
+    `needs` is False. Products run in x's dtype, the gate's derivative in
+    fp32; rows go in chunks so that the (rows, 4C) fp32 temporaries stay
+    bounded at the largest U-Net level."""
+    n, c = x.shape
+    inner = w2.shape[1]
+    dt = x.dtype
+    w1c, w2c = w1.to(dt), w2.to(dt)
+    dx = torch.empty_like(x) if needs[0] else None
+    acc = [torch.zeros(t.shape, dtype=torch.float32, device=x.device)
+           if need else None
+           for t, need in zip((w1, b1, w2, b2), needs[1:])]
+    rows = max(1, (1 << 24) // inner)
+    for i in range(0, n, rows):
+        xs, gs = x[i:i + rows], dout[i:i + rows].to(dt)
+        a, gate = (torch.nn.functional.linear(xs, w1c) + b1).chunk(2, dim=-1)
+        af = a.float()
+        gelu, dgelu = _gelu_fast_and_grad(gate.float())
+        dg = (gs @ w2c).float()
+        dh = torch.cat([dg * gelu, dg * af * dgelu], dim=-1).to(dt)
+        if dx is not None:
+            dx[i:i + rows] = dh @ w1c
+        if acc[0] is not None:
+            acc[0] += (dh.t() @ xs).float()
+        if acc[1] is not None:
+            acc[1] += dh.float().sum(0)
+        if acc[2] is not None:
+            acc[2] += (gs.t() @ (af * gelu).to(dt)).float()
+        if acc[3] is not None:
+            acc[3] += gs.float().sum(0)
+    return (dx, *(g.to(t.dtype) if g is not None else None
+                  for g, t in zip(acc, (w1, b1, w2, b2))))
+
+
+class GegluFFN(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2):
+        ctx.save_for_backward(x, w1, b1, w2, b2)
+        if x.is_cuda:
+            return geglu_ffn_kernel(x, w1, b1, w2, b2)
+        return geglu_ffn_plain(x, w1, b1, w2, b2)
+
+    @staticmethod
+    def backward(ctx, dout):
+        return geglu_ffn_bwd_plain(*ctx.saved_tensors, dout,
+                                   ctx.needs_input_grad)
+
+
 def geglu_ffn(x, w1, b1, w2, b2):
     """x: (N, C); w1: (8C, C); b1: (8C,); w2: (C, 4C); b2: (C,)."""
+    args = (x, w1, b1, w2, b2)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return GegluFFN.apply(*args)
     if x.is_cuda:
-        return geglu_ffn_kernel(x, w1, b1, w2, b2)
-    return geglu_ffn_plain(x, w1, b1, w2, b2)
+        return geglu_ffn_kernel(*args)
+    return geglu_ffn_plain(*args)

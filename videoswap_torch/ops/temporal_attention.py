@@ -5,6 +5,11 @@ plain PyTorch version.
 (location, frame) and runs multi-head self-attention over the F frames of
 each location. A CUDA tensor launches `csrc/temporal_attention.cu` (bf16,
 F <= 32) or raises; a CPU tensor takes `temporal_attention_plain`.
+
+`temporal_attention` is differentiable. Its backward,
+`temporal_attention_bwd_plain`, recomputes the (tiny-F) attention in fp32
+plain PyTorch on either device, as the JAX package's custom VJP does in
+plain XLA.
 """
 
 from __future__ import annotations
@@ -27,6 +32,23 @@ def temporal_attention_plain(q2, k2, v2, heads: int, f: int):
     p = torch.softmax(s, dim=-1)
     out = torch.einsum('lhfg,lghd->lfhd', p, vh)
     return out.reshape(n, c).to(q2.dtype)
+
+
+def temporal_attention_bwd_plain(q2, k2, v2, dout, heads: int, f: int):
+    """(dq2, dk2, dv2) of temporal_attention_plain, computed in fp32."""
+    n, c = q2.shape
+    d = c // heads
+    scale = d ** -0.5
+    qh, kh, vh, do = (t.reshape(n // f, f, heads, d).float()
+                      for t in (q2, k2, v2, dout))
+    p = torch.softmax(torch.einsum('lfhd,lghd->lfgh', qh, kh) * scale, dim=2)
+    dv = torch.einsum('lfgh,lfhd->lghd', p, do)
+    dp = torch.einsum('lfhd,lghd->lfgh', do, vh)
+    ds = p * (dp - (p * dp).sum(dim=2, keepdim=True))
+    dq = torch.einsum('lfgh,lghd->lfhd', ds, kh) * scale
+    dk = torch.einsum('lfgh,lfhd->lghd', ds, qh) * scale
+    return (dq.reshape(n, c).to(q2.dtype), dk.reshape(n, c).to(k2.dtype),
+            dv.reshape(n, c).to(v2.dtype))
 
 
 def temporal_attention_kernel(q2, k2, v2, heads: int, f: int):
@@ -56,8 +78,28 @@ def temporal_attention_kernel(q2, k2, v2, heads: int, f: int):
     return out
 
 
-def temporal_attention(q2, k2, v2, heads: int, f: int):
-    """q2/k2/v2: (L*F, C), rows (location, frame) -> (L*F, C)."""
+def _temporal_attention_fwd(q2, k2, v2, heads: int, f: int):
     if q2.is_cuda:
         return temporal_attention_kernel(q2, k2, v2, heads, f)
     return temporal_attention_plain(q2, k2, v2, heads, f)
+
+
+class TemporalAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q2, k2, v2, heads, f):
+        ctx.save_for_backward(q2, k2, v2)
+        ctx.heads, ctx.f = heads, f
+        return _temporal_attention_fwd(q2, k2, v2, heads, f)
+
+    @staticmethod
+    def backward(ctx, dout):
+        return (*temporal_attention_bwd_plain(*ctx.saved_tensors, dout,
+                                              ctx.heads, ctx.f), None, None)
+
+
+def temporal_attention(q2, k2, v2, heads: int, f: int):
+    """q2/k2/v2: (L*F, C), rows (location, frame) -> (L*F, C)."""
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (q2, k2, v2)):
+        return TemporalAttention.apply(q2, k2, v2, heads, f)
+    return _temporal_attention_fwd(q2, k2, v2, heads, f)

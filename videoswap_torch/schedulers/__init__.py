@@ -1,8 +1,9 @@
-from .ddim import (DiffusionSchedule, ddim_inverse_step,
+from .ddim import (DiffusionSchedule, add_noise, ddim_inverse_step,
                    ddim_inverse_timesteps, ddim_step, ddim_timesteps,
-                   make_schedule)
+                   get_velocity, make_schedule)
 
 __all__ = [
     'DiffusionSchedule', 'make_schedule', 'ddim_timesteps',
-    'ddim_inverse_timesteps', 'ddim_step', 'ddim_inverse_step',
+    'ddim_inverse_timesteps', 'ddim_step', 'ddim_inverse_step', 'add_noise',
+    'get_velocity',
 ]
