@@ -26,15 +26,18 @@ Phases (all by default):
                width: 16 frames, 512x512, CFG 7.5, point adapter with 10
                points, 4 DDIM steps, VAE decode; the launch count of every
                forward kernel must be > 0;
-- train_small: `VideoSwapTrainer.loss_fn` and its backward at full width,
-               256x256, 4 frames, the same draws on both sides: loss and the
-               flattened adapter gradient, GPU bf16 against CPU fp32;
+- train_small: `VideoSwapTrainer.loss_fn`, its backward and one AdamW step
+               at full width, 256x256, 4 frames, the same draws on both
+               sides: the loss, the flattened adapter gradient and the change
+               of the adapter's weights, GPU bf16 against CPU fp32, and the
+               share of adapter weights the step moved;
 - train:       this slice's path, `VideoSwapTrainer.step` at full width: 16
                frames, 512x512, 10 points, cached VAE moments, 'edges'
                gradient checkpointing, AdamW on the adapter, TRAIN_STEPS
-               steps; the losses must be finite and the launch count of every
-               kernel > 0 (the recompute of the level-0 layers in the
-               backward launches the forward kernels again, and is counted).
+               steps; the losses must be finite, the steps must move the
+               adapter's weights and the launch count of every kernel must be
+               > 0 (the recompute of the level-0 layers in the backward
+               launches the forward kernels again, and is counted).
 
 Launch counts are set to 0 just before the sample and train paths and read
 just after each. scripts/fault_control.py shows that the unet, small and
@@ -118,6 +121,17 @@ SAMPLE_REL_TOL = 5e-2
 # skips a query tile) on the gradient (scripts/fault_control.py)
 TRAIN_LOSS_TOL = 5e-3
 TRAIN_GRAD_TOL = 2e-2
+# train_small's AdamW step from a fresh state, GPU against CPU fp32: relative
+# L2 of the change of the flattened adapter weights. The first step moves
+# each weight by lr * g / (|g| + eps), about lr * sign(g), so the sides
+# differ only where a near-zero gradient entry changes sign. Sound reading
+# on the H100: 0.103; with the adapter's weights kept in bf16 it reads 0.964
+# and 0.084 of the weights move (scripts/fault_control.py)
+TRAIN_UPDATE_TOL = 0.25
+# the share of adapter weights that a step must move, in train_small and
+# over train's TRAIN_STEPS: fp32 weights move wherever the gradient or the
+# weight is non-zero; bf16 weights of ~0.03 do not move at lr 1e-5
+TRAIN_MOVED_MIN = 0.99
 # NVIDIA H100 SXM published dense peaks: bf16 tensor-core FLOP/s and HBM3
 # bytes/s (at the full 700 W power limit)
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
@@ -620,17 +634,39 @@ def train_batch(frames, size, seed):
             'point_embedding': bf(cond['point_embedding'])}
 
 
-def small_train_grad(trainer, batch, draws):
-    """(loss, flattened adapter gradient in fp32 on the CPU) of one
-    loss_fn + backward; the adapter's weights are not updated."""
+def adapter_weights(trainer):
+    """The adapter's weights, flattened, fp32 on the CPU."""
     import torch
-    trainer.adapter.zero_grad(set_to_none=True)
+    return torch.cat([p.detach().float().flatten().cpu()
+                      for p in trainer.adapter.parameters()])
+
+
+def moved_share(update) -> float:
+    return float((update != 0).float().mean())
+
+
+def small_train_step(trainer, batch, draws):
+    """One loss_fn + backward + AdamW step from a fresh optimizer state:
+    (loss, flattened adapter gradient, flattened change of the adapter's
+    weights), fp32 on the CPU. The weights are put back afterwards, so that
+    every call starts from the same point."""
+    import torch
+    params = list(trainer.adapter.parameters())
+    saved = [p.detach().clone() for p in params]
+    before = adapter_weights(trainer)
+    trainer.optimizer = trainer.init_state()
+    trainer.optimizer.zero_grad(set_to_none=True)
     loss = trainer.loss_fn(batch, draws)
     loss.backward()
-    grad = torch.cat([p.grad.float().flatten().cpu()
-                      for p in trainer.adapter.parameters()])
-    trainer.adapter.zero_grad(set_to_none=True)
-    return loss.item(), grad
+    grad = torch.cat([p.grad.float().flatten().cpu() for p in params])
+    trainer.optimizer.step()
+    update = adapter_weights(trainer) - before
+    with torch.no_grad():
+        for p, s in zip(params, saved):
+            p.copy_(s)
+    trainer.optimizer.zero_grad(set_to_none=True)
+    trainer.optimizer = trainer.init_state()
+    return loss.item(), grad, update
 
 
 def small_train_inputs(trainer):
@@ -648,26 +684,35 @@ def phase_train_small(report, state):
     gpu, cpu = make_trainer(state['pipe']), make_trainer(state['cpu'], False)
     batch, draws = small_train_inputs(cpu)
     t0 = time.perf_counter()
-    loss_gpu, grad_gpu = small_train_grad(gpu, batch, draws)
+    loss_gpu, grad_gpu, upd_gpu = small_train_step(gpu, batch, draws)
     torch.cuda.synchronize()
     t_gpu = time.perf_counter() - t0
     t0 = time.perf_counter()
-    loss_cpu, grad_cpu = small_train_grad(cpu, batch, draws)
+    loss_cpu, grad_cpu, upd_cpu = small_train_step(cpu, batch, draws)
     t_cpu = time.perf_counter() - t0
     loss_err = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
     grad_err = rel_err(grad_gpu, grad_cpu)
+    upd_err = rel_err(upd_gpu, upd_cpu)
+    moved, moved_cpu = moved_share(upd_gpu), moved_share(upd_cpu)
     ok = (torch.isfinite(grad_gpu).all() and loss_err <= TRAIN_LOSS_TOL
-          and grad_err <= TRAIN_GRAD_TOL)
+          and grad_err <= TRAIN_GRAD_TOL and upd_err <= TRAIN_UPDATE_TOL
+          and moved >= TRAIN_MOVED_MIN)
     log(f'# train_small 256x256 4 frames: loss GPU {loss_gpu:.6f} CPU '
         f'{loss_cpu:.6f} rel err {loss_err:.3e} (tol {TRAIN_LOSS_TOL:.0e}); '
         f'adapter grad rel L2 err {grad_err:.3e} (tol {TRAIN_GRAD_TOL:.0e}, '
-        f'|grad| {float(grad_cpu.norm()):.4e}); GPU {t_gpu:.2f} s (first '
-        f'call), CPU {t_cpu:.1f} s {"ok" if ok else "FAIL"}')
+        f'|grad| {float(grad_cpu.norm()):.4e}); AdamW update rel L2 err '
+        f'{upd_err:.3e} (tol {TRAIN_UPDATE_TOL:g}), weights moved GPU '
+        f'{moved:.6f} CPU {moved_cpu:.6f} (min {TRAIN_MOVED_MIN}); GPU '
+        f'{t_gpu:.2f} s (first call), CPU {t_cpu:.1f} s '
+        f'{"ok" if ok else "FAIL"}')
     report.update(train_small_loss_rel_err=loss_err,
-                  train_small_grad_rel_err=grad_err)
+                  train_small_grad_rel_err=grad_err,
+                  train_small_update_rel_err=upd_err,
+                  train_small_moved=moved)
     if not ok:
         raise PhaseError(f'train_small GPU vs CPU: loss {loss_err:.3e}, '
-                         f'grad {grad_err:.3e}')
+                         f'grad {grad_err:.3e}, update {upd_err:.3e}, '
+                         f'moved {moved:.6f}')
 
 
 def phase_train(report, state):
@@ -682,6 +727,7 @@ def phase_train(report, state):
             batch.pop('pixels').bfloat16())
     batch.update(latent_mean=mean, latent_logvar=logvar)
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    before = adapter_weights(trainer)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -695,18 +741,29 @@ def phase_train(report, state):
         losses.append(loss.item())
     counts = read_launches()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    update = adapter_weights(trainer) - before
+    moved = moved_share(update)
+    change = float(update.norm() / before.norm())
     log(f'# train {FRAMES}x{SIZE}x{SIZE} {POINTS} points, cached moments, '
         f"remat {trainer.unet.gradient_checkpointing!r}, AdamW lr "
         f'{TRAIN_LR:g}: s per step {" ".join(f"{s:.3f}" for s in steps_s)} '
         f'(first includes cuDNN algorithm selection); losses '
         f'{" ".join(f"{v:.6f}" for v in losses)}; peak memory {peak:.2f} GiB')
+    log(f'# train adapter weights ({before.numel()}, fp32): moved '
+        f'{moved:.6f} (min {TRAIN_MOVED_MIN}), |change| / |weights| '
+        f'{change:.4e}, |change| / (lr sqrt(n)) '
+        f'{float(update.norm()) / (TRAIN_LR * before.numel() ** 0.5):.4f}')
     log(f'# train kernel launches ({TRAIN_STEPS} steps, the level-0 '
         f'recompute included): {json.dumps(counts)}')
     report['launches']['train'] = counts
     report.update(train_step_s=steps_s, train_losses=losses,
-                  train_peak_gib=peak)
+                  train_peak_gib=peak, train_moved=moved,
+                  train_weight_change=change)
     if not all(math.isfinite(v) for v in losses):
         raise PhaseError(f'train losses not finite: {losses}')
+    if moved < TRAIN_MOVED_MIN:
+        raise PhaseError(f'{TRAIN_STEPS} steps moved {moved:.6f} of the '
+                         f'adapter weights (min {TRAIN_MOVED_MIN})')
     missing = [n for n, c in counts.items() if c <= 0]
     if missing:
         raise PhaseError(f'kernels not launched on the train path: '

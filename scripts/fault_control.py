@@ -3,12 +3,12 @@
 
     python3 scripts/fault_control.py
 
-Plants one fault at a time in a kernel's wrapper, each a chunk of the
-kernel's work skipped, and runs chip_smoke.py's unet, small and train_small
-comparisons (GPU bf16 kernels against the CPU fp32 plain path) with it. A
-sound run comes first. For each fault it also prints the kernel-level error
-against the plain version at one level-0 shape, the check of chip_smoke.py's
-kernels phase. The faults:
+Plants one fault at a time, in a kernel's wrapper (a chunk of the kernel's
+work skipped) or in the trainer, and runs chip_smoke.py's unet, small and
+train_small comparisons (GPU bf16 kernels against the CPU fp32 plain path)
+with it. A sound run comes first. For each kernel fault it also prints the
+kernel-level error against the plain version at one level-0 shape, the
+check of chip_smoke.py's kernels phase. The faults:
 
 - geglu_last_chunk:   the last 128 of the 4C intermediate columns (one or
                       two steps of the kernel's chunk loop) add nothing;
@@ -18,14 +18,18 @@ kernels phase. The faults:
 - flash_bwd_dkv_last_q_tile: the dK/dV kernel skips its last 64-query tile
                       wherever Sq > 64;
 - flash_bwd_dq_last_k_tile: the dQ kernel skips its last 64-key tile
-                      wherever Sk > 64.
+                      wherever Sk > 64;
+- adapter_bf16_weights: the trainer keeps the adapter's weights and AdamW
+                      state in bf16, as the models are, instead of fp32.
 
 The faulted wrappers call the real kernels on the GPU; CPU tensors go to
 the plain versions untouched, so the CPU reference stays sound. Prints one
 JSON object last; exits 0 only if the sound run passes every limit, every
 forward fault fails at least one of them, every backward fault fails the
 train_small gradient limit (its loss, a forward quantity, is untouched),
-and every fault fails the kernels-phase limit.
+every kernel fault fails the kernels-phase limit, and the adapter fault
+fails train_small's update limits (the AdamW step's change of the weights
+against the CPU's, and the share of weights it moves).
 """
 
 from __future__ import annotations
@@ -109,16 +113,28 @@ def _flash_bwd_dq_last_k_tile():
     return mock.patch.object(fa, '_launch_bwd_dq', faulted)
 
 
+@contextlib.contextmanager
+def _adapter_bf16_weights(trainer):
+    trainer.adapter.bfloat16()
+    try:
+        yield
+    finally:
+        trainer.adapter.float()
+
+
+# fault -> context manager planting it, given the GPU trainer
 FAULTS = {
-    'sound': contextlib.nullcontext,
-    'geglu_last_chunk': lambda: _geglu_skip(lambda inner: 128),
-    'geglu_last_eighth': lambda: _geglu_skip(lambda inner: inner // 8),
-    'temporal_last_head': _temporal_last_head,
-    'flash_last_key_tile': _flash_last_key_tile,
-    'flash_bwd_dkv_last_q_tile': _flash_bwd_dkv_last_q_tile,
-    'flash_bwd_dq_last_k_tile': _flash_bwd_dq_last_k_tile,
+    'sound': lambda tr: contextlib.nullcontext(),
+    'geglu_last_chunk': lambda tr: _geglu_skip(lambda inner: 128),
+    'geglu_last_eighth': lambda tr: _geglu_skip(lambda inner: inner // 8),
+    'temporal_last_head': lambda tr: _temporal_last_head(),
+    'flash_last_key_tile': lambda tr: _flash_last_key_tile(),
+    'flash_bwd_dkv_last_q_tile': lambda tr: _flash_bwd_dkv_last_q_tile(),
+    'flash_bwd_dq_last_k_tile': lambda tr: _flash_bwd_dq_last_k_tile(),
+    'adapter_bf16_weights': _adapter_bf16_weights,
 }
 BACKWARD_FAULTS = ('flash_bwd_dkv_last_q_tile', 'flash_bwd_dq_last_k_tile')
+TRAINER_FAULTS = ('adapter_bf16_weights',)
 
 
 def kernel_error(fault: str) -> float:
@@ -173,19 +189,22 @@ def main() -> None:
     ref_unet, ref_small = cs.unet_forward(cpu.unet), cs.small_sample(cpu)
     cpu_trainer = cs.make_trainer(cpu, remat=False)
     batch, draws = cs.small_train_inputs(cpu_trainer)
-    ref_loss, ref_grad = cs.small_train_grad(cpu_trainer, batch, draws)
+    ref_loss, ref_grad, ref_update = cs.small_train_step(cpu_trainer, batch,
+                                                         draws)
     trainer = cs.make_trainer(pipe)
     rows = {}
     for name, plant in FAULTS.items():
-        with plant():
-            loss, grad = cs.small_train_grad(trainer, batch, draws)
+        with plant(trainer):
+            loss, grad, update = cs.small_train_step(trainer, batch, draws)
             row = {'unet_rel_err': cs.rel_err(cs.unet_forward(pipe.unet),
                                               ref_unet),
                    'small_rel_err': cs.rel_err(cs.small_sample(pipe),
                                                ref_small),
                    'train_loss_rel_err': abs(loss - ref_loss) / abs(ref_loss),
-                   'train_grad_rel_err': cs.rel_err(grad, ref_grad)}
-            if name != 'sound':
+                   'train_grad_rel_err': cs.rel_err(grad, ref_grad),
+                   'train_update_rel_err': cs.rel_err(update, ref_update),
+                   'train_moved': cs.moved_share(update)}
+            if name not in ('sound',) + TRAINER_FAULTS:
                 row['kernel_err'] = kernel_error(name)
         row['unet_fails'] = row['unet_rel_err'] > cs.MODEL_REL_TOL
         row['small_fails'] = row['small_rel_err'] > cs.SAMPLE_REL_TOL
@@ -193,6 +212,9 @@ def main() -> None:
                                    > cs.TRAIN_LOSS_TOL)
         row['train_grad_fails'] = (row['train_grad_rel_err']
                                    > cs.TRAIN_GRAD_TOL)
+        row['train_update_fails'] = (
+            row['train_update_rel_err'] > cs.TRAIN_UPDATE_TOL
+            or row['train_moved'] < cs.TRAIN_MOVED_MIN)
         rows[name] = row
         cs.log(f'# {name}: {json.dumps(row)}')
     sound = rows.pop('sound')
@@ -203,6 +225,9 @@ def main() -> None:
                   'flash_last': cs.TOL['flash_attention_fwd']}
     caught = {}
     for name, r in rows.items():
+        if name in TRAINER_FAULTS:
+            caught[name] = bool(r['train_update_fails'])
+            continue
         tol = next(t for key, t in kernel_tol.items()
                    if name.startswith(key))
         model = (r['train_grad_fails'] if name in BACKWARD_FAULTS else
@@ -214,7 +239,9 @@ def main() -> None:
     print(json.dumps({'ok': ok, 'unet_tol': cs.MODEL_REL_TOL,
                       'small_tol': cs.SAMPLE_REL_TOL,
                       'train_loss_tol': cs.TRAIN_LOSS_TOL,
-                      'train_grad_tol': cs.TRAIN_GRAD_TOL, 'sound': sound,
+                      'train_grad_tol': cs.TRAIN_GRAD_TOL,
+                      'train_update_tol': cs.TRAIN_UPDATE_TOL,
+                      'train_moved_min': cs.TRAIN_MOVED_MIN, 'sound': sound,
                       'faults': rows, 'caught': caught}), flush=True)
     sys.exit(0 if ok else 1)
 

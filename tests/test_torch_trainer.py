@@ -5,7 +5,8 @@ mask, the VAE moments path, the timestep sampler, and
 `VideoSwapTrainer.loss_fn` with its adapter gradient against
 `jax.value_and_grad(trainer.build_loss_fn())` on the same draws. Then two
 checks of the port alone: gradient checkpointing leaves the gradient
-unchanged, and `step` with a fixed draw lowers the loss. fp32 on the CPU.
+unchanged, and `step` with a fixed draw lowers the loss. fp32 on the CPU,
+apart from bf16 models training the adapter with fp32 weights.
 """
 
 import math
@@ -327,6 +328,67 @@ def test_step_with_a_fixed_draw_lowers_the_loss():
     assert losses[-1] < losses[0], losses
     assert all(torch.equal(a, b) for a, b in zip(frozen,
                                                  tr.unet.parameters()))
+
+
+@pytest.fixture(scope='module')
+def bf16_trained():
+    """bf16 models on the CPU, as the card runs them, after one AdamW step
+    at the slice's lr: (trainer, adapter weights before the step)."""
+    built = build_models(MODELS_OPT, device='cpu', dtype=torch.bfloat16,
+                         seed=2)
+    before = [p.detach().float().clone() for p in built['adapter'].parameters()]
+    tr = VideoSwapTrainer(tune_cfg=dict(TUNE), optimizer_cfg={'lr': 1e-5},
+                          **built)
+    batch = {k: torch.as_tensor(v) for k, v in _batch(3).items()}
+    loss = tr.step(batch, torch.Generator().manual_seed(4))
+    assert math.isfinite(float(loss))
+    return tr, before
+
+
+def test_bf16_models_train_fp32_adapter_weights(bf16_trained):
+    """The adapter's weights and AdamW state stay fp32 beside a bf16 U-Net,
+    as the JAX package keeps flax's fp32 params: an update of lr 1e-5 moves
+    every weight (in bf16 it would move almost none)."""
+    tr, before = bf16_trained
+    assert tr.unet.conv_in.weight.dtype == torch.bfloat16
+    params = list(tr.adapter.parameters())
+    assert all(p.dtype == torch.float32 for p in params)
+    assert all(v.dtype == torch.float32
+               for state in tr.optimizer.state.values()
+               for k, v in state.items() if k != 'step')
+    moved = torch.cat([(p.detach() != b).flatten()
+                       for p, b in zip(params, before)])
+    assert float(moved.float().mean()) >= 0.99
+    # the first AdamW step moves each weight by lr * g / (|g| + eps) plus
+    # the decay lr * 1e-2 * w, and the new weight is rounded to fp32 (half
+    # a unit in the last place, <= 2^-24 |w|)
+    for p, b in zip(params, before):
+        change = (p.detach() - b).abs()
+        assert bool((change <= 1e-5 * (1 + 1e-2 * b.abs())
+                     + 2.0 ** -23 * b.abs()).all())
+    assert max(float((p.detach() - b).abs().max())
+               for p, b in zip(params, before)) >= 0.9e-5
+
+
+def test_pipeline_serves_an_adapter_trained_in_fp32(bf16_trained):
+    """The fp32 adapter's residuals are cast to the bf16 U-Net's dtype."""
+    from videoswap_torch.pipelines import VideoSwapPipeline
+    tr, _ = bf16_trained
+    pipe = VideoSwapPipeline(unet=tr.unet, vae=tr.vae,
+                             text_encoder=tr.text_encoder,
+                             tokenizer=tr.tokenizer, sched=tr.sched,
+                             adapter=tr.adapter)
+    b = _batch(3)
+    with torch.no_grad():
+        out = pipe.sample('a cat walking', F, SIZE, SIZE,
+                          num_inference_steps=1, guidance_scale=7.5,
+                          output_type='latent',
+                          conditions={'pred_tracks': b['pred_tracks'],
+                                      'point_embedding': b['point_embedding'],
+                                      'index_list': None})
+    assert out.dtype == torch.bfloat16
+    assert out.shape == (1, F, SIZE // 8, SIZE // 8, 4)
+    assert bool(torch.isfinite(out).all())
 
 
 def test_lr_schedules_match_optax():

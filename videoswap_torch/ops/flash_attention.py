@@ -11,9 +11,10 @@ raises; a CPU tensor takes `flash_attention_plain`.
 CUDA tensors the dQ and dK/dV kernels of `csrc/flash_attention_bwd.cu`, on
 CPU tensors `flash_attention_bwd_plain`.
 
-`flash_attention(q, k, v)` returns `out` and is differentiable: when a grad
-is needed it runs as the `FlashAttention` autograd Function, which saves
-q, k, v, out and lse and takes `flash_attention_bwd` as its backward.
+`flash_attention(q, k, v)` returns `out` and is differentiable: it runs as
+the `FlashAttention` autograd Function, which saves q, k, v, out and lse
+and takes `flash_attention_bwd` as its backward (no graph is recorded when
+nothing needs a gradient).
 """
 
 from __future__ import annotations
@@ -220,6 +221,4 @@ class FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(q, k, v):
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return FlashAttention.apply(q, k, v)
-    return flash_attention_fwd(q, k, v)[0]
+    return FlashAttention.apply(q, k, v)

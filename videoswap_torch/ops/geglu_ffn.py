@@ -174,9 +174,4 @@ class GegluFFN(torch.autograd.Function):
 
 def geglu_ffn(x, w1, b1, w2, b2):
     """x: (N, C); w1: (8C, C); b1: (8C,); w2: (C, 4C); b2: (C,)."""
-    args = (x, w1, b1, w2, b2)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-        return GegluFFN.apply(*args)
-    if x.is_cuda:
-        return geglu_ffn_kernel(*args)
-    return geglu_ffn_plain(*args)
+    return GegluFFN.apply(x, w1, b1, w2, b2)

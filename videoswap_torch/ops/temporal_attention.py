@@ -78,18 +78,14 @@ def temporal_attention_kernel(q2, k2, v2, heads: int, f: int):
     return out
 
 
-def _temporal_attention_fwd(q2, k2, v2, heads: int, f: int):
-    if q2.is_cuda:
-        return temporal_attention_kernel(q2, k2, v2, heads, f)
-    return temporal_attention_plain(q2, k2, v2, heads, f)
-
-
 class TemporalAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q2, k2, v2, heads, f):
         ctx.save_for_backward(q2, k2, v2)
         ctx.heads, ctx.f = heads, f
-        return _temporal_attention_fwd(q2, k2, v2, heads, f)
+        if q2.is_cuda:
+            return temporal_attention_kernel(q2, k2, v2, heads, f)
+        return temporal_attention_plain(q2, k2, v2, heads, f)
 
     @staticmethod
     def backward(ctx, dout):
@@ -99,7 +95,4 @@ class TemporalAttention(torch.autograd.Function):
 
 def temporal_attention(q2, k2, v2, heads: int, f: int):
     """q2/k2/v2: (L*F, C), rows (location, frame) -> (L*F, C)."""
-    if torch.is_grad_enabled() and any(t.requires_grad
-                                       for t in (q2, k2, v2)):
-        return TemporalAttention.apply(q2, k2, v2, heads, f)
-    return _temporal_attention_fwd(q2, k2, v2, heads, f)
+    return TemporalAttention.apply(q2, k2, v2, heads, f)

@@ -12,6 +12,13 @@ temporal-attention backward run at every such site. The U-Net recomputes
 its level-0 layers in the backward pass by default (`tune_cfg['remat']`,
 'edges').
 
+The adapter's parameters, gradients and AdamW state are fp32 whatever the
+models' dtype: the trainer casts the adapter it is given to fp32 in place,
+as the JAX package keeps flax's fp32 `param_dtype` and sets only the
+compute dtype. An AdamW update of lr 1e-5 is below half a bf16 step for
+most adapter weights, so bf16 weights would not move. The adapter's
+residuals are cast to the U-Net's dtype.
+
 The step's random draws are made explicit: `make_draws(batch, generator)`
 returns them, and `loss_fn(batch, draws)` is the loss for given draws, so
 that a test can feed the JAX package's draws (its `jax.random.split(rng, 4)`
@@ -66,7 +73,7 @@ class VideoSwapTrainer:
                 "attention; attn_impl must be 'flash'")
         for m in (self.unet, self.vae, self.text_encoder):
             m.requires_grad_(False)
-        self.adapter.requires_grad_(True)
+        self.adapter.float().requires_grad_(True)
         self.unet.set_gradient_checkpointing(
             self.tune_cfg.get('remat', 'edges'))
         self.optimizer = self.init_state()

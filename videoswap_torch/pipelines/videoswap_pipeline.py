@@ -75,7 +75,9 @@ class VideoSwapPipeline:
             mask[torch.as_tensor(np.asarray(index_list), device=dev)] = True
         with torch.no_grad():
             states = self.adapter(tracks, size, emb, point_mask=mask)
-        states = [s[None] * t2i_guidance_scale for s in states]  # add batch
+        # add batch; an adapter trained with fp32 weights serves any U-Net
+        dt = self.unet.conv_in.weight.dtype
+        states = [s[None].to(dt) * t2i_guidance_scale for s in states]
         if cfg:
             states = [torch.cat([s, s]) for s in states]
         return states
