@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (videoswap_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases build,kernels,unet,small,sample,train_small,train]
+    python3 chip_smoke.py [--phases build,kernels,unet,small,sample,train_small,train,atlas_small,atlas]
 
 Phases (all by default):
 
@@ -16,7 +16,11 @@ Phases (all by default):
                peaks and, where one PyTorch call computes the same function,
                that call's time (scaled_dot_product_attention; timed here
                only, never on the port's path); one gradient check each of
-               the GEGLU and temporal-attention autograd Functions;
+               the GEGLU and temporal-attention autograd Functions; the
+               hash-grid table-gradient kernel (fp32) against its plain
+               version at the atlas levels' table sizes and 240000 rows,
+               with index_add_ as the library call, and the hash encoding's
+               gradients on the card against the CPU;
 - unet:        one full-width U-Net forward (512x512, 2 frames, CFG, adapter
                residuals): the kernel path on the GPU in bf16 against the
                plain path on the CPU in fp32, same weights and inputs;
@@ -37,12 +41,25 @@ Phases (all by default):
                steps; the losses must be finite, the steps must move the
                adapter's weights and the launch count of every kernel must be
                > 0 (the recompute of the level-0 layers in the backward
-               launches the forward kernels again, and is counted).
+               launches the forward kernels again, and is counted);
+- atlas_small: the atlas_swan nets at full width (2^19 hash table) on an
+               8-frame 128x96 synthetic clip, batch 10000: one main step and
+               one inverse step on the same params and draws, GPU against
+               CPU, both fp32: each loss term, each net's gradient (the hash
+               table's apart) and each net's change under Adam's first step;
+- atlas:       the third slice's path, layered-neural-atlas training at
+               the published size: a synthetic 72-frame 768x448 clip built
+               on the card, UV pretraining of both mappings, ATLAS_STEPS
+               iterations of main step + inverse step at batch 10000 (the
+               losses must be finite and fall, the hash kernel must launch
+               16 times a main step), the reconstruction PSNR of 4 frames
+               and one propagated point drag.
 
-Launch counts are set to 0 just before the sample and train paths and read
-just after each. scripts/fault_control.py shows that the unet, small and
-train_small limits fail a kernel with a planted fault; scripts/profile_step.py
-breaks one full-width U-Net step down by device time.
+Launch counts are set to 0 just before the sample, train and atlas paths and
+read just after each. scripts/fault_control.py shows that the unet, small,
+train_small and atlas_small limits fail a kernel with a planted fault;
+scripts/profile_step.py breaks one full-width U-Net step, training step or
+atlas iteration down by device time.
 
 Weights are random, drawn from a seeded torch.Generator. The script fails
 (exit code 1, no result line) without a CUDA device, outside a checkout of
@@ -64,7 +81,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ('build', 'kernels', 'unet', 'small', 'sample', 'train_small',
-          'train')
+          'train', 'atlas_small', 'atlas')
 SEED = 0
 FRAMES, SIZE, POINTS = 16, 512, 10
 STEPS = 4          # DDIM steps of the full-width sample (a smoke run's time)
@@ -92,7 +109,12 @@ KERNELS = {
         'flash_attention', 'bwd_dkv_launches',
         'videoswap_torch/csrc/flash_attention_bwd.cu',
         'videoswap_tpu/ops/flash_attention.py:213'),
+    'hash_table_grad': (
+        'hash_table_grad', 'launches', 'videoswap_torch/csrc/hash_table_grad.cu',
+        'videoswap_tpu/ops/hash_table_grad.py:125'),
 }
+# the path whose launch count the kernels line reports for each kernel
+KERNEL_PATH = {'hash_table_grad': 'atlas'}
 FORWARD_KERNELS = ('geglu_ffn', 'temporal_attention', 'flash_attention_fwd')
 # max |kernel - plain| allowed, bf16 kernel vs fp32 plain on the same bf16
 # inputs: outputs are O(1) and rounded once to bf16 (2^-8 relative), plus
@@ -103,6 +125,11 @@ FORWARD_KERNELS = ('geglu_ffn', 'temporal_attention', 'flash_attention_fwd')
 TOL = {'geglu_ffn': 3e-2, 'temporal_attention': 1e-2,
        'flash_attention_fwd': 1e-2, 'flash_attention_bwd_dq': 1e-2,
        'flash_attention_bwd_dkv': 1e-2}
+# the hash-grid scatter is fp32 on both sides: its atomics only reorder each
+# entry's fp32 sum (~830 rows an entry at level 0), a few 1e-7 of the
+# largest |plain| entry; the limit is relative to that entry. The same for
+# the hash encoding's d_x and d_table on the card against the CPU
+HASH_TOL = 1e-5
 # the autograd Functions' gradients on the card (kernel forward, plain
 # backward in bf16) against autograd through the fp32 plain version,
 # relative to the largest entry
@@ -132,13 +159,91 @@ TRAIN_UPDATE_TOL = 0.25
 # over train's TRAIN_STEPS: fp32 weights move wherever the gradient or the
 # weight is non-zero; bf16 weights of ~0.03 do not move at lr 1e-5
 TRAIN_MOVED_MIN = 0.99
-# NVIDIA H100 SXM published dense peaks: bf16 tensor-core FLOP/s and HBM3
-# bytes/s (at the full 700 W power limit)
-PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
+# NVIDIA H100 SXM published dense peaks: bf16 tensor-core FLOP/s, fp32
+# FLOP/s outside the tensor cores and HBM3 bytes/s (at the full 700 W power
+# limit)
+PEAK_FLOPS, PEAK_FP32_FLOPS, PEAK_BYTES = 989e12, 67e12, 3.35e12
+
+# options/train_atlas/atlas_swan.yml, its `models` and `train` blocks (the
+# card's machine has no YAML reader) and its clip size (`datasets`: res_x,
+# res_y, max_frames)
+ATLAS_MODELS = {
+    'FG_UV_Mapping': {'input_dim': 3, 'output_dim': 2, 'hidden_dim': 256,
+                      'pe_type': 'none', 'pe_dim': 4, 'mlp_type': 'origin',
+                      'mlp_layers': 6, 'skip_layers': []},
+    'FG_UV_Mapping_Inverse': {'input_dim': 3, 'output_dim': 3,
+                              'hidden_dim': 256, 'pe_type': 'none',
+                              'pe_dim': 4, 'mlp_type': 'origin',
+                              'mlp_layers': 6, 'skip_layers': []},
+    'BG_UV_Mapping': {'input_dim': 3, 'output_dim': 2, 'hidden_dim': 256,
+                      'pe_type': 'none', 'pe_dim': 2, 'mlp_type': 'origin',
+                      'mlp_layers': 4, 'skip_layers': []},
+    'F_Atlas': {'input_dim': 2, 'output_dim': 3, 'hidden_dim': 256,
+                'pe_type': 'hash_encoding', 'pe_dim': 10,
+                'mlp_type': 'origin', 'mlp_layers': 8,
+                'skip_layers': [4, 7]},
+    'F_Alpha': {'input_dim': 3, 'output_dim': 1, 'hidden_dim': 256,
+                'pe_type': 'encoding', 'pe_dim': 5, 'mlp_type': 'origin',
+                'mlp_layers': 8, 'skip_layers': []},
+}
+ATLAS_TRAIN = {
+    'optimizer': {'type': 'Adam', 'lr': 1e-4},
+    'total_iter': 50000,
+    'sample_batch_size': 10000,
+    'pretrain_UV_mapping_iter': 100,
+    'pretrain_alpha_iter': 50000,
+    'pretrain_global_rigidity_iter': 5000,
+    'uv_mapping_scale': 0.8,
+    'derivative_amount': 1,
+    'global_derivative_amount': 100,
+    'loss_cfg': {
+        'reconstruction_loss': {'rgb_loss_weight': 5000.0,
+                                'gradient_loss_weight': 1000.0,
+                                'alpha_loss_weight': 2000.0},
+        'sparsity_loss': {'sparsity_loss_weight': 1000.0},
+        'rigidity_loss': {'rigidity_loss_weight': 1.0,
+                          'global_rigidity_fg_loss_weight': 5.0,
+                          'global_rigidity_bg_loss_weight': 50.0},
+        'flow_loss': {'flow_loss_weight': 5.0,
+                      'alpha_flow_loss_weight': 49.0},
+    },
+}
+ATLAS_FRAMES, ATLAS_H, ATLAS_W = 72, 448, 768
+ATLAS_STEPS = 200          # main + inverse iterations (a smoke run's time)
+ATLAS_SMALL = (8, 96, 128)  # atlas_small's clip: frames, height, width
+# the synthetic clip's motion, pixels a frame: background and disk
+ATLAS_BG_SHIFT, ATLAS_DISK_SHIFT = (1.5, 0.5), (3.0, -1.25)
+# atlas_small, GPU fp32 against CPU fp32, same params and draws: each loss
+# term (relative), each net's flattened gradient and the hash table's
+# (relative L2), and each net's change under Adam's first step (relative
+# L2). cuBLAS and the CPU's BLAS sum fp32 products in other orders, the
+# hash scatter's atomics in run-dependent ones; the rigidity terms divide
+# by the determinant of a random-init Jacobian taken as differences of
+# neighbouring evaluations, which amplifies that rounding in the mappings'
+# gradients (to ~1e-4 on the CPU between the JAX package and the port).
+# Adam's first step moves each weight by lr g / (|g| + eps), about
+# lr sign(g), so a near-zero gradient entry whose sign differs moves its
+# weight the other way: the update limit covers those flips
+# Sound readings on the H100: worst loss term 1.8e-7, worst net gradient
+# 7.3e-5 (F_Atlas), hash table 2.9e-4, worst update 1.1e-2 (F_Atlas); the
+# limits sit at 5x to 7x those
+ATLAS_LOSS_TOL = 1e-6
+ATLAS_GRAD_TOL = 5e-4
+ATLAS_HASH_GRAD_TOL = 1.5e-3
+ATLAS_UPDATE_TOL = 0.06
 
 
 class PhaseError(RuntimeError):
     pass
+
+
+def full_fp32() -> None:
+    """fp32 products and convolutions in full fp32, not TF32: the atlas
+    trains in fp32, and TF32 would be a measured decision of its own."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision('highest')
 
 
 def log(msg: str) -> None:
@@ -150,12 +255,20 @@ def die(msg: str) -> None:
     sys.exit(1)
 
 
-def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
+def cuda_time_ms(fn, iters: int, warmup: int = 2,
+                 ahead: bool = False) -> float:
+    """Device time per call of fn over `iters` calls, after `warmup`. With
+    `ahead`, the card first spins for about 1 ms a call, so that the host
+    has queued every call before the first starts: the time is then the
+    device's alone, not the pace of a host that launches small kernels
+    one after another."""
     import torch
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if ahead:
+        torch.cuda._sleep(2_000_000 * iters)
     start.record()
     for _ in range(iters):
         fn()
@@ -184,11 +297,13 @@ def _rand(gen, shape, scale=1.0):
         torch.bfloat16)
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
+def bound_ms(flops: float, nbytes: float,
+             peak_flops: float = PEAK_FLOPS) -> tuple[float, str]:
     """The least time the card could take: the larger of the operations
-    over the bf16 peak and the bytes (each input read once, each output
-    written once) over the memory rate; and which of the two it is."""
-    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    over their peak (bf16 unless given) and the bytes (each input read
+    once, each output written once) over the memory rate; and which of the
+    two it is."""
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             'operations' if t_ops >= t_bytes else 'bytes')
 
@@ -199,8 +314,8 @@ def _record(report, name, shape_desc, err, ms, plain_ms, work, library):
     (level-0, largest) shape."""
     b_ms, b_by = bound_ms(*work)
     lib_ms = library() if library else None
-    log(f'# kernel {name} {shape_desc}: bound {b_ms:.3f} ms ({b_by}), '
-        'library call ' + (f'{lib_ms:.3f} ms' if library else 'none'))
+    log(f'# kernel {name} {shape_desc}: bound {b_ms:.4f} ms ({b_by}), '
+        'library call ' + (f'{lib_ms:.4f} ms' if library else 'none'))
     entry = report['kernels'].setdefault(name, {'max_abs_err': 0.0,
                                                 'ms': None})
     entry['max_abs_err'] = max(entry['max_abs_err'], err)
@@ -331,9 +446,6 @@ def phase_kernels(report):
     from videoswap_torch.ops import flash_attention as fa
     from videoswap_torch.ops import geglu_ffn as gf
     from videoswap_torch.ops import temporal_attention as ta
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision('highest')
     gen = torch.Generator(device='cuda').manual_seed(SEED)
     f32 = (lambda ts: [t.float() for t in ts])
 
@@ -426,6 +538,121 @@ def phase_kernels(report):
             out, qkv, dout, retain_graph=True), 5)
         log(f'# plain backward N={n} C={c}: geglu_ffn (dX only) {ms:.3f} '
             f'ms, temporal_attention (L={hw} F={FRAMES}) {ms_t:.3f} ms')
+
+    _hash_kernels(report, gen)
+
+
+def _hash_rows(gen, rows, entries):
+    """rows int32 indices into a table of `entries` (1% of them -1, dropped)
+    and (rows, 2) fp32 values."""
+    import torch
+    idx = torch.randint(0, entries, (rows,), generator=gen, device='cuda',
+                        dtype=torch.int32)
+    idx[torch.rand(rows, generator=gen, device='cuda') < 0.01] = -1
+    return idx, torch.randn((rows, 2), generator=gen, device='cuda')
+
+
+def _hash_work(rows, entries, nf=2):
+    """(fp32 adds, bytes, peak) of one scatter: idx and val read once, the
+    table written once."""
+    return rows * nf, rows * (4 + 4 * nf) + entries * nf * 4, PEAK_FP32_FLOPS
+
+
+def _hash_kernels(report, gen):
+    """The table-gradient kernel against its plain version at 240000 rows
+    (the 4 corners x 60000 points of a main step's six F_Atlas sites; not a
+    multiple of the kernel's 256-row block) and the table sizes of atlas
+    levels 0, 1, 7, 11 (the last dense one) and 15 (hashed). Then the 16
+    calls of one step's backward at the geometry of random UVs, and the
+    hash encoding's gradients on the card against the CPU."""
+    import torch
+    from videoswap_torch.atlas.imlp import (_level_geometry,
+                                            _level_resolutions, hash_encode)
+    from videoswap_torch.ops import hash_table_grad as hg
+    rows = 240000
+    for lv, entries in ((0, 289), (1, 529), (7, 23409), (11, 306916),
+                        (15, 524288)):
+        desc = f'level {lv} T={entries} R={rows} F=2'
+        idx, val = _hash_rows(gen, rows, entries)
+        out = hg.hash_table_grad(idx, val, entries)
+        torch.cuda.synchronize()
+        ref = hg.hash_table_grad_plain(idx, val, entries)
+        err = float((out - ref).abs().max())
+        rel = err / float(ref.abs().max())
+        call = (lambda: hg.hash_table_grad(idx, val, entries))
+        ms = cuda_time_ms(call, 20, ahead=True)
+        paced_ms = cuda_time_ms(call, 20)
+        plain_ms = cuda_time_ms(
+            lambda: hg.hash_table_grad_plain(idx, val, entries), 10)
+        keep = idx >= 0
+        il, vl = idx[keep].long(), val[keep]
+        modes = {m: cuda_time_ms(lambda: hg._launch(
+            idx, val, torch.zeros((entries, 2), device='cuda'), m), 20,
+            ahead=True)
+            for m in ('global', 'shared') if entries * 8 <= 48 * 1024}
+        ok = rel <= HASH_TOL and bool(torch.isfinite(out).all())
+        log(f'# kernel hash_table_grad {desc}: max_abs_err {err:.3e}, '
+            f'/max|plain| {rel:.3e} (tol {HASH_TOL:.0e}) kernel {ms:.4f} ms '
+            f'(device, queued ahead; table zeroing included), '
+            f'{paced_ms:.4f} ms a call launched one after another; plain '
+            f'(mask, which syncs, + index_add_) {plain_ms:.4f} ms'
+            + ''.join(f', {m} form {t:.4f} ms' for m, t in modes.items())
+            + f' {"ok" if ok else "FAIL"}')
+        _record(report, 'hash_table_grad', desc, err, ms, plain_ms,
+                _hash_work(rows, entries), lambda: cuda_time_ms(
+                    lambda: torch.zeros((entries, 2), device='cuda')
+                    .index_add_(0, il, vl), 20, ahead=True))
+        entry = report['kernels']['hash_table_grad']
+        entry['max_err_over_max_plain'] = max(
+            entry.get('max_err_over_max_plain', 0.0), rel)
+        if not ok:
+            raise PhaseError(f'hash_table_grad {desc}: error {rel:.3e} of '
+                             'the largest |plain| entry')
+
+    # one main step's 16 calls, as HashEncode's backward makes them
+    res = _level_resolutions(16, 16, 1.38)
+    uv = torch.rand((6 * 10000, 2), generator=gen, device='cuda') * 1.4 - 0.7
+    idx, u, v, _ = _level_geometry(uv, res, 2 ** 19)
+    idx = idx.to(torch.int32)
+    vals = ((u * v)[..., None] * torch.randn(
+        (16, 1, 60000, 2), generator=gen, device='cuda')).contiguous()
+    d_table = torch.zeros((16, 2 ** 19, 2), device='cuda')
+
+    def step_calls():
+        d_table.zero_()
+        for lv in range(16):
+            hg.hash_table_grad(idx[lv].reshape(-1), vals[lv].reshape(-1, 2),
+                               2 ** 19, out=d_table[lv])
+    step_ms = cuda_time_ms(step_calls, 10, ahead=True)
+    step_paced_ms = cuda_time_ms(step_calls, 10)
+    work = [_hash_work(rows, min((r + 1) ** 2, 2 ** 19)) for r in res]
+    b_ms, _ = bound_ms(sum(w[0] for w in work), sum(w[1] for w in work),
+                       PEAK_FP32_FLOPS)
+    log(f'# kernel hash_table_grad one main step (16 levels, random UVs in '
+        f'[-0.7, 0.7]): {step_ms:.4f} ms on the device with the 64 MiB '
+        f'table zeroing ({step_paced_ms:.4f} ms launched one after another), '
+        f'bound {b_ms:.4f} ms (bytes)')
+    report['kernels']['hash_table_grad'].update(step_ms=step_ms,
+                                                step_bound_ms=b_ms)
+
+    # the hash encoding's gradients, card against CPU, at the full grid
+    x = torch.rand((10000, 2), generator=gen, device='cuda') * 1.4 - 0.2
+    table = torch.randn((16, 2 ** 19, 2), generator=gen,
+                        device='cuda') * 1e-2
+    cot = torch.randn((10000, 32), generator=gen, device='cuda')
+    grads = []
+    for dev in ('cuda', 'cpu'):
+        xs, ts = (t.detach().to(dev).requires_grad_() for t in (x, table))
+        grads.append(torch.autograd.grad(hash_encode(xs, ts), (xs, ts),
+                                         cot.to(dev)))
+    errs = [float((g.cpu() - r).abs().max() / r.abs().max())
+            for g, r in zip(*grads)]
+    ok = max(errs) <= HASH_TOL
+    log(f'# grad hash_encode N=10000 L=16 T=2^19: d_x, d_table '
+        f'max_abs_err/max|CPU| {errs[0]:.3e} {errs[1]:.3e} (tol '
+        f'{HASH_TOL:.0e}) {"ok" if ok else "FAIL"}')
+    if not ok:
+        raise PhaseError(f'hash_encode gradients on the card: {errs}')
 
 
 # --------------------------------------------------------------- models
@@ -764,10 +991,276 @@ def phase_train(report, state):
     if moved < TRAIN_MOVED_MIN:
         raise PhaseError(f'{TRAIN_STEPS} steps moved {moved:.6f} of the '
                          f'adapter weights (min {TRAIN_MOVED_MIN})')
-    missing = [n for n, c in counts.items() if c <= 0]
+    missing = [n for n, c in counts.items()
+               if c <= 0 and KERNEL_PATH.get(n, 'train') == 'train']
     if missing:
         raise PhaseError(f'kernels not launched on the train path: '
                          f'{missing}')
+
+
+# ------------------------------------------------------------------ atlas
+def atlas_clip(frames: int, height: int, width: int, device, seed=SEED):
+    """A synthetic clip made on `device` from the seed, in the layout of
+    `load_input_data`: a background of random plane waves translating by
+    ATLAS_BG_SHIFT pixels a frame, and a disk of its own waves moving by
+    ATLAS_DISK_SHIFT over it. The mask is the disk, the forward and
+    backward flows are exact, the consistency masks come from
+    videoswap_torch.atlas.data, dx and dy are the frames' differences."""
+    import torch
+    from videoswap_torch.atlas.data import get_consistency_mask
+    g = torch.Generator(device=device).manual_seed(seed)
+    kw = dict(generator=g, device=device)
+
+    def waves(n=4):
+        # wavelengths of 20 px and more, random directions and phases
+        return ((torch.rand((3, n, 2), **kw) - 0.5) * (4 * math.pi / 20),
+                torch.rand((3, n), **kw) * 2 * math.pi)
+
+    def texture(u, v, w):
+        freq, phase = w
+        arg = (u * freq[..., 0, None, None] + v * freq[..., 1, None, None]
+               + phase[..., None, None])
+        return (0.5 + 0.5 * torch.sin(arg).mean(1)).permute(1, 2, 0)
+
+    bg_w, disk_w = waves(), waves()
+    ys, xs = torch.meshgrid(torch.arange(height, device=device).float(),
+                            torch.arange(width, device=device).float(),
+                            indexing='ij')
+    radius = 0.15 * height
+    (bvx, bvy), (dvx, dvy) = ATLAS_BG_SHIFT, ATLAS_DISK_SHIFT
+    video = torch.empty((frames, height, width, 3), device=device)
+    mask = torch.empty((frames, height, width), device=device)
+    for i in range(frames):
+        cx, cy = 0.3 * width + dvx * i, 0.55 * height + dvy * i
+        inside = (xs - cx) ** 2 + (ys - cy) ** 2 < radius ** 2
+        video[i] = torch.where(inside[..., None],
+                               texture(xs - cx, ys - cy, disk_w),
+                               texture(xs - bvx * i, ys - bvy * i, bg_w))
+        mask[i] = inside.float()
+    inside = mask[..., None] > 0
+    fwd = torch.where(inside, torch.tensor([dvx, dvy], device=device),
+                      torch.tensor([bvx, bvy], device=device))
+    data = {'video': video, 'mask': mask,
+            'dx': torch.zeros_like(video), 'dy': torch.zeros_like(video),
+            'flows': torch.zeros((frames, height, width, 2), device=device),
+            'flows_rev': torch.zeros((frames, height, width, 2),
+                                     device=device),
+            'flow_masks': torch.zeros_like(mask),
+            'flow_masks_rev': torch.zeros_like(mask)}
+    data['dx'][:, :, :-1] = video[:, :, 1:] - video[:, :, :-1]
+    data['dy'][:, :-1] = video[:, 1:] - video[:, :-1]
+    for i in range(frames - 1):
+        data['flows'][i] = fwd[i]
+        data['flows_rev'][i + 1] = -fwd[i + 1]
+        mf, mb = get_consistency_mask(fwd[i], -fwd[i + 1])
+        data['flow_masks'][i] = mf.float()
+        data['flow_masks_rev'][i + 1] = mb.float()
+    return data
+
+
+def atlas_trainer(nets, data, device):
+    """An AtlasTrainer on the atlas_swan train block for the clip `data`."""
+    from videoswap_torch.atlas.trainer import AtlasTrainer
+    frames, height, width = data['mask'].shape
+    return AtlasTrainer(nets, data, ATLAS_TRAIN, larger_dim=max(height, width),
+                        num_frames=frames, device=device)
+
+
+def atlas_small_inputs(device):
+    """atlas_small's trainers: the atlas_swan nets at full width from SEED on
+    the card and a CPU copy of them, on one 8-frame 128x96 clip; and the
+    draws of a main and an inverse step, from SEED + 6."""
+    import numpy as np
+    import torch
+    from videoswap_torch.builders import build_atlas_nets
+    frames, height, width = ATLAS_SMALL
+    nets = build_atlas_nets(ATLAS_MODELS, device=device, seed=SEED)
+    cpu_nets = {n: copy.deepcopy(net).cpu() for n, net in nets.items()}
+    clip = atlas_clip(frames, height, width, 'cpu')
+    rs = np.random.RandomState(SEED + 6)
+    draws = [tuple(torch.from_numpy(rs.randint(0, hi, 10000))
+                   for hi in (width, height, frames)) for _ in range(2)]
+    return (atlas_trainer(nets, clip, device),
+            atlas_trainer(cpu_nets, clip, 'cpu'), draws)
+
+
+def atlas_small_step(trainer, draws, global_step=1):
+    """One main step and one inverse step from fresh Adam states on the
+    given draws: (loss terms as floats, each net's flattened gradient and
+    the hash table's, each net's flattened change), fp32 on the CPU. The
+    weights are put back afterwards, so every call starts from one point."""
+    import torch
+    from videoswap_torch.atlas.trainer import INVERSE_NET, MAIN_NETS
+
+    def flat(net, grad=False):
+        return torch.cat([(p.grad if grad else p).detach().flatten().cpu()
+                          for p in net.parameters()])
+    dev = trainer.device
+    main, inv = ([t.to(dev) for t in d] for d in draws)
+    saved = {n: copy.deepcopy(net.state_dict())
+             for n, net in trainer.nets.items()}
+    before = {n: flat(net) for n, net in trainer.nets.items()}
+    trainer.init_opt_state()
+    ld = {k: float(v) for k, v in trainer.step(global_step,
+                                               draws=main).items()}
+    grads = {n: flat(trainer.nets[n], True) for n in MAIN_NETS}
+    grads['hash_table'] = trainer.nets['F_Atlas'].hash_table.grad.flatten() \
+        .cpu()
+    ld['fg_inv_loss'] = float(trainer.inverse_step(draws=inv))
+    grads[INVERSE_NET] = flat(trainer.nets[INVERSE_NET], True)
+    updates = {n: flat(net) - before[n] for n, net in trainer.nets.items()}
+    for n, net in trainer.nets.items():
+        net.load_state_dict(saved[n])
+    trainer.init_opt_state()
+    return ld, grads, updates
+
+
+def atlas_small_errors(gpu, cpu) -> dict:
+    """GPU against CPU: the worst loss term (relative), the worst net
+    gradient and the hash table's (relative L2), the worst net update."""
+    (ld_g, gr_g, up_g), (ld_c, gr_c, up_c) = gpu, cpu
+    nets = [n for n in gr_c if n != 'hash_table']
+    return {
+        'loss': max(abs(ld_g[k] - ld_c[k]) / abs(ld_c[k]) for k in ld_c),
+        'grad': max(rel_err(gr_g[n], gr_c[n]) for n in nets),
+        'hash_grad': rel_err(gr_g['hash_table'], gr_c['hash_table']),
+        'update': max(rel_err(up_g[n], up_c[n]) for n in up_c),
+        'per_net': {n: [rel_err(gr_g[n], gr_c[n]), rel_err(up_g[n], up_c[n])]
+                    for n in up_c},
+    }
+
+
+def atlas_small_fails(errs) -> dict:
+    return {'loss': errs['loss'] > ATLAS_LOSS_TOL,
+            'grad': errs['grad'] > ATLAS_GRAD_TOL,
+            'hash_grad': errs['hash_grad'] > ATLAS_HASH_GRAD_TOL,
+            'update': errs['update'] > ATLAS_UPDATE_TOL}
+
+
+def phase_atlas_small(report, state):
+    import torch
+    gpu, cpu, draws = atlas_small_inputs('cuda')
+    t0 = time.perf_counter()
+    out_gpu = atlas_small_step(gpu, draws)
+    torch.cuda.synchronize()
+    t_gpu = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out_cpu = atlas_small_step(cpu, draws)
+    t_cpu = time.perf_counter() - t0
+    errs = atlas_small_errors(out_gpu, out_cpu)
+    fails = atlas_small_fails(errs)
+    finite = all(math.isfinite(v) for v in out_gpu[0].values())
+    log(f'# atlas_small {"x".join(map(str, ATLAS_SMALL))} batch 10000, '
+        f'atlas_swan nets: losses GPU {json.dumps(out_gpu[0])}')
+    log(f'# atlas_small GPU vs CPU fp32: worst loss term rel err '
+        f'{errs["loss"]:.3e} (tol {ATLAS_LOSS_TOL:.0e}); worst net grad rel '
+        f'L2 {errs["grad"]:.3e} (tol {ATLAS_GRAD_TOL:.0e}); hash table grad '
+        f'rel L2 {errs["hash_grad"]:.3e} (tol {ATLAS_HASH_GRAD_TOL:g}); '
+        f'worst Adam update rel L2 {errs["update"]:.3e} (tol '
+        f'{ATLAS_UPDATE_TOL:g}); per net [grad, update] '
+        f'{json.dumps(errs["per_net"])}; GPU {t_gpu:.2f} s (first call), '
+        f'CPU {t_cpu:.1f} s {"FAIL" if any(fails.values()) else "ok"}')
+    report['atlas_small'] = {k: v for k, v in errs.items()}
+    if not finite or any(fails.values()):
+        raise PhaseError(f'atlas_small GPU vs CPU: {errs}')
+
+
+def phase_atlas(report, state):
+    import numpy as np
+    import torch
+    from videoswap_torch.atlas.evaluate import evaluate_model
+    from videoswap_torch.atlas.propagate import (bind_nets,
+                                                 propagate_point_sequence)
+    from videoswap_torch.builders import build_atlas_nets
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    nets = build_atlas_nets(ATLAS_MODELS, device='cuda', seed=SEED)
+    data = atlas_clip(ATLAS_FRAMES, ATLAS_H, ATLAS_W, 'cuda')
+    trainer = atlas_trainer(nets, data, 'cuda')
+    del data
+    torch.cuda.synchronize()
+    log(f'# atlas {ATLAS_FRAMES}x{ATLAS_W}x{ATLAS_H} synthetic clip and '
+        f'nets on the card: {time.perf_counter() - t0:.2f} s; fused per-pixel '
+        f'array {trainer.fused.numel() * 4 / 2 ** 30:.3f} GiB')
+    gen = torch.Generator(device='cuda').manual_seed(SEED)
+    reset_launches()
+    pre_iters = ATLAS_TRAIN['pretrain_UV_mapping_iter']
+    pre = {}
+    for name in ('FG_UV_Mapping', 'BG_UV_Mapping'):
+        t0 = time.perf_counter()
+        loss = trainer.pretrain_mapping(name, gen, pre_iters)
+        pre[name] = [loss, time.perf_counter() - t0]
+    # the main Adam starts afresh after pretraining, as train_atlas.py does
+    trainer.init_opt_state()
+    log(f'# atlas pretraining, {pre_iters} x {ATLAS_FRAMES} iterations a '
+        f'mapping at batch 10000: [final loss, s] {json.dumps(pre)}')
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(3)]
+          for _ in range(ATLAS_STEPS)]
+    totals, inv_losses = [], []
+    t0 = time.perf_counter()
+    for it in range(1, ATLAS_STEPS + 1):
+        e = ev[it - 1]
+        e[0].record()
+        ld = trainer.step(it, gen)
+        e[1].record()
+        inv_losses.append(trainer.inverse_step(gen))
+        e[2].record()
+        totals.append(ld['total_loss'])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    warm = ev[10:]
+    main_ms = float(np.median([e[0].elapsed_time(e[1]) for e in warm]))
+    inv_ms = float(np.median([e[1].elapsed_time(e[2]) for e in warm]))
+    totals = torch.stack(totals).cpu().numpy()
+    inv_losses = torch.stack(inv_losses).cpu().numpy()
+    first, last = float(totals[:20].mean()), float(totals[-20:].mean())
+    per_50k = (main_ms + inv_ms) * ATLAS_TRAIN['total_iter'] / 1e3
+    log(f'# atlas {ATLAS_STEPS} iterations (main + inverse) at batch 10000: '
+        f'{wall:.2f} s; median after 10 iterations: main step {main_ms:.3f} '
+        f'ms, inverse step {inv_ms:.3f} ms (CUDA events); '
+        f'{ATLAS_TRAIN["total_iter"]} iterations would take {per_50k:.1f} s; '
+        f'peak memory {peak:.2f} GiB')
+    log(f'# atlas total loss mean of the first 20 iterations {first:.4f}, '
+        f'of the last 20 {last:.4f}; inverse loss {inv_losses[0]:.4f} -> '
+        f'{inv_losses[-1]:.4f}; last terms '
+        f'{json.dumps({k: round(float(v), 6) for k, v in ld.items()})}')
+    t0 = time.perf_counter()
+    psnr = evaluate_model(trainer.nets, trainer.fused[..., :3], ATLAS_W,
+                          ATLAS_H, 4, trainer.norm_s, trainer.norm_t)
+    t_psnr = time.perf_counter() - t0
+    # drag the disk's centre on frame 0 by (+20, +10) pixels
+    cx, cy = round(0.3 * ATLAS_W), round(0.55 * ATLAS_H)
+    fg, inv, alpha = bind_nets(trainer.nets)
+    tracks = propagate_point_sequence(
+        {'p0': [cy, cx]}, {'p0': [cy + 10, cx + 20]}, 0,
+        np.zeros((ATLAS_FRAMES, 1, 2), np.float32), {'p0': 0}, fg, inv,
+        alpha, max(ATLAS_W, ATLAS_H), ATLAS_FRAMES, trainer.norm_s,
+        trainer.norm_t)
+    log(f'# atlas reconstruction PSNR over 4 frames {psnr:.4f} dB '
+        f'({t_psnr:.2f} s); propagated drag: {int((tracks[:, 0, 0] >= 0).sum())}'
+        f' of {ATLAS_FRAMES} frames visible, track finite '
+        f'{bool(np.isfinite(tracks).all())}')
+    log(f'# atlas kernel launches ({ATLAS_STEPS} main steps): '
+        f'{json.dumps(counts)}')
+    report['launches']['atlas'] = counts
+    report['atlas'] = dict(main_ms=main_ms, inverse_ms=inv_ms,
+                           iters_50k_s=per_50k, peak_gib=peak, psnr_4=psnr,
+                           loss_first20=first, loss_last20=last,
+                           pretrain=pre)
+    if not (np.isfinite(totals).all() and np.isfinite(inv_losses).all()):
+        raise PhaseError('atlas losses not finite')
+    if not last < first:
+        raise PhaseError(f'atlas loss did not fall: {first} -> {last}')
+    if counts['hash_table_grad'] != 16 * ATLAS_STEPS:
+        raise PhaseError(f'hash_table_grad launched '
+                         f'{counts["hash_table_grad"]} times in '
+                         f'{ATLAS_STEPS} main steps, not 16 a step')
+    if not (math.isfinite(psnr) and np.isfinite(tracks).all()):
+        raise PhaseError(f'atlas PSNR {psnr} or propagated track not finite')
 
 
 def card() -> str:
@@ -793,6 +1286,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         die('no CUDA device: this script runs only on a GPU')
     sys.path.insert(0, str(ROOT))
+    full_fp32()
     power = card()
     kind = torch.cuda.get_device_name(0)
     log(f'# device: {kind}; torch {torch.__version__} CUDA '
@@ -808,6 +1302,12 @@ def main() -> None:
                 phase_build(report)
             elif phase == 'kernels':
                 phase_kernels(report)
+            elif phase in ('atlas_small', 'atlas'):
+                # the atlas runs alone on the card
+                state.clear()
+                torch.cuda.empty_cache()
+                {'atlas_small': phase_atlas_small,
+                 'atlas': phase_atlas}[phase](report, state)
             else:
                 if 'pipe' not in state:
                     state['pipe'] = build_pipeline('cuda', torch.bfloat16)
@@ -829,13 +1329,14 @@ def main() -> None:
         kernels.append({
             'name': name, 'route': 'cuda', 'source': source,
             'replaces': replaces,
-            'launches': paths.get('train', {}).get(name, 0),
+            'launches': paths.get(KERNEL_PATH.get(name, 'train'), {}).get(
+                name, 0),
             'launches_by_path': {p: c.get(name, 0) for p, c in paths.items()},
             **{key: k.get(key) for key in (
                 'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
                 'library_ms', 'shape')},
-            **({'max_err_over_max_plain': k['max_err_over_max_plain']}
-               if 'max_err_over_max_plain' in k else {})})
+            **{key: k[key] for key in ('max_err_over_max_plain', 'step_ms',
+                                       'step_bound_ms') if key in k}})
     log(json.dumps({'kernels': kernels}))
     log(power)
     print(json.dumps({'ok': True, 'device': {

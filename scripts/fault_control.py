@@ -6,7 +6,8 @@
 Plants one fault at a time, in a kernel's wrapper (a chunk of the kernel's
 work skipped) or in the trainer, and runs chip_smoke.py's unet, small and
 train_small comparisons (GPU bf16 kernels against the CPU fp32 plain path)
-with it. A sound run comes first. For each kernel fault it also prints the
+and its atlas_small comparison (GPU fp32 against CPU fp32) with it. A sound
+run comes first. For each kernel fault it also prints the
 kernel-level error against the plain version at one level-0 shape, the
 check of chip_smoke.py's kernels phase. The faults:
 
@@ -20,16 +21,25 @@ check of chip_smoke.py's kernels phase. The faults:
 - flash_bwd_dq_last_k_tile: the dQ kernel skips its last 64-key tile
                       wherever Sk > 64;
 - adapter_bf16_weights: the trainer keeps the adapter's weights and AdamW
-                      state in bf16, as the models are, instead of fp32.
+                      state in bf16, as the models are, instead of fp32;
+- hash_last_corner:   the hash-grid table-gradient kernel skips the rows
+                      of the fourth cell corner (the last quarter of each
+                      level's corner-major 4 x points rows);
+- hash_last_block:    the same kernel skips only its last 256-row block
+                      (the fourth corner of the last 64 points): a fault
+                      below what atlas_small can see, which the kernel
+                      limit must catch alone.
 
 The faulted wrappers call the real kernels on the GPU; CPU tensors go to
 the plain versions untouched, so the CPU reference stays sound. Prints one
 JSON object last; exits 0 only if the sound run passes every limit, every
 forward fault fails at least one of them, every backward fault fails the
 train_small gradient limit (its loss, a forward quantity, is untouched),
-every kernel fault fails the kernels-phase limit, and the adapter fault
-fails train_small's update limits (the AdamW step's change of the weights
-against the CPU's, and the share of weights it moves).
+every kernel fault fails the kernels-phase limit, the adapter fault fails
+train_small's update limits (the AdamW step's change of the weights against
+the CPU's, and the share of weights it moves), and the hash-corner fault
+fails atlas_small's hash-table gradient limit (the atlas's forward and its
+other gradients are untouched).
 """
 
 from __future__ import annotations
@@ -113,6 +123,16 @@ def _flash_bwd_dq_last_k_tile():
     return mock.patch.object(fa, '_launch_bwd_dq', faulted)
 
 
+def _hash_skip(kept):
+    from videoswap_torch.ops import hash_table_grad as hg
+    launch = hg._launch
+
+    def faulted(idx, val, out, mode='auto'):
+        keep = kept(idx.shape[0])
+        return launch(idx[:keep], val[:keep], out, mode)
+    return mock.patch.object(hg, '_launch', faulted)
+
+
 @contextlib.contextmanager
 def _adapter_bf16_weights(trainer):
     trainer.adapter.bfloat16()
@@ -132,8 +152,13 @@ FAULTS = {
     'flash_bwd_dkv_last_q_tile': lambda tr: _flash_bwd_dkv_last_q_tile(),
     'flash_bwd_dq_last_k_tile': lambda tr: _flash_bwd_dq_last_k_tile(),
     'adapter_bf16_weights': _adapter_bf16_weights,
+    'hash_last_corner': lambda tr: _hash_skip(lambda r: r * 3 // 4),
+    'hash_last_block': lambda tr: _hash_skip(
+        lambda r: max(0, (r - 1) // 256 * 256)),
 }
 BACKWARD_FAULTS = ('flash_bwd_dkv_last_q_tile', 'flash_bwd_dq_last_k_tile')
+ATLAS_FAULTS = ('hash_last_corner',)
+KERNEL_ONLY_FAULTS = ('hash_last_block',)
 TRAINER_FAULTS = ('adapter_bf16_weights',)
 
 
@@ -148,9 +173,16 @@ def kernel_error(fault: str) -> float:
     from videoswap_torch.ops import attention
     from videoswap_torch.ops import flash_attention as fa
     from videoswap_torch.ops import geglu_ffn as gf
+    from videoswap_torch.ops import hash_table_grad as hg
     from videoswap_torch.ops import temporal_attention as ta
     gen = torch.Generator(device='cuda').manual_seed(cs.SEED)
     f32 = (lambda ts: [t.float() for t in ts])
+    if fault.startswith('hash'):
+        # level 0 of a main step, relative to the largest |plain| entry
+        idx, val = cs._hash_rows(gen, 240000, 289)
+        ref = hg.hash_table_grad_plain(idx, val, 289)
+        out = hg.hash_table_grad(idx, val, 289)
+        return float((out - ref).abs().max() / ref.abs().max())
     if fault.startswith('geglu'):
         c = 320
         args = [cs._rand(gen, (8192, c)), cs._rand(gen, (8 * c, c), c ** -0.5),
@@ -183,6 +215,7 @@ def main() -> None:
     import torch
     if not torch.cuda.is_available():
         cs.die('no CUDA device: this script runs only on a GPU')
+    cs.full_fp32()
     cs.log(f'# nvidia-smi: {cs.card()}')
     pipe = cs.build_pipeline('cuda', torch.bfloat16)
     cpu = cs.cpu_copy(pipe)
@@ -192,6 +225,8 @@ def main() -> None:
     ref_loss, ref_grad, ref_update = cs.small_train_step(cpu_trainer, batch,
                                                          draws)
     trainer = cs.make_trainer(pipe)
+    atlas_gpu, atlas_cpu, atlas_draws = cs.atlas_small_inputs('cuda')
+    ref_atlas = cs.atlas_small_step(atlas_cpu, atlas_draws)
     rows = {}
     for name, plant in FAULTS.items():
         with plant(trainer):
@@ -204,6 +239,12 @@ def main() -> None:
                    'train_grad_rel_err': cs.rel_err(grad, ref_grad),
                    'train_update_rel_err': cs.rel_err(update, ref_update),
                    'train_moved': cs.moved_share(update)}
+            atlas = cs.atlas_small_errors(
+                cs.atlas_small_step(atlas_gpu, atlas_draws), ref_atlas)
+            row.update({f'atlas_{k}_rel_err': v for k, v in atlas.items()
+                        if k != 'per_net'})
+            row['atlas_fails'] = sorted(
+                k for k, v in cs.atlas_small_fails(atlas).items() if v)
             if name not in ('sound',) + TRAINER_FAULTS:
                 row['kernel_err'] = kernel_error(name)
         row['unet_fails'] = row['unet_rel_err'] > cs.MODEL_REL_TOL
@@ -218,7 +259,8 @@ def main() -> None:
         rows[name] = row
         cs.log(f'# {name}: {json.dumps(row)}')
     sound = rows.pop('sound')
-    kernel_tol = {'geglu': cs.TOL['geglu_ffn'],
+    kernel_tol = {'hash': cs.HASH_TOL,
+                  'geglu': cs.TOL['geglu_ffn'],
                   'temporal': cs.TOL['temporal_attention'],
                   'flash_bwd_dkv': cs.TOL['flash_attention_bwd_dkv'],
                   'flash_bwd_dq': cs.TOL['flash_attention_bwd_dq'],
@@ -230,9 +272,15 @@ def main() -> None:
             continue
         tol = next(t for key, t in kernel_tol.items()
                    if name.startswith(key))
-        model = (r['train_grad_fails'] if name in BACKWARD_FAULTS else
-                 r['unet_fails'] or r['small_fails'] or r['train_loss_fails']
-                 or r['train_grad_fails'])
+        if name in KERNEL_ONLY_FAULTS:
+            model = True
+        elif name in ATLAS_FAULTS:
+            model = 'hash_grad' in r['atlas_fails']
+        elif name in BACKWARD_FAULTS:
+            model = r['train_grad_fails']
+        else:
+            model = (r['unet_fails'] or r['small_fails']
+                     or r['train_loss_fails'] or r['train_grad_fails'])
         caught[name] = bool(model and r['kernel_err'] > tol)
     ok = not any(v for k, v in sound.items() if k.endswith('_fails')) \
         and all(caught.values())
@@ -241,7 +289,12 @@ def main() -> None:
                       'train_loss_tol': cs.TRAIN_LOSS_TOL,
                       'train_grad_tol': cs.TRAIN_GRAD_TOL,
                       'train_update_tol': cs.TRAIN_UPDATE_TOL,
-                      'train_moved_min': cs.TRAIN_MOVED_MIN, 'sound': sound,
+                      'train_moved_min': cs.TRAIN_MOVED_MIN,
+                      'atlas_tols': {'loss': cs.ATLAS_LOSS_TOL,
+                                     'grad': cs.ATLAS_GRAD_TOL,
+                                     'hash_grad': cs.ATLAS_HASH_GRAD_TOL,
+                                     'update': cs.ATLAS_UPDATE_TOL},
+                      'sound': sound,
                       'faults': rows, 'caught': caught}), flush=True)
     sys.exit(0 if ok else 1)
 

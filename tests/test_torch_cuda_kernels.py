@@ -12,7 +12,9 @@ bf16 inputs; outputs of O(1) are rounded once to bf16 (2^-8 relative), plus
 the kernel's bf16 rounding of the gated product (GEGLU) or of the
 probabilities (flash). The flash backward's gradients are far from O(1), so
 their error is taken relative to the largest |plain| entry (1e-2: bf16
-rounding of P, dS and the output, summed over keys or queries).
+rounding of P, dS and the output, summed over keys or queries). The
+hash-grid scatter is fp32 on both sides: its atomics only reorder each
+entry's sum, so it is held to 1e-5 of the largest |plain| entry.
 """
 
 import numpy as np
@@ -21,6 +23,7 @@ import torch
 
 from videoswap_torch.ops import flash_attention as tfa
 from videoswap_torch.ops import geglu_ffn as tgf
+from videoswap_torch.ops import hash_table_grad as thg
 from videoswap_torch.ops import temporal_attention as tta
 
 pytestmark = pytest.mark.cuda
@@ -214,3 +217,69 @@ def test_build_models_defaults_to_the_card(cuda):
     for name in ('unet', 'vae', 'text_encoder', 'adapter'):
         m = built[name]
         assert all(t.is_cuda for t in (*m.parameters(), *m.buffers())), name
+
+
+@pytest.mark.parametrize('rows,entries', [(240000, 289), (240000, 529),
+                                          (5000, 23409), (100001, 524288),
+                                          (1, 7), (4099, 300)])
+def test_hash_table_grad_kernel_matches_plain(cuda, rows, entries):
+    """Both kernel forms (shared-memory table for small tables with many
+    rows an entry, device-memory atomics otherwise), dropped rows, and row
+    counts that are not a multiple of the 256-row block."""
+    rs = np.random.RandomState(entries)
+    idx = torch.from_numpy(rs.randint(-1, entries, rows).astype(np.int32))
+    val = _randn((rows, 2), 1)
+    idx, val = idx.to(cuda), val.to(cuda)
+    ref = thg.hash_table_grad_plain(idx, val, entries)
+    before = thg.launches
+    out = thg.hash_table_grad(idx, val, entries)
+    assert thg.launches == before + 1 and out.dtype == torch.float32
+    assert _close(out, ref, 1e-5)
+    for mode in ('global', 'shared') if entries * 8 <= 48 * 1024 else ():
+        acc = torch.ones((entries, 2), device=cuda)
+        thg._launch(idx, val, acc, mode)
+        assert _close(acc - 1, ref, 1e-5), mode
+    one = _randn((rows, 1), 2).to(cuda)                     # F = 1
+    assert _close(thg.hash_table_grad(idx, one, entries),
+                  thg.hash_table_grad_plain(idx, one, entries), 1e-5)
+
+
+def test_hash_table_grad_kernel_refuses_what_it_does_not_take(cuda):
+    idx = torch.zeros(8, dtype=torch.int32, device=cuda)
+    val = torch.zeros(8, 2, device=cuda)
+    with pytest.raises(TypeError):
+        thg.hash_table_grad(idx, val.bfloat16(), 16)
+    with pytest.raises(TypeError):
+        thg.hash_table_grad(idx.long(), val, 16)
+    with pytest.raises(ValueError):
+        thg.hash_table_grad(idx, torch.zeros(2, 8, device=cuda).t(), 16)
+    with pytest.raises(ValueError):
+        thg.hash_table_grad(idx, val, 16, out=torch.zeros(15, 2,
+                                                          device=cuda))
+
+
+def test_hash_encode_gradients_on_the_card_match_the_cpu(cuda):
+    from videoswap_torch.atlas.imlp import hash_encode
+    rs = np.random.RandomState(3)
+    x = torch.from_numpy(rs.uniform(-1.5, 1.5, (3000, 2)).astype(np.float32))
+    table = _randn((6, 2 ** 12, 2), 4, 1e-2)
+    cot = _randn((3000, 12), 5)
+    grads = []
+    for dev in (cuda, torch.device('cpu')):
+        xs, ts = (t.to(dev).requires_grad_() for t in (x, table))
+        out = hash_encode(xs, ts)
+        grads.append((out.detach().cpu(),
+                      *torch.autograd.grad(out, (xs, ts), cot.to(dev))))
+    before = thg.launches
+    hash_encode(x.to(cuda), table.to(cuda).requires_grad_()).sum().backward()
+    assert thg.launches == before + 6                      # one a level
+    for g, r in zip(*grads):
+        assert _close(g.cpu(), r, 1e-5)
+
+
+def test_build_atlas_nets_defaults_to_the_card(cuda):
+    from videoswap_torch.builders import build_atlas_nets
+    nets = build_atlas_nets({'F_Atlas': dict(
+        input_dim=2, output_dim=3, hidden_dim=32, pe_type='hash_encoding',
+        mlp_layers=3, n_levels=4, log2_hashmap_size=10)})
+    assert all(p.is_cuda for p in nets['F_Atlas'].parameters())

@@ -10,6 +10,9 @@ loading checkpoints is not ported yet (ROADMAP.md).
 
 Weights are drawn from a seeded generator (utils/init.py) on the target
 device, model by model in the order U-Net, VAE, text encoder, adapter.
+
+`build_atlas_nets` builds the layered-neural-atlas nets of an atlas
+config's `models` block the same way.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from typing import Optional
 
 import torch
 
+from videoswap_torch.atlas.imlp import imlp_from_opt, init_imlp
 from videoswap_torch.models import (AdapterConfig, AnimateDiffUNet3DModel,
                                     SparsePointAdapter, UNet3DConfig)
 from videoswap_torch.models.clip_text import CLIPTextConfig, CLIPTextModel
@@ -28,6 +32,8 @@ from videoswap_torch.utils.tokenizer import HashTokenizer
 
 _FILE_KEYS = ('inference_config_path', 'motion_module_path',
               'model_config_path', 'pretrained_model_path')
+ATLAS_NET_NAMES = ('FG_UV_Mapping', 'BG_UV_Mapping', 'F_Alpha', 'F_Atlas',
+                   'FG_UV_Mapping_Inverse')
 
 
 def _tuples(kwargs: dict) -> dict:
@@ -67,3 +73,23 @@ def build_models(models_opt: Optional[dict] = None,
         # the CPU whatever the default device: move everything
         m.to(device=device, dtype=dtype).eval()
     return dict(models, sched=make_schedule(), tokenizer=HashTokenizer())
+
+
+def build_atlas_nets(models_opt: dict,
+                     device: Optional[str | torch.device] = None,
+                     seed: int = 0) -> dict:
+    """The layered-neural-atlas nets of an atlas config's `models` block
+    (the counterpart of train_atlas.py `build_nets`), fp32, in the order
+    FG_UV_Mapping, BG_UV_Mapping, F_Alpha, F_Atlas, FG_UV_Mapping_Inverse
+    (those present). device: None means 'cuda'. Weights come from one
+    seeded generator on the device, on flax's scales (`init_imlp`: not
+    `init_weights`, which would draw the hash table from N(0, 1/fan_in))."""
+    device = torch.device('cuda' if device is None else device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    nets = {}
+    for name in ATLAS_NET_NAMES:
+        if name in models_opt:
+            with torch.device(device):
+                nets[name] = imlp_from_opt(models_opt[name])
+            init_imlp(nets[name], gen)
+    return nets

@@ -7,6 +7,8 @@ rule of videoswap_tpu/models/converters.py `flax_path_to_torch_key`
 submodules carry exactly those keys, so the mapping needs no table. Tensors
 are transposed by rank: Dense (I, O) -> Linear (O, I); Conv (kh, kw, I, O)
 -> Conv2d (O, I, kh, kw); norm scales, biases and embeddings as they are.
+The atlas IMLPs keep their `hidden_{i}` layer names (the port's modules
+carry the same attribute names) and their 3-D `hash_table` as it is.
 
 The input is a nested mapping of array-likes (numpy arrays, or anything
 `numpy.asarray` takes); this module imports nothing of JAX.
@@ -31,6 +33,7 @@ _SPECIAL_SUBS = {
     'mid_block_attentions_0': 'mid_block.attentions.0',
 }
 _LITERAL_NAMES = {'linear_1', 'linear_2'}    # trailing _digit is literal
+_ATLAS_LAYER = re.compile(r'hidden_\d+')      # the atlas IMLP's Dense layers
 _EMBED_LEAVES = ('token_embedding', 'position_embedding')
 
 
@@ -41,7 +44,7 @@ def flax_path_to_torch_key(path: tuple[str, ...]) -> str:
             continue
         if comp in _SPECIAL_SUBS:
             parts.append(_SPECIAL_SUBS[comp])
-        elif comp in _LITERAL_NAMES:
+        elif comp in _LITERAL_NAMES or _ATLAS_LAYER.fullmatch(comp):
             parts.append(comp)
         else:
             parts.append(re.sub(r'_(\d+)(_|$)', r'.\1.', comp).rstrip('.'))

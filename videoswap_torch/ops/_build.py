@@ -40,6 +40,7 @@ _SIGNATURES = {
                                   _I, _STRIDES, _P],
     'vs_flash_attention_bwd_dkv': [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                    _I, _I, _I, _STRIDES, _P],
+    'vs_hash_table_grad': [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 
