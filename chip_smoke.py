@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (videoswap_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases build,kernels,unet,small,sample,train_small,train,atlas_small,atlas]
+    python3 chip_smoke.py [--phases build,kernels,unet,small,sample,train_small,train,blend_small,blend,atlas_small,atlas]
 
 Phases (all by default):
 
@@ -20,7 +20,11 @@ Phases (all by default):
                hash-grid table-gradient kernel (fp32) against its plain
                version at the atlas levels' table sizes and 240000 rows,
                with index_add_ as the library call, and the hash encoding's
-               gradients on the card against the CPU;
+               gradients on the card against the CPU; the fused
+               temporal-transformer kernel in both layouts at U-Net levels 0
+               (C = 320, with the FFN) and 1 (C = 640, the attention half),
+               timed beside the layer-wise module it replaces, and its
+               autograd Function's gradients;
 - unet:        one full-width U-Net forward (512x512, 2 frames, CFG, adapter
                residuals): the kernel path on the GPU in bf16 against the
                plain path on the CPU in fp32, same weights and inputs;
@@ -42,6 +46,21 @@ Phases (all by default):
                adapter's weights and the launch count of every kernel must be
                > 0 (the recompute of the level-0 layers in the backward
                launches the forward kernels again, and is counted);
+- blend_small: `VideoSwapPipeline.validation` at full width, 256x256, 2
+               frames, 5 DDIM steps (the fewest that open the latent-blend
+               window): inversion with attention stores, one swap with a
+               synthetic ED-LoRA file, cross and self replacement 0.5 and
+               latent blending, in both recompute-self tiers; GPU bf16 latents
+               against the CPU fp32 pipeline, and the merged weights restored;
+- blend:       the fourth slice's path, `validation` on a synthetic 16-frame
+               512x512 video: the `man_to_hermione` swap of options/
+               train_videoswap/human/1009_final_ss1010_manwalking_T07_Iter50
+               (a synthetic ED-LoRA file, alpha 0.7, cross and self
+               replacement 0.5, adapter guidance 0.4, CFG 7.5, the file's
+               negative prompt and t2i window), recompute-self tier, 5 DDIM
+               steps; seconds a step of the inversion and of the edit, the
+               merge and restore, peak memory and launches; the frames must
+               be finite and the fused kernel must launch;
 - atlas_small: the atlas_swan nets at full width (2^19 hash table) on an
                8-frame 128x96 synthetic clip, batch 10000: one main step and
                one inverse step on the same params and draws, GPU against
@@ -55,8 +74,8 @@ Phases (all by default):
                16 times a main step), the reconstruction PSNR of 4 frames
                and one propagated point drag.
 
-Launch counts are set to 0 just before the sample, train and atlas paths and
-read just after each. scripts/fault_control.py shows that the unet, small,
+Launch counts are set to 0 just before the sample, train, blend and atlas
+paths and read just after each. scripts/fault_control.py shows that the unet, small,
 train_small and atlas_small limits fail a kernel with a planted fault;
 scripts/profile_step.py breaks one full-width U-Net step, training step or
 atlas iteration down by device time.
@@ -73,6 +92,7 @@ import argparse
 import copy
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -81,7 +101,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ('build', 'kernels', 'unet', 'small', 'sample', 'train_small',
-          'train', 'atlas_small', 'atlas')
+          'train', 'blend_small', 'blend', 'atlas_small', 'atlas')
 SEED = 0
 FRAMES, SIZE, POINTS = 16, 512, 10
 STEPS = 4          # DDIM steps of the full-width sample (a smoke run's time)
@@ -89,6 +109,24 @@ TRAIN_STEPS = 3    # AdamW steps of the full-width training run
 # the slice's tuning (scripts/bench_train.py of the JAX package)
 TRAIN_TUNE = {'drop_rate': 0.2, 'min_timestep': 0.5, 'loss_type': 'global'}
 TRAIN_LR = 1e-5
+# the blended path: DDIM steps (the fewest that open the latent-blend window,
+# 0.2 N < step < 0.8 N), the synthetic ED-LoRA file's rank, and
+# options/train_videoswap/human/1009_final_ss1010_manwalking_T07_Iter50's
+# dataset prompt and val block (the card's machine has no YAML reader): the
+# man_to_hermione swap, alpha 0.7, with the block's negative prompt,
+# adapter guidance and t2i window
+BLEND_STEPS = 5
+LORA_RANK = 4
+BLEND_PROMPT = 'a man is walking in front of trees and grass'
+BLEND_NEGATIVE = ('longbody, lowres, bad anatomy, bad hands, missing fingers, '
+                  'extra digit, fewer digits, cropped, worst quality, low '
+                  'quality')
+BLEND_CONCEPTS = ('<hermione1>', '<hermione2>')
+BLEND_SWAP = {'replace': 'man -> <hermione1> <hermione2>',
+              'blend_cfg': {'cross_replace_steps': 0.5,
+                            'self_replace_steps': 0.5},
+              't2i_guidance_scale': 0.4}
+BLEND_LORA_ALPHA = 0.7
 
 # kernel -> (module, launch counter, source, TPU kernel it replaces)
 KERNELS = {
@@ -112,19 +150,35 @@ KERNELS = {
     'hash_table_grad': (
         'hash_table_grad', 'launches', 'videoswap_torch/csrc/hash_table_grad.cu',
         'videoswap_tpu/ops/hash_table_grad.py:125'),
+    'fused_temporal': (
+        'fused_temporal', 'launches', 'videoswap_torch/csrc/fused_temporal.cu',
+        'videoswap_tpu/ops/fused_temporal.py:243'),
+    'fused_temporal_bfhw': (
+        'fused_temporal', 'bfhw_launches',
+        'videoswap_torch/csrc/fused_temporal.cu',
+        'videoswap_tpu/ops/fused_temporal.py:282'),
 }
 # the path whose launch count the kernels line reports for each kernel
-KERNEL_PATH = {'hash_table_grad': 'atlas'}
-FORWARD_KERNELS = ('geglu_ffn', 'temporal_attention', 'flash_attention_fwd')
+# ('sample_4d': the sample path run again with FT_4D, the frame-major layout)
+KERNEL_PATH = {'hash_table_grad': 'atlas', 'fused_temporal_bfhw': 'sample_4d'}
+FORWARD_KERNELS = ('geglu_ffn', 'temporal_attention', 'flash_attention_fwd',
+                   'fused_temporal')
 # max |kernel - plain| allowed, bf16 kernel vs fp32 plain on the same bf16
 # inputs: outputs are O(1) and rounded once to bf16 (2^-8 relative), plus
 # the bf16 rounding of the intermediate (gated product, probabilities). The
 # backward's gradients are far from O(1) (dq ~ 1e-2 at S = 4096), so their
 # error is taken relative to the largest |plain| entry: bf16 rounding of
 # P, dS and the output, summed over many keys or queries
+# the fused temporal transformer's outputs (x + the module) reach ~10 at
+# the level-0 shape, where a bf16 ulp is 0.06, after about ten bf16
+# roundings of its intermediates (LayerNorm outputs, q, k, v, P, o, the gated
+# FFN product, h before proj_out): its error is taken relative to the
+# largest |plain| entry; sound readings on the H100 4.1e-3 (C = 320) and
+# 3.8e-3 (C = 640); a head skipped reads 0.25 (scripts/fault_control.py)
 TOL = {'geglu_ffn': 3e-2, 'temporal_attention': 1e-2,
        'flash_attention_fwd': 1e-2, 'flash_attention_bwd_dq': 1e-2,
-       'flash_attention_bwd_dkv': 1e-2}
+       'flash_attention_bwd_dkv': 1e-2, 'fused_temporal': 1.5e-2,
+       'fused_temporal_bfhw': 1.5e-2}
 # the hash-grid scatter is fp32 on both sides: its atomics only reorder each
 # entry's fp32 sum (~830 rows an entry at level 0), a few 1e-7 of the
 # largest |plain| entry; the limit is relative to that entry. The same for
@@ -140,6 +194,14 @@ MODEL_REL_TOL = 5e-2
 # the same for sampled latents: guidance 7.5 multiplies the U-Net's bf16
 # error in (eps_cond - eps_uncond) by up to 7.5 at every step
 SAMPLE_REL_TOL = 5e-2
+# blend_small's latents, GPU bf16 against CPU fp32: the bf16 inversion (5
+# steps, each dividing by sqrt(alpha)) feeds 5 CFG-7.5 edit steps whose blend
+# masks threshold the attention maps, so a map value near the threshold
+# flips a mask pixel and the blend there. Sound readings on the H100:
+# 4.49e-2 to 4.84e-2 (both tiers, blend thresholds 0.3 to 0.95, and the
+# fault-control script's order of runs); the closest planted fault, the
+# cross-attention edit skipped on the card, reads 7.19e-2
+BLEND_REL_TOL = 6e-2
 # train_small, GPU bf16 against CPU fp32: the loss (relative) and the
 # flattened adapter gradient (relative L2), the latter a sum over every U-Net
 # layer's backward in bf16. Sound readings on the H100: loss 6.7e-4, grad
@@ -325,21 +387,29 @@ def _record(report, name, shape_desc, err, ms, plain_ms, work, library):
 
 
 def _compare(name, shape_desc, kernel, plain_bf16, plain_fp32, report,
-             work, library=None, iters=10):
+             work, library=None, iters=10, relative=False):
+    """Kernel against its plain version; with `relative` the limit holds
+    the error over the largest |plain| entry."""
     import torch
     out = kernel()
     torch.cuda.synchronize()
     ref = plain_fp32()
     err = float((out.float() - ref.float()).abs().max())
+    crit = err / float(ref.float().abs().max()) if relative else err
     ms = cuda_time_ms(kernel, iters)
     plain_ms = cuda_time_ms(plain_bf16, max(2, iters // 3), warmup=1)
-    ok = err <= TOL[name] and bool(torch.isfinite(out).all())
-    log(f'# kernel {name} {shape_desc}: max_abs_err {err:.3e} '
-        f'(tol {TOL[name]:.0e}) kernel {ms:.3f} ms plain(bf16) '
+    ok = crit <= TOL[name] and bool(torch.isfinite(out).all())
+    log(f'# kernel {name} {shape_desc}: max_abs_err {err:.3e}'
+        + (f', /max|plain| {crit:.3e}' if relative else '')
+        + f' (tol {TOL[name]:g}) kernel {ms:.3f} ms plain(bf16) '
         f'{plain_ms:.3f} ms {"ok" if ok else "FAIL"}')
     _record(report, name, shape_desc, err, ms, plain_ms, work, library)
+    if relative:
+        entry = report['kernels'][name]
+        entry['max_err_over_max_plain'] = max(
+            entry.get('max_err_over_max_plain', 0.0), crit)
     if not ok:
-        raise PhaseError(f'{name} {shape_desc}: max_abs_err {err:.3e}')
+        raise PhaseError(f'{name} {shape_desc}: error {crit:.3e}')
 
 
 def _sdpa(q, k, v):
@@ -406,7 +476,7 @@ def _flash_backward(fa, gen, b, h, s, sk, d, report):
         log(f'# kernel {name} {desc}: max_abs_err '
             + ' '.join(f'{e:.3e}' for e in abs_errs) + ', /max|plain| '
             + ' '.join(f'{e:.3e}' for e in rel_errs)
-            + f' (tol {TOL[name]:.0e}) kernel {ms:.3f} ms plain backward '
+            + f' (tol {TOL[name]:g}) kernel {ms:.3f} ms plain backward '
             f'(bf16 inputs, dq+dk+dv) {plain_ms:.3f} ms '
             f'{"ok" if ok else "FAIL"}')
         _record(report, name, desc, max(abs_errs), ms, plain_ms, work,
@@ -474,6 +544,11 @@ def phase_kernels(report):
                  lambda: cuda_time_ms(
                      lambda: _sdpa(view(q), view(k), view(v)), 10))
 
+    # fused temporal transformer: the CFG batch of 2 x 16 frames at level 0
+    # (C = 320, with the FFN) and level 1 (C = 640, the attention half)
+    for side, c in ((64, 320), (32, 640)):
+        _fused_temporal(report, gen, side, c)
+
     # flash forward: B = 2 CFG x 16 frames, 8 heads; self and cross (Sk=77)
     b, h = 2 * FRAMES, 8
     for s, d in ((4096, 40), (1024, 80), (256, 160), (64, 160)):
@@ -519,6 +594,18 @@ def phase_kernels(report):
                 lambda *t: ta.temporal_attention_plain(*t, 8, FRAMES), qkv,
                 _rand(gen, (256 * FRAMES, c)))
 
+    from videoswap_torch.ops import fused_temporal as ft
+    c, el = 320, 256
+    g, x, pe, flat, _ = _fused_inputs(gen, 1, el, c, True)
+    _grad_check(f'fused_temporal L={el} F={FRAMES} C={c}',
+                lambda g_, x_: ft.fused_temporal_transformer(
+                    g_, x_, pe, flat, 8, FRAMES),
+                lambda g_, x_: ft.fused_temporal_plain(
+                    g_, x_, pe.float(), [p.float() for p in flat], 8,
+                    FRAMES),
+                [ft.rows_of(g).contiguous(), ft.rows_of(x).contiguous()],
+                _rand(gen, (el * FRAMES, c)))
+
     # their plain backwards at the training step's shapes (16 frames x H x
     # W rows per U-Net level), as training runs them: dX alone through the
     # FFN (frozen weights), dq/dk/dv through the frame attention
@@ -540,6 +627,95 @@ def phase_kernels(report):
             f'ms, temporal_attention (L={hw} F={FRAMES}) {ms_t:.3f} ms')
 
     _hash_kernels(report, gen)
+
+
+def _fused_inputs(gen, b, hw, c, include_ffn):
+    """g, x (B, F, HW, C) bf16, the position table and a motion module's
+    parameters (seeded random weights, random fp32 vectors) for the fused
+    temporal kernel, and the module itself."""
+    import torch
+    from videoswap_torch.models.motion_module import \
+        TemporalTransformer3DModel
+    from videoswap_torch.ops import fused_temporal as ft
+    from videoswap_torch.utils.init import init_weights
+    mod = TemporalTransformer3DModel(c, 8).to('cuda')
+    init_weights(mod, gen)
+    with torch.no_grad():
+        for p in mod.parameters():
+            if p.dim() == 1:
+                p.add_(torch.randn(p.shape, generator=gen, device='cuda'),
+                       alpha=0.1)
+    mod.to(torch.bfloat16).requires_grad_(False)
+    g, x = (_rand(gen, (b, FRAMES, hw, c)) for _ in range(2))
+    pe = mod.transformer_blocks[0].pe[:FRAMES].to(torch.bfloat16)
+    return g, x, pe, ft.flat_params(mod, include_ffn), mod
+
+
+def _fused_temporal(report, gen, side, c):
+    """The fused kernel against its plain version in both layouts at one
+    U-Net level (C <= 320 with the FFN, else the attention half), timed
+    beside the layer-wise module it replaces (no single PyTorch call
+    computes this function: the layer-wise time stands in the library
+    column, marked so). At C = 640 the layer-wise time is of the attention
+    half, and the fused route's time with `ffn_tail` is printed beside the
+    whole layer-wise module's."""
+    import torch
+    from videoswap_torch.ops import fused_temporal as ft
+    b, f, heads = 2, FRAMES, 8
+    hw = side * side
+    inc = c <= 320
+    g4, x4, pe, flat, mod = _fused_inputs(gen, b, hw, c, inc)
+    g2, x2 = ft.rows_of(g4).contiguous(), ft.rows_of(x4).contiguous()
+    rows = b * hw * f
+    n_mat = 22 if inc else 9             # C x C matrices
+    flops = rows * ((44 if inc else 18) * c * c + 8 * f * c)
+    nbytes = (2 * rows * c * (3 if inc else 2) + 2 * n_mat * c * c
+              + 4 * c * (14 if inc else 8))
+    x5, g5 = (t.reshape(b, f, side, side, c) for t in (x4, g4))
+    blk = mod.transformer_blocks[0]
+
+    def layerwise_attention_half():
+        h = torch.nn.functional.linear(g5, mod.proj_in.weight,
+                                       mod.proj_in.bias)
+        h = h.permute(0, 2, 3, 1, 4).reshape(b * hw, f, c)
+        pe_ = blk.pe[:f].to(h.dtype)
+        for attn, norm in zip(blk.attention_blocks, blk.norms):
+            h = attn(norm(h) + pe_[None]) + h
+        return h
+
+    with torch.no_grad():
+        layerwise = (lambda: mod._layerwise(x5, g5)) if inc \
+            else layerwise_attention_half
+        lib_ms = cuda_time_ms(layerwise, 5)
+        if not inc:
+            full = cuda_time_ms(lambda: mod._layerwise(x5, g5), 5)
+            route = cuda_time_ms(lambda: ft.ffn_tail(
+                ft.fused_temporal_transformer(g2, x2, pe, flat, heads, f,
+                                              include_ffn=False), x2, mod), 5)
+            log(f'# fused_temporal C={c}: kernel + ffn_tail {route:.3f} ms, '
+                f'the whole layer-wise module {full:.3f} ms')
+    f32 = [p.float() for p in flat]
+    desc = f'rows={rows} F={f} C={c}' + ('' if inc else ' attention half')
+    _compare('fused_temporal', desc,
+             lambda: ft.fused_temporal_transformer(g2, x2, pe, flat, heads, f,
+                                                   include_ffn=inc),
+             lambda: ft.fused_temporal_plain(g2, x2, pe, flat, heads, f, 1,
+                                             inc),
+             lambda: ft.fused_temporal_plain(g2.float(), x2.float(),
+                                             pe.float(), f32, heads, f, 1,
+                                             inc),
+             report, (flops, nbytes), lambda: lib_ms, iters=5,
+             relative=True)
+    _compare('fused_temporal_bfhw', f'B={b} F={f} HW={hw} C={c}',
+             lambda: ft.fused_temporal_transformer_bfhw(
+                 g4, x4, pe, flat, heads, f, include_ffn=inc),
+             lambda: ft.fused_temporal_plain_bfhw(g4, x4, pe, flat, heads, f,
+                                                  1, inc),
+             lambda: ft.fused_temporal_plain_bfhw(
+                 g4.float(), x4.float(), pe.float(), f32, heads, f, 1, inc),
+             report, (flops, nbytes), lambda: lib_ms, iters=5, relative=True)
+    for name in ('fused_temporal', 'fused_temporal_bfhw'):
+        report['kernels'][name]['library_is'] = 'the layer-wise module'
 
 
 def _hash_rows(gen, rows, entries):
@@ -796,11 +972,12 @@ def phase_sample(report, state):
               conditions=conditions(FRAMES, SIZE), t2i_guidance_scale=0.5,
               t2i_start=0.0, t2i_end=0.5, output_type='np',
               generator=torch.Generator(device='cuda').manual_seed(SEED))
-    marks = []
+    marks, last = [], []
 
     def on_step(i, t, latents):
         torch.cuda.synchronize()
         marks.append(time.perf_counter())
+        last[:] = [latents]
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -829,6 +1006,35 @@ def phase_sample(report, state):
     if missing:
         raise PhaseError(f'kernels not launched on the sample path: '
                          f'{missing}')
+
+    # the same path with FT_4D: the motion modules take the fused kernel's
+    # frame-major layout, whose blocks hold the same locations and do the
+    # same arithmetic as the row layout's, so the latents must be equal
+    main_lat = last[0]
+    marks.clear()
+    os.environ['FT_4D'] = '1'
+    try:
+        reset_launches()
+        with torch.no_grad():
+            lat4 = pipe.sample(callback=on_step, **dict(
+                kw, output_type='latent', generator=torch.Generator(
+                    device='cuda').manual_seed(SEED)))
+        counts4 = read_launches()
+    finally:
+        del os.environ['FT_4D']
+    diff = float((lat4.float() - main_lat.float()).abs().max())
+    steps4 = np.diff([marks[0]] + marks[1:]) if marks else []
+    log(f'# sample with FT_4D: per U-Net step (s) after the first '
+        f'{" ".join(f"{s:.3f}" for s in steps4)}; latents against the row '
+        f'layout\'s: max abs diff {diff:.3e} (must be equal); launches '
+        f'{json.dumps(counts4)}')
+    report['launches']['sample_4d'] = counts4
+    report['sample_4d_max_diff'] = diff
+    if counts4['fused_temporal_bfhw'] <= 0 or counts4['fused_temporal'] > 0:
+        raise PhaseError(f'FT_4D sample launches: {counts4}')
+    if not torch.equal(lat4, main_lat):
+        raise PhaseError(f'FT_4D sample latents differ from the row '
+                         f'layout\'s: max abs diff {diff:.3e}')
 
 
 # ---------------------------------------------------------------- training
@@ -996,6 +1202,185 @@ def phase_train(report, state):
     if missing:
         raise PhaseError(f'kernels not launched on the train path: '
                          f'{missing}')
+
+
+# ---------------------------------------------------------------- blended
+def blend_video(frames, size, seed):
+    """A synthetic source video from the seed, (1, F, size, size, 3) in
+    [-1, 1]: random plane waves translating 2 px a frame, rounded to bf16
+    values so that a bf16 and an fp32 model see the same input."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
+    out = np.zeros((1, frames, size, size, 3), np.float32)
+    for _ in range(6):
+        k = rs.randn(2) * 2 * np.pi / 40
+        phase, amp = rs.rand() * 2 * np.pi, rs.rand(3) * 0.3
+        for f in range(frames):
+            wave = np.sin(k[0] * (yy - f) + k[1] * (xx - 2 * f) + phase)
+            out[0, f] += wave[..., None] * amp
+    import torch
+    return torch.from_numpy(np.clip(out, -1, 1)).bfloat16().float().numpy()
+
+
+def edlora_file(pipe, path, seed=SEED):
+    """A synthetic ED-LoRA checkpoint for the pipeline's models: the two
+    concepts' 16 layer embeddings, and a rank-LORA_RANK LoRA (down ~
+    N(0, 1/in), up ~ N(0, 0.02^2)) on every eligible U-Net and text-encoder
+    weight."""
+    import torch
+    from videoswap_torch.edlora import _TEXT_LORA, _UNET_LORA, _eligible
+    from videoswap_torch.models.converters import clip_key_map
+    gen = torch.Generator().manual_seed(seed)
+
+    def loras(module, names, key_map=None):
+        out = {}
+        for k, w in module.state_dict().items():
+            if _eligible(k, names):
+                key = key_map(k) if key_map else k
+                o, i, *kern = w.shape
+                out[key.replace('.weight', '.lora_down.weight')] = \
+                    torch.randn((LORA_RANK, i, *kern), generator=gen) \
+                    * i ** -0.5
+                out[key.replace('.weight', '.lora_up.weight')] = \
+                    torch.randn((o, LORA_RANK, *kern), generator=gen) * 0.02
+        return out
+
+    hid = pipe.text_encoder.cfg.hidden_size
+    sd = {'new_concept_embedding': {
+        c: torch.randn((16, hid), generator=gen) * 0.02
+        for c in BLEND_CONCEPTS},
+        'unet': loras(pipe.unet, _UNET_LORA),
+        'text_encoder': loras(pipe.text_encoder, _TEXT_LORA, clip_key_map)}
+    torch.save({'params': sd}, path)
+    return len(sd['unet']) // 2, len(sd['text_encoder']) // 2
+
+
+def blend_config(lora_path, recompute):
+    return {'use_invertion_latents': True, 'use_blend': True,
+            'guidance_scale': 7.5, 'num_inference_steps': BLEND_STEPS,
+            'negative_prompt': BLEND_NEGATIVE, 't2i_guidance_scale': 0.5,
+            't2i_start': 0.0, 't2i_end': 0.3,
+            'recompute_self_stores': recompute,
+            'editing_prompts': {'man_to_hermione': dict(
+                BLEND_SWAP, lora_path=f'{lora_path}---{BLEND_LORA_ALPHA}')}}
+
+
+def blend_small_run(pipe, lora, recompute):
+    """blend_small's swap: `validation` of a synthetic 2-frame 256x256
+    clip, BLEND_STEPS steps, with the ED-LoRA file `lora`; its latents."""
+    frames, size = 2, 256
+    return pipe.validation(blend_video(frames, size, SEED + 6),
+                           conditions(frames, size), BLEND_PROMPT,
+                           blend_config(lora, recompute),
+                           output_type='latent')['man_to_hermione']
+
+
+def phase_blend_small(report, state):
+    import tempfile
+    import torch
+    pipe, cpu = state['pipe'], state['cpu']
+    probe = [pipe.unet.down_blocks[0].attentions[0].transformer_blocks[0]
+             .attn1.to_q.weight, pipe.text_encoder.layers[0].self_attn
+             .q_proj.weight]
+    before = [p.detach().clone() for p in probe]
+    errs = {}
+    with tempfile.TemporaryDirectory() as d:
+        lora = os.path.join(d, 'edlora_hermione.pth')
+        edlora_file(pipe, lora)
+        for tier in (False, True):
+            t0 = time.perf_counter()
+            out = blend_small_run(pipe, lora, tier)
+            torch.cuda.synchronize()
+            t_gpu = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            ref = blend_small_run(cpu, lora, tier)
+            t_cpu = time.perf_counter() - t0
+            err = rel_err(out, ref)
+            errs[tier] = err
+            ok = bool(torch.isfinite(out).all()) and err <= BLEND_REL_TOL
+            log(f'# blend_small 256x256 2 frames {BLEND_STEPS} steps, '
+                f'ED-LoRA swap, recompute_self {tier}: GPU bf16 vs CPU fp32 '
+                f'latents rel L2 err {err:.3e} (tol {BLEND_REL_TOL:g}); GPU '
+                f'{t_gpu:.2f} s, CPU {t_cpu:.1f} s {"ok" if ok else "FAIL"}')
+            if not ok:
+                raise PhaseError(f'blend_small (recompute_self {tier}) GPU '
+                                 f'vs CPU: rel err {err:.3e}')
+    restored = all(torch.equal(a, b) for a, b in zip(before, probe))
+    report['blend_small_rel_err'] = {('recompute' if k else 'stored'): v
+                                     for k, v in errs.items()}
+    if not restored:
+        raise PhaseError('blend_small: the ED-LoRA merge was not undone')
+
+
+def phase_blend(report, state):
+    import tempfile
+    import numpy as np
+    import torch
+    from videoswap_torch.edlora import (load_edlora_into_pipeline,
+                                        restore_pipeline)
+    pipe = state['pipe']
+    video = blend_video(FRAMES, SIZE, SEED + 7)
+    cond = conditions(FRAMES, SIZE)
+    marks = {'invert': [], 'edit': []}
+
+    def on_step(stage, i, t, latents):
+        torch.cuda.synchronize()
+        marks['invert' if stage == 'invert' else 'edit'].append(
+            time.perf_counter())
+
+    def timed(fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as d:
+        lora = os.path.join(d, 'edlora_hermione.pth')
+        n_unet, n_text = edlora_file(pipe, lora)
+        # the merge and restore that validation runs around the swap, alone
+        ctx, t_merge = timed(load_edlora_into_pipeline, pipe, lora,
+                             BLEND_LORA_ALPHA)
+        _, t_restore = timed(restore_pipeline, pipe, ctx)
+        del ctx                  # the originals' copies, off the peak
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        video_out = pipe.validation(
+            video, cond, BLEND_PROMPT, blend_config(lora, True),
+            output_type='np', callback=on_step)['man_to_hermione']
+        torch.cuda.synchronize()
+        t_total = time.perf_counter() - t0
+        counts = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    inv_s = np.diff([t0] + marks['invert'])
+    edit_s = np.diff(marks['invert'][-1:] + marks['edit'])
+    log(f'# blend {FRAMES}x{SIZE}x{SIZE} man_to_hermione, recompute_self, '
+        f'{BLEND_STEPS} DDIM steps: total {t_total:.2f} s; inversion s per '
+        f'step (the first with the VAE encode) '
+        f'{" ".join(f"{v:.3f}" for v in inv_s)}; edit s per step (the '
+        f'first with the ED-LoRA merge, its 16-layer text encode, the edit '
+        f'bundle and the adapter; the recompute pass in the first '
+        f'{int(0.5 * BLEND_STEPS)}) {" ".join(f"{v:.3f}" for v in edit_s)}; '
+        f'ED-LoRA merge of {n_unet} U-Net and {n_text} text-encoder LoRAs '
+        f'(rank {LORA_RANK}) {t_merge:.3f} s, restore {t_restore:.3f} s '
+        f'(alone, before the swap); peak memory {peak:.2f} GiB')
+    log(f'# blend kernel launches: {json.dumps(counts)}')
+    report['launches']['blend'] = counts
+    report.update(blend_invert_s=[float(v) for v in inv_s],
+                  blend_edit_s=[float(v) for v in edit_s],
+                  blend_merge_s=t_merge, blend_restore_s=t_restore,
+                  blend_peak_gib=peak, blend_total_s=t_total)
+    if not (video_out.shape == (1, FRAMES, SIZE, SIZE, 3)
+            and bool(np.isfinite(video_out).all())):
+        raise PhaseError(f'blend output {video_out.shape}, finite '
+                         f'{np.isfinite(video_out).all()}')
+    missing = [n for n in FORWARD_KERNELS if counts[n] <= 0]
+    if missing:
+        raise PhaseError(f'kernels not launched on the blend path: {missing}')
 
 
 # ------------------------------------------------------------------ atlas
@@ -1311,12 +1696,13 @@ def main() -> None:
             else:
                 if 'pipe' not in state:
                     state['pipe'] = build_pipeline('cuda', torch.bfloat16)
-                if phase in ('unet', 'small', 'train_small') \
+                if phase in ('unet', 'small', 'train_small', 'blend_small') \
                         and 'cpu' not in state:
                     state['cpu'] = cpu_copy(state['pipe'])
                 {'unet': phase_unet, 'small': phase_small,
                  'sample': phase_sample, 'train_small': phase_train_small,
-                 'train': phase_train}[phase](report, state)
+                 'train': phase_train, 'blend_small': phase_blend_small,
+                 'blend': phase_blend}[phase](report, state)
             log(f'# phase {phase}: {time.perf_counter() - t0:.1f} s')
     except PhaseError as e:
         die(str(e))
@@ -1336,7 +1722,8 @@ def main() -> None:
                 'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
                 'library_ms', 'shape')},
             **{key: k[key] for key in ('max_err_over_max_plain', 'step_ms',
-                                       'step_bound_ms') if key in k}})
+                                       'step_bound_ms', 'library_is')
+               if key in k}})
     log(json.dumps({'kernels': kernels}))
     log(power)
     print(json.dumps({'ok': True, 'device': {

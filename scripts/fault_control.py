@@ -4,10 +4,11 @@
     python3 scripts/fault_control.py
 
 Plants one fault at a time, in a kernel's wrapper (a chunk of the kernel's
-work skipped) or in the trainer, and runs chip_smoke.py's unet, small and
-train_small comparisons (GPU bf16 kernels against the CPU fp32 plain path)
-and its atlas_small comparison (GPU fp32 against CPU fp32) with it. A sound
-run comes first. For each kernel fault it also prints the
+work skipped), in the trainer or in the blended swap, and runs
+chip_smoke.py's unet, small, train_small and blend_small comparisons (GPU
+bf16 kernels against the CPU fp32 plain path; blend_small in its recompute
+tier) and its atlas_small comparison (GPU fp32 against CPU fp32) with it. A
+sound run comes first. For each kernel fault it also prints the
 kernel-level error against the plain version at one level-0 shape, the
 check of chip_smoke.py's kernels phase. The faults:
 
@@ -28,7 +29,26 @@ check of chip_smoke.py's kernels phase. The faults:
 - hash_last_block:    the same kernel skips only its last 256-row block
                       (the fourth corner of the last 64 points): a fault
                       below what atlas_small can see, which the kernel
-                      limit must catch alone.
+                      limit must catch alone;
+- fused_last_head:    the fused temporal-transformer kernel's last of 8
+                      heads adds nothing (its out-projection columns
+                      zeroed), in both attention blocks, at C = 320 and 640;
+- fused_skip_ffn:     the fused kernel's FFN half adds nothing at C = 320
+                      (its second GEGLU product and bias zeroed);
+- edit_cross_skipped: the prompt-to-prompt controller leaves the
+                      cross-attention maps unedited (no refinement from the
+                      source prompt's maps);
+- blend_latents_skipped: the blended swap's latent blending is skipped (the
+                      edited latents kept where the mask would put back the
+                      inversion's).
+
+The last two are faults of the blended path with no kernel: blend_small
+alone can catch them. The skipped blend is reported but not required: with
+random weights the 5-step swap's edited latents stay next to the
+inversion's at the two blend steps, so skipping the blend moves
+blend_small's error by about 1e-4 of itself (a blind spot of the card
+check; the CPU tests hold the blend mask and `latent_blend_step` to the JAX
+package's on inputs where the mask matters).
 
 The faulted wrappers call the real kernels on the GPU; CPU tensors go to
 the plain versions untouched, so the CPU reference stays sound. Prints one
@@ -37,9 +57,10 @@ forward fault fails at least one of them, every backward fault fails the
 train_small gradient limit (its loss, a forward quantity, is untouched),
 every kernel fault fails the kernels-phase limit, the adapter fault fails
 train_small's update limits (the AdamW step's change of the weights against
-the CPU's, and the share of weights it moves), and the hash-corner fault
+the CPU's, and the share of weights it moves), the hash-corner fault
 fails atlas_small's hash-table gradient limit (the atlas's forward and its
-other gradients are untouched).
+other gradients are untouched), and the cross-edit fault fails
+blend_small's limit.
 """
 
 from __future__ import annotations
@@ -123,6 +144,40 @@ def _flash_bwd_dq_last_k_tile():
     return mock.patch.object(fa, '_launch_bwd_dq', faulted)
 
 
+@contextlib.contextmanager
+def _fused_fault(kind):
+    """Plant a fault in the parameters the motion modules hand the fused
+    kernel (CUDA tensors only)."""
+    import torch
+
+    from videoswap_torch.models import motion_module as mm
+
+    def plant(flat, heads, include_ffn):
+        flat = list(flat)
+        c = flat[0].shape[0]
+        if kind == 'last_head':
+            for j in (7, 14):         # the two attention blocks' to_out
+                flat[j] = flat[j].clone()
+                flat[j][:, c - c // heads:] = 0
+        elif include_ffn:
+            for j in (20, 21):        # the FFN's second product and bias
+                flat[j] = torch.zeros_like(flat[j])
+        return flat
+
+    def wrap(fn):
+        def faulted(g, x, pe, flat, heads, f, n_blocks=1, include_ffn=True):
+            if x.is_cuda:
+                flat = plant(flat, heads, include_ffn)
+            return fn(g, x, pe, flat, heads, f, n_blocks, include_ffn)
+        return faulted
+
+    with mock.patch.object(mm, 'fused_temporal_transformer',
+                           wrap(mm.fused_temporal_transformer)), \
+            mock.patch.object(mm, 'fused_temporal_transformer_bfhw',
+                              wrap(mm.fused_temporal_transformer_bfhw)):
+        yield
+
+
 def _hash_skip(kept):
     from videoswap_torch.ops import hash_table_grad as hg
     launch = hg._launch
@@ -131,6 +186,32 @@ def _hash_skip(kept):
         keep = kept(idx.shape[0])
         return launch(idx[:keep], val[:keep], out, mode)
     return mock.patch.object(hg, '_launch', faulted)
+
+
+def _edit_cross_skipped():
+    from videoswap_torch.p2p import edit
+    make_edit_fn = edit.make_edit_fn
+
+    def faulted(cfg, static_state):
+        edit_fn = make_edit_fn(cfg, static_state)
+
+        def fn(site, q_tokens, state):
+            rewrite = edit_fn(site, q_tokens, state)
+            if rewrite is None or site.kind != 'cross':
+                return rewrite
+            return lambda probs: probs if probs.is_cuda else rewrite(probs)
+        return fn
+    return mock.patch.object(edit, 'make_edit_fn', faulted)
+
+
+def _blend_latents_skipped():
+    from videoswap_torch.pipelines import videoswap_pipeline as vp
+    blend_step = vp.latent_blend_step
+
+    def faulted(cfg, static_state, lat, *args):
+        out, sums = blend_step(cfg, static_state, lat, *args)
+        return (lat if lat.is_cuda else out), sums
+    return mock.patch.object(vp, 'latent_blend_step', faulted)
 
 
 @contextlib.contextmanager
@@ -155,18 +236,25 @@ FAULTS = {
     'hash_last_corner': lambda tr: _hash_skip(lambda r: r * 3 // 4),
     'hash_last_block': lambda tr: _hash_skip(
         lambda r: max(0, (r - 1) // 256 * 256)),
+    'fused_last_head': lambda tr: _fused_fault('last_head'),
+    'fused_skip_ffn': lambda tr: _fused_fault('skip_ffn'),
+    'edit_cross_skipped': lambda tr: _edit_cross_skipped(),
+    'blend_latents_skipped': lambda tr: _blend_latents_skipped(),
 }
 BACKWARD_FAULTS = ('flash_bwd_dkv_last_q_tile', 'flash_bwd_dq_last_k_tile')
 ATLAS_FAULTS = ('hash_last_corner',)
 KERNEL_ONLY_FAULTS = ('hash_last_block',)
 TRAINER_FAULTS = ('adapter_bf16_weights',)
+BLEND_FAULTS = ('edit_cross_skipped', 'blend_latents_skipped')
+BLIND_FAULTS = ('blend_latents_skipped',)     # reported, not required
 
 
 def kernel_error(fault: str) -> float:
     """max |faulted wrapper - fp32 plain| at one level-0 shape of the
     faulted kernel, as chip_smoke.py's kernels phase measures it (for the
-    backward kernels, relative to the largest |plain| entry, at the
-    training step's self-attention shape)."""
+    backward kernels and the fused temporal transformer, relative to the
+    largest |plain| entry; the backward at the training step's
+    self-attention shape)."""
     import torch
 
     from videoswap_torch.models import layers
@@ -183,6 +271,15 @@ def kernel_error(fault: str) -> float:
         ref = hg.hash_table_grad_plain(idx, val, 289)
         out = hg.hash_table_grad(idx, val, 289)
         return float((out - ref).abs().max() / ref.abs().max())
+    if fault.startswith('fused'):
+        from videoswap_torch.models import motion_module as mm
+        from videoswap_torch.ops import fused_temporal as ft
+        g, x, pe, flat, _ = cs._fused_inputs(gen, 2, 256, 320, True)
+        g2, x2 = (ft.rows_of(t).contiguous() for t in (g, x))
+        out = mm.fused_temporal_transformer(g2, x2, pe, flat, 8, cs.FRAMES)
+        ref = ft.fused_temporal_plain(g2.float(), x2.float(), pe.float(),
+                                      f32(flat), 8, cs.FRAMES)
+        return float((out.float() - ref).abs().max() / ref.abs().max())
     if fault.startswith('geglu'):
         c = 320
         args = [cs._rand(gen, (8192, c)), cs._rand(gen, (8 * c, c), c ** -0.5),
@@ -212,6 +309,8 @@ def kernel_error(fault: str) -> float:
 
 
 def main() -> None:
+    import tempfile
+
     import torch
     if not torch.cuda.is_available():
         cs.die('no CUDA device: this script runs only on a GPU')
@@ -227,6 +326,10 @@ def main() -> None:
     trainer = cs.make_trainer(pipe)
     atlas_gpu, atlas_cpu, atlas_draws = cs.atlas_small_inputs('cuda')
     ref_atlas = cs.atlas_small_step(atlas_cpu, atlas_draws)
+    lora_dir = tempfile.TemporaryDirectory()
+    lora = str(Path(lora_dir.name) / 'edlora_hermione.pth')
+    cs.edlora_file(pipe, lora)
+    ref_blend = cs.blend_small_run(cpu, lora, True)
     rows = {}
     for name, plant in FAULTS.items():
         with plant(trainer):
@@ -238,17 +341,21 @@ def main() -> None:
                    'train_loss_rel_err': abs(loss - ref_loss) / abs(ref_loss),
                    'train_grad_rel_err': cs.rel_err(grad, ref_grad),
                    'train_update_rel_err': cs.rel_err(update, ref_update),
-                   'train_moved': cs.moved_share(update)}
+                   'train_moved': cs.moved_share(update),
+                   'blend_small_rel_err': cs.rel_err(
+                       cs.blend_small_run(pipe, lora, True), ref_blend)}
             atlas = cs.atlas_small_errors(
                 cs.atlas_small_step(atlas_gpu, atlas_draws), ref_atlas)
             row.update({f'atlas_{k}_rel_err': v for k, v in atlas.items()
                         if k != 'per_net'})
             row['atlas_fails'] = sorted(
                 k for k, v in cs.atlas_small_fails(atlas).items() if v)
-            if name not in ('sound',) + TRAINER_FAULTS:
+            if name not in ('sound',) + TRAINER_FAULTS + BLEND_FAULTS:
                 row['kernel_err'] = kernel_error(name)
         row['unet_fails'] = row['unet_rel_err'] > cs.MODEL_REL_TOL
         row['small_fails'] = row['small_rel_err'] > cs.SAMPLE_REL_TOL
+        row['blend_small_fails'] = (row['blend_small_rel_err']
+                                    > cs.BLEND_REL_TOL)
         row['train_loss_fails'] = (row['train_loss_rel_err']
                                    > cs.TRAIN_LOSS_TOL)
         row['train_grad_fails'] = (row['train_grad_rel_err']
@@ -258,17 +365,22 @@ def main() -> None:
             or row['train_moved'] < cs.TRAIN_MOVED_MIN)
         rows[name] = row
         cs.log(f'# {name}: {json.dumps(row)}')
+    lora_dir.cleanup()
     sound = rows.pop('sound')
     kernel_tol = {'hash': cs.HASH_TOL,
                   'geglu': cs.TOL['geglu_ffn'],
                   'temporal': cs.TOL['temporal_attention'],
                   'flash_bwd_dkv': cs.TOL['flash_attention_bwd_dkv'],
                   'flash_bwd_dq': cs.TOL['flash_attention_bwd_dq'],
-                  'flash_last': cs.TOL['flash_attention_fwd']}
+                  'flash_last': cs.TOL['flash_attention_fwd'],
+                  'fused': cs.TOL['fused_temporal']}
     caught = {}
     for name, r in rows.items():
         if name in TRAINER_FAULTS:
             caught[name] = bool(r['train_update_fails'])
+            continue
+        if name in BLEND_FAULTS:
+            caught[name] = bool(r['blend_small_fails'])
             continue
         tol = next(t for key, t in kernel_tol.items()
                    if name.startswith(key))
@@ -280,12 +392,14 @@ def main() -> None:
             model = r['train_grad_fails']
         else:
             model = (r['unet_fails'] or r['small_fails']
-                     or r['train_loss_fails'] or r['train_grad_fails'])
+                     or r['blend_small_fails'] or r['train_loss_fails']
+                     or r['train_grad_fails'])
         caught[name] = bool(model and r['kernel_err'] > tol)
     ok = not any(v for k, v in sound.items() if k.endswith('_fails')) \
-        and all(caught.values())
+        and all(v for k, v in caught.items() if k not in BLIND_FAULTS)
     print(json.dumps({'ok': ok, 'unet_tol': cs.MODEL_REL_TOL,
                       'small_tol': cs.SAMPLE_REL_TOL,
+                      'blend_small_tol': cs.BLEND_REL_TOL,
                       'train_loss_tol': cs.TRAIN_LOSS_TOL,
                       'train_grad_tol': cs.TRAIN_GRAD_TOL,
                       'train_update_tol': cs.TRAIN_UPDATE_TOL,

@@ -50,7 +50,8 @@ import chip_smoke as cs  # noqa: E402
 ATLAS_PROFILE_PRETRAIN = 10
 ATLAS_AB_ROUNDS, ATLAS_AB_ITERS = 4, 30
 
-GROUPS = (('geglu', 'geglu_ffn kernel'),
+GROUPS = (('fused_temporal', 'fused temporal transformer kernel'),
+          ('geglu', 'geglu_ffn kernel'),
           ('hash_grad', 'hash_table_grad kernel'),
           ('flash_fwd', 'flash forward kernel'),
           ('flash_bwd', 'flash backward kernels'),

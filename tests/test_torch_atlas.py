@@ -633,6 +633,7 @@ def test_atlas_runs_with_jax_blocked():
         sys.path.insert(0, {str(ROOT)!r})
         import numpy as np
         import torch
+        torch.set_num_threads(2)   # beside the other test workers
         from videoswap_torch.atlas import data, evaluate, propagate
         from videoswap_torch.atlas.trainer import AtlasTrainer
         from videoswap_torch.builders import build_atlas_nets

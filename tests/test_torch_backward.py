@@ -118,8 +118,8 @@ def test_geglu_grad_matches_jax(n, c):
             rs.randn(4 * c, c).astype(np.float32) * (4 * c) ** -0.5,
             rs.randn(c).astype(np.float32) * 0.1]
     ct = rs.randn(n, c).astype(np.float32)
-    ref = jax.grad(lambda *a: (jgf.geglu_ffn(*a) * ct).sum(),
-                   argnums=(0, 1, 2, 3, 4))(*map(jnp.asarray, args))
+    ref = jax.jit(jax.grad(lambda *a: (jgf.geglu_ffn(*a) * ct).sum(),
+                           argnums=(0, 1, 2, 3, 4)))(*map(jnp.asarray, args))
     # JAX Dense layout (I, O) -> torch Linear layout (O, I)
     x, w1, b1, w2, b2 = (_t(a, grad=True) for a in
                          (args[0], args[1].T, args[2], args[3].T, args[4]))
@@ -142,9 +142,9 @@ def test_geglu_grad_matches_jax(n, c):
 def test_temporal_grad_matches_jax(el, f, h, c):
     rs = np.random.RandomState(el * f)
     q, k, v, ct = (rs.randn(el * f, c).astype(np.float32) for _ in range(4))
-    ref = jax.grad(lambda q, k, v: (jta.temporal_attention(q, k, v, h, f)
-                                    * ct).sum(),
-                   argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    ref = jax.jit(jax.grad(
+        lambda q, k, v: (jta.temporal_attention(q, k, v, h, f) * ct).sum(),
+        argnums=(0, 1, 2)))(*map(jnp.asarray, (q, k, v)))
     tq, tk, tv = (_t(a, grad=True) for a in (q, k, v))
     out = tta.temporal_attention(tq, tk, tv, h, f)
     assert out.grad_fn is not None

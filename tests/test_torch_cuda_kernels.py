@@ -12,7 +12,9 @@ bf16 inputs; outputs of O(1) are rounded once to bf16 (2^-8 relative), plus
 the kernel's bf16 rounding of the gated product (GEGLU) or of the
 probabilities (flash). The flash backward's gradients are far from O(1), so
 their error is taken relative to the largest |plain| entry (1e-2: bf16
-rounding of P, dS and the output, summed over keys or queries). The
+rounding of P, dS and the output, summed over keys or queries). The fused
+temporal transformer's output (x + the module, O(1) to O(3)) passes through
+about ten bf16 roundings of its intermediates and is held to 5e-2. The
 hash-grid scatter is fp32 on both sides: its atomics only reorder each
 entry's sum, so it is held to 1e-5 of the largest |plain| entry.
 """
@@ -22,6 +24,7 @@ import pytest
 import torch
 
 from videoswap_torch.ops import flash_attention as tfa
+from videoswap_torch.ops import fused_temporal as tft
 from videoswap_torch.ops import geglu_ffn as tgf
 from videoswap_torch.ops import hash_table_grad as thg
 from videoswap_torch.ops import temporal_attention as tta
@@ -283,3 +286,100 @@ def test_build_atlas_nets_defaults_to_the_card(cuda):
         input_dim=2, output_dim=3, hidden_dim=32, pe_type='hash_encoding',
         mlp_layers=3, n_levels=4, log2_hashmap_size=10)})
     assert all(p.is_cuda for p in nets['F_Atlas'].parameters())
+
+
+def _fused_args(c, heads, f, rows_shape, include_ffn, seed, device):
+    """Random (g, x, pe, flat) for the fused temporal kernel: bf16
+    activations and matrices, fp32 vectors, weights on a c^-1/2 scale."""
+    rs = np.random.RandomState(seed)
+
+    def t(shape, scale, dtype=torch.bfloat16):
+        return torch.from_numpy((rs.randn(*shape) * scale).astype(
+            np.float32)).to(device, dtype)
+
+    g, x = t(rows_shape, 1.0), t(rows_shape, 1.0)
+    pe = t((f, c), 0.5)
+    flat = [t((c, c), c ** -0.5), t((c,), 0.1, torch.float32)]
+    for _ in range(2):
+        flat += [1.0 + t((c,), 0.1, torch.float32), t((c,), 0.1, torch.float32)]
+        flat += [t((c, c), c ** -0.5) for _ in range(4)]
+        flat += [t((c,), 0.1, torch.float32)]
+    if include_ffn:
+        flat += [1.0 + t((c,), 0.1, torch.float32), t((c,), 0.1, torch.float32),
+                 t((8 * c, c), c ** -0.5), t((8 * c,), 0.1, torch.float32),
+                 t((c, 4 * c), (4 * c) ** -0.5), t((c,), 0.1, torch.float32),
+                 t((c, c), c ** -0.5), t((c,), 0.1, torch.float32)]
+    return g, x, pe, flat
+
+
+def _f32(flat):
+    return [p.float() for p in flat]
+
+
+@pytest.mark.parametrize('locs,f,c,heads,include_ffn', [
+    (37, 16, 320, 8, True), (21, 16, 640, 8, False), (13, 8, 64, 2, True),
+    (11, 24, 128, 4, False), (5, 20, 320, 8, True), (9, 16, 640, 8, True)])
+def test_fused_temporal_kernel_matches_plain(cuda, locs, f, c, heads,
+                                             include_ffn):
+    g, x, pe, flat = _fused_args(c, heads, f, (locs * f, c), include_ffn, 0,
+                                 cuda)
+    before = tft.launches
+    out = tft.fused_temporal_transformer(g, x, pe, flat, heads, f,
+                                         include_ffn=include_ffn)
+    assert tft.launches == before + 1
+    ref = tft.fused_temporal_plain(g.float(), x.float(), pe.float(),
+                                   _f32(flat), heads, f, 1, include_ffn)
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+    assert (out.float() - ref).abs().max().item() < 5e-2
+
+
+@pytest.mark.parametrize('b,f,hw,c,include_ffn', [
+    (2, 16, 37, 320, True), (2, 16, 13, 640, False), (1, 8, 9, 64, True)])
+def test_fused_temporal_frame_major_kernel_matches_plain(cuda, b, f, hw, c,
+                                                         include_ffn):
+    g, x, pe, flat = _fused_args(c, 8, f, (b, f, hw, c), include_ffn, 1,
+                                 cuda)
+    before = tft.bfhw_launches
+    out = tft.fused_temporal_transformer_bfhw(g, x, pe, flat, 8, f,
+                                              include_ffn=include_ffn)
+    assert tft.bfhw_launches == before + 1
+    ref = tft.fused_temporal_plain_bfhw(g.float(), x.float(), pe.float(),
+                                        _f32(flat), 8, f, 1, include_ffn)
+    assert out.shape == (b, f, hw, c)
+    assert (out.float() - ref).abs().max().item() < 5e-2
+    # the same rows in the (location, frame) layout: the same blocks, the
+    # same arithmetic
+    rows = tft.fused_temporal_transformer(tft.rows_of(g).contiguous(),
+                                          tft.rows_of(x).contiguous(), pe,
+                                          flat, 8, f, include_ffn=include_ffn)
+    assert torch.equal(tft.unrows(rows, b, f, hw), out)
+
+
+@pytest.mark.parametrize('bfhw', [False, True])
+def test_fused_temporal_is_differentiable_on_the_card(cuda, bfhw):
+    c, f, heads = 320, 16, 8
+    shape = (1, f, 17, c) if bfhw else (17 * f, c)
+    g, x, pe, flat = _fused_args(c, heads, f, shape, True, 2, cuda)
+    fn = (tft.fused_temporal_transformer_bfhw if bfhw
+          else tft.fused_temporal_transformer)
+    plain = (tft.fused_temporal_plain_bfhw if bfhw
+             else tft.fused_temporal_plain)
+    _grads_match_plain(
+        lambda g_, x_: fn(g_, x_, pe, flat, heads, f),
+        lambda g_, x_: plain(g_, x_, pe.float(), _f32(flat), heads, f),
+        [g, x], _fused_args(c, heads, f, shape, True, 3, cuda)[0])
+
+
+def test_fused_temporal_kernel_refuses_what_it_does_not_take(cuda):
+    g, x, pe, flat = _fused_args(320, 8, 16, (32, 320), True, 4, cuda)
+    with pytest.raises(TypeError):                           # fp32 input
+        tft.fused_temporal_transformer(g.float(), x.float(), pe, flat, 8, 16)
+    with pytest.raises(TypeError):                           # bf16 vectors
+        tft.fused_temporal_transformer(
+            g, x, pe, [p.bfloat16() for p in flat], 8, 16)
+    with pytest.raises(ValueError):                          # head dim 160
+        tft.fused_temporal_transformer(g, x, pe, flat, 2, 16)
+    g2, x2, pe2, flat2 = _fused_args(1280, 8, 16, (32, 1280), False, 5, cuda)
+    with pytest.raises(ValueError):                          # C = 1280
+        tft.fused_temporal_transformer(g2, x2, pe2, flat2, 8, 16,
+                                       include_ffn=False)

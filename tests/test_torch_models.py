@@ -195,7 +195,7 @@ def test_resnet_block_parity(cin, cout):
     tm = port(ResnetBlock3D(cin, cout, 64, eps=1e-5, groups=8), params)
     with torch.no_grad():
         out = tm(_t(x), _t(temb))
-    assert_close(out, jm.apply(params, x, temb), TOL)
+    assert_close(out, jax.jit(jm.apply)(params, x, temb), TOL)
 
 
 @pytest.mark.parametrize('cfg_expand', [False, True])
@@ -216,7 +216,7 @@ def test_transformer3d_parity(cfg_expand):
     with torch.no_grad():
         out = tm(_t(x), _t(text), cfg_expand=cfg_expand)
     assert out.shape[0] == 2
-    assert_close(out, jm.apply(params, x, text), TOL)
+    assert_close(out, jax.jit(jm.apply)(params, x, text), TOL)
 
 
 @pytest.mark.parametrize('frames', [16, 24])
@@ -230,7 +230,7 @@ def test_motion_module_parity(frames):
     tm = port(VanillaTemporalModule(32, heads=4, norm_groups=8), params)
     with torch.no_grad():
         out = tm(_t(x))
-    assert_close(out, jm.apply(params, x), TOL)
+    assert_close(out, jax.jit(jm.apply)(params, x), TOL)
 
 
 def _unet_inputs(batch, seed):
@@ -280,7 +280,8 @@ def test_clip_text_parity():
     tm = port(CLIPTextModel(CLIPTextConfig(**CLIP_KW)), params)
     with torch.no_grad():
         out = tm(torch.from_numpy(ids), _t(extra))
-    assert_close(out, jm.apply(params, ids, extra_token_embeds=extra), TOL)
+    assert_close(out, jax.jit(jm.apply)(params, ids, extra_token_embeds=extra),
+                 TOL)
 
 
 def test_adapter_parity():

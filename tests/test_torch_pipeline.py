@@ -138,22 +138,31 @@ def _latents():
                                           4).astype(np.float32)
 
 
+@pytest.fixture(scope='module')
+def port_latents(pipes):
+    """The port's latents for `_kwargs()` from `_latents()`, shared by the
+    tests that read them."""
+    _, tpipe = pipes
+    return tpipe.sample(latents=torch.from_numpy(_latents()),
+                        output_type='latent', **_kwargs())
+
+
 @pytest.mark.parametrize('output_type', ['latent', 'np'])
-def test_sample_matches_jax(pipes, output_type):
+def test_sample_matches_jax(pipes, port_latents, output_type):
     jpipe, tpipe = pipes
     lat0 = _latents()
     ref = np.asarray(jpipe.sample(latents=jnp.asarray(lat0), loop='python',
                                   output_type=output_type, **_kwargs()))
-    out = tpipe.sample(latents=torch.from_numpy(lat0),
-                       output_type=output_type, **_kwargs())
     if output_type == 'latent':
-        out = out.numpy()
+        out = port_latents.numpy()
         assert out.shape == lat0.shape
         # fp32 through 3 steps of a random-weight U-Net, sums in another
         # order: agreement to 1e-4 of the latents' scale
         scale = max(1.0, float(np.abs(ref).max()))
         assert float(np.abs(out - ref).max()) <= 1e-4 * scale
         return
+    out = tpipe.sample(latents=torch.from_numpy(lat0),
+                       output_type=output_type, **_kwargs())
     assert out.shape == (1, F, SIZE, SIZE, 3)
     to_u8 = (lambda v: np.round((v + 1.0) * 127.5).astype(np.int32))
     diff = np.abs(to_u8(out) - to_u8(ref))
@@ -163,11 +172,11 @@ def test_sample_matches_jax(pipes, output_type):
     assert int(diff.max()) <= 1
 
 
-def test_adapter_window_and_points_change_the_result(pipes):
+def test_adapter_window_and_points_change_the_result(pipes, port_latents):
     _, tpipe = pipes
     lat0 = torch.from_numpy(_latents())
     kw = _kwargs()
-    a = tpipe.sample(latents=lat0, output_type='latent', **kw)
+    a = port_latents
     kw_none = dict(kw, conditions=None)
     b = tpipe.sample(latents=lat0, output_type='latent', **kw_none)
     assert float((a - b).abs().max()) > 1e-6
@@ -191,9 +200,10 @@ def test_rescale_noise_cfg_matches_jax():
 
 def test_sample_refuses_what_is_not_ported(pipes):
     _, tpipe = pipes
+    video = np.zeros((1, F, 64, 64, 3), np.float32)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tpipe.sample('a cat', F, 64, 64, num_inference_steps=1,
-                     edit_bundle=object())
+        tpipe.validation(video, None, 'a cat', {'visualize_attention': True,
+                                               'editing_prompts': {}})
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         tpipe.sample('a cat', F, 64, 64, num_inference_steps=1,
                      sampler='dpmpp_2m')
@@ -209,6 +219,7 @@ def test_port_runs_with_jax_blocked():
         sys.modules['flax'] = None
         sys.path.insert(0, {str(ROOT)!r})
         import torch
+        torch.set_num_threads(2)   # beside the other test workers
         import videoswap_torch
         from videoswap_torch.models import (AdapterConfig,
             AnimateDiffUNet3DModel, SparsePointAdapter, UNet3DConfig)

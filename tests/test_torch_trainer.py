@@ -289,20 +289,32 @@ def test_trainer_pixels_path_equals_cached_moments(trainers):
     assert float(a) == float(b)
 
 
-@pytest.mark.parametrize('mode', [True, 'edges'])
-def test_remat_gives_the_same_gradient(trainers, mode):
+@pytest.fixture(scope='module')
+def remat_case(trainers):
+    """A batch, its draws and the adapter gradient without gradient
+    checkpointing, shared by the remat modes' tests."""
     _, _, tr = trainers
     batch = {k: torch.as_tensor(v) for k, v in _batch(1).items()}
     draws = tr.make_draws(batch, torch.Generator().manual_seed(3))
-    grads = []
-    for m in (False, mode):
-        tr.unet.set_gradient_checkpointing(m)
-        tr.adapter.zero_grad(set_to_none=True)
-        tr.loss_fn(batch, draws).backward()
-        grads.append(_adapter_grads(tr))
+    tr.unet.set_gradient_checkpointing(False)
+    tr.adapter.zero_grad(set_to_none=True)
+    tr.loss_fn(batch, draws).backward()
+    grads = _adapter_grads(tr)
     tr.unet.set_gradient_checkpointing('edges')
-    for name, g in grads[0].items():
-        np.testing.assert_allclose(grads[1][name].numpy(), g.numpy(),
+    return batch, draws, grads
+
+
+@pytest.mark.parametrize('mode', [True, 'edges'])
+def test_remat_gives_the_same_gradient(trainers, remat_case, mode):
+    _, _, tr = trainers
+    batch, draws, plain = remat_case
+    tr.unet.set_gradient_checkpointing(mode)
+    tr.adapter.zero_grad(set_to_none=True)
+    tr.loss_fn(batch, draws).backward()
+    grads = _adapter_grads(tr)
+    tr.unet.set_gradient_checkpointing('edges')
+    for name, g in plain.items():
+        np.testing.assert_allclose(grads[name].numpy(), g.numpy(),
                                    rtol=1e-6, atol=1e-9, err_msg=name)
 
 

@@ -12,6 +12,9 @@ carry the same attribute names) and their 3-D `hash_table` as it is.
 
 The input is a nested mapping of array-likes (numpy arrays, or anything
 `numpy.asarray` takes); this module imports nothing of JAX.
+
+`clip_key_map` and `load_torch_file` are the helpers of
+videoswap_tpu/models/converters.py that ED-LoRA loading needs.
 """
 
 from __future__ import annotations
@@ -79,3 +82,23 @@ def jax_params_to_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
             raise KeyError(f'two flax paths map to {key}')
         out[key] = torch.from_numpy(np.ascontiguousarray(t))
     return out
+
+
+def clip_key_map(key: str) -> str:
+    """The text encoder's key ('layers.0.self_attn.q_proj.weight') ->
+    the transformers key ('text_model.encoder.layers.0...'), as ED-LoRA
+    files name the text encoder's weights."""
+    if key.startswith(_EMBED_LEAVES):
+        return 'text_model.embeddings.' + key
+    if key.startswith('layers.'):
+        return 'text_model.encoder.' + key
+    return 'text_model.' + key
+
+
+def load_torch_file(path: str) -> dict:
+    """A torch checkpoint (tensors in nested dicts) on the CPU; a
+    'state_dict' wrapper is unwrapped."""
+    sd = torch.load(path, map_location='cpu', weights_only=True)
+    if isinstance(sd, dict) and 'state_dict' in sd:
+        sd = sd['state_dict']
+    return sd

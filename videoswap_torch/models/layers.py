@@ -12,13 +12,13 @@ format), so no layout copies are made around them.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from videoswap_torch.ops import dot_product_attention
+from videoswap_torch.ops import attention_with_probs, dot_product_attention
 from videoswap_torch.ops.geglu_ffn import geglu_ffn
 
 
@@ -47,7 +47,13 @@ class TimestepEmbedding(nn.Module):
 class Attention(nn.Module):
     """Multi-head attention with the diffusers parameter layout: to_q, to_k,
     to_v without bias, to_out.0 with bias. Heads are merged in the
-    projections' output, (B, S, heads * dim_head)."""
+    projections' output, (B, S, heads * dim_head).
+
+    The attention-control tap: with `edit_fn` or `want_probs` the
+    probabilities are materialised (`attention_with_probs`; the controllers
+    use it only at sites below 32^2 tokens); `edit_fn` rewrites them before
+    the value contraction, and `want_probs` returns (out, probs before the
+    edit)."""
 
     def __init__(self, query_dim: int, heads: int = 8, dim_head: int = 64,
                  cross_attention_dim: Optional[int] = None):
@@ -61,15 +67,19 @@ class Attention(nn.Module):
         self.to_out = nn.ModuleList([nn.Linear(inner, query_dim)])
 
     def forward(self, hidden_states: torch.Tensor,
-                encoder_hidden_states: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+                encoder_hidden_states: Optional[torch.Tensor] = None,
+                edit_fn: Optional[Callable] = None, want_probs: bool = False):
         ctx = (hidden_states if encoder_hidden_states is None
                else encoder_hidden_states)
         q = self.to_q(hidden_states)
         k = self.to_k(ctx)
         v = self.to_v(ctx)
-        out = dot_product_attention(q, k, v, self.heads)
-        return self.to_out[0](out)
+        if edit_fn is None and not want_probs:
+            return self.to_out[0](dot_product_attention(q, k, v, self.heads))
+        out, probs = attention_with_probs(q, k, v, self.heads,
+                                          edit_fn=edit_fn)
+        out = self.to_out[0](out)
+        return (out, probs) if want_probs else out
 
 
 class _GEGLUProj(nn.Module):

@@ -1,23 +1,45 @@
-"""AnimateDiff temporal motion modules (the port of the layer-wise path of
+"""AnimateDiff temporal motion modules (the port of
 videoswap_tpu/models/motion_module.py).
 
 VanillaTemporalModule wraps a TemporalTransformer3DModel: per-frame
 GroupNorm -> proj_in -> N x TemporalTransformerBlock -> proj_out + residual.
 Each block runs two self-attentions over the FRAME axis of every spatial
-location, with a sinusoidal position encoding (max_len 24), through the
-temporal-attention kernel, then a GEGLU FFN through the GEGLU kernel.
+location, with a sinusoidal position encoding (max_len 24), then a GEGLU
+FFN.
+
+Two paths, chosen by `use_fused` as the JAX package chooses on its
+accelerator: on the card, modules with C <= 640 run through the fused
+temporal-transformer kernel (ops/fused_temporal.py; at C = 640 its
+attention half, then `ffn_tail`); wider modules, and every module on the
+CPU, run layer-wise, the attention through the temporal-attention kernel
+and the FFN through the GEGLU kernel. `FT_DISABLE` forces the layer-wise
+path and `FT_4D` the fused kernel's frame-major layout, as in the JAX
+package.
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from videoswap_torch.ops.fused_temporal import (
+    ffn_tail, flat_params, fused_temporal_transformer,
+    fused_temporal_transformer_bfhw)
+
 from .layers import Attention, FeedForward, GroupNorm
+
+
+def use_fused(x: torch.Tensor, channels: int, frames: int, num_layers: int,
+              max_len: int) -> bool:
+    """The fused-path gate of videoswap_tpu/models/motion_module.py, with a
+    tensor on the card in place of the TPU backend."""
+    return (x.is_cuda and channels <= 640 and num_layers == 1
+            and frames <= max_len and not os.environ.get('FT_DISABLE'))
 
 
 def sinusoidal_position_table(max_len: int, d_model: int) -> np.ndarray:
@@ -64,6 +86,7 @@ class TemporalTransformer3DModel(nn.Module):
     def __init__(self, channels: int, heads: int, num_layers: int = 1,
                  max_len: int = 24, norm_groups: int = 32):
         super().__init__()
+        self.heads, self.num_layers, self.max_len = heads, num_layers, max_len
         self.norm = GroupNorm(norm_groups, channels, eps=1e-6)
         self.proj_in = nn.Linear(channels, channels)
         self.transformer_blocks = nn.ModuleList([
@@ -74,14 +97,42 @@ class TemporalTransformer3DModel(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # x: (B, F, H, W, C); GroupNorm statistics per FRAME
         b, f, hh, ww, c = x.shape
-        h = self.norm(x.reshape(b * f, hh, ww, c)).reshape(x.shape)
-        h = F.linear(h, self.proj_in.weight, self.proj_in.bias)
+        gn = self.norm(x.reshape(b * f, hh, ww, c)).reshape(x.shape)
+        if use_fused(x, c, f, self.num_layers, self.max_len):
+            return self._fused(x, gn)
+        return self._layerwise(x, gn)
+
+    def _layerwise(self, x: torch.Tensor, gn: torch.Tensor) -> torch.Tensor:
+        b, f, hh, ww, c = x.shape
+        h = F.linear(gn, self.proj_in.weight, self.proj_in.bias)
         # (B, F, H, W, C) -> (B*H*W, F, C): a frame sequence per location
         h = h.permute(0, 2, 3, 1, 4).reshape(b * hh * ww, f, c)
         for block in self.transformer_blocks:
             h = block(h)
         h = h.reshape(b, hh, ww, f, c).permute(0, 3, 1, 2, 4)
         return self.proj_out(h) + x
+
+    def _fused(self, x: torch.Tensor, gn: torch.Tensor) -> torch.Tensor:
+        b, f, hh, ww, c = x.shape
+        include_ffn = c <= 320
+        flat = flat_params(self, include_ffn)
+        pe = self.transformer_blocks[0].pe[:f].to(x.dtype)
+        if os.environ.get('FT_4D'):
+            x4 = x.reshape(b, f, hh * ww, c)
+            out = fused_temporal_transformer_bfhw(
+                gn.reshape(x4.shape), x4, pe, flat, self.heads, f,
+                include_ffn=include_ffn)
+            if not include_ffn:
+                out = ffn_tail(out.reshape(-1, c), x4.reshape(-1, c), self)
+            return out.reshape(x.shape)
+        x2 = x.permute(0, 2, 3, 1, 4).reshape(-1, c)
+        g2 = gn.permute(0, 2, 3, 1, 4).reshape(-1, c)
+        out = fused_temporal_transformer(g2, x2, pe, flat, self.heads, f,
+                                         include_ffn=include_ffn)
+        if not include_ffn:
+            out = ffn_tail(out, x2, self)
+        return out.reshape(b, hh, ww, f, c).permute(0, 3, 1, 2, 4) \
+            .contiguous()
 
 
 class VanillaTemporalModule(nn.Module):

@@ -5,8 +5,9 @@ Channels-last (B, F, H, W, C) activations, frames folded into the batch for
 the 2D ops; adapter residuals added to the LAST layer of each down block;
 ED-LoRA layer-wise text (B, L, 77, D) sliced per cross-attention layer by a
 static index; CFG-prefix dedup (see `AnimateDiffUNet3DModel.forward`);
-gradient checkpointing per level (`set_gradient_checkpointing`). Submodule
-names follow the diffusers keys.
+prompt-to-prompt attention control through every spatial transformer
+(`ctrl`, p2p/ctrl.py); gradient checkpointing per level
+(`set_gradient_checkpointing`). Submodule names follow the diffusers keys.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from videoswap_torch.p2p import NO_CTRL, AttnCtrl
 from videoswap_torch.utils.registry import MODEL_REGISTRY
 
 from .attention_blocks import Transformer3DModel
@@ -57,11 +59,15 @@ def _resnet(cfg: UNet3DConfig, cin: int, cout: int) -> ResnetBlock3D:
                          eps=cfg.norm_eps, groups=cfg.norm_num_groups)
 
 
-def _transformer(cfg, ch, cross_layer_idx):
+def _transformer(cfg, ch, cross_layer_idx, place, attn_index):
+    """attn_index: the block's position among the spatial attention sites
+    of its place (p2p SiteKey); cross_layer_idx: among all cross-attention
+    layers (ED-LoRA's layer-wise text)."""
     heads = cfg.attention_head_dim
     return Transformer3DModel(ch, heads, ch // heads, cfg.cross_attention_dim,
                               cross_layer_idx=cross_layer_idx,
-                              norm_groups=cfg.norm_num_groups)
+                              norm_groups=cfg.norm_num_groups, place=place,
+                              attn_index=attn_index)
 
 
 class _Block(nn.Module):
@@ -86,7 +92,8 @@ class CrossAttnDownBlock3D(_Block):
             _resnet(cfg, in_channels if i == 0 else out_channels, out_channels)
             for i in range(n)])
         self.attentions = nn.ModuleList([
-            _transformer(cfg, out_channels, place_idx * n + i)
+            _transformer(cfg, out_channels, place_idx * n + i, 'down',
+                         place_idx * n + i)
             for i in range(n)])
         self.motion_modules = (nn.ModuleList([
             _motion(cfg, out_channels) for _ in range(n)])
@@ -96,7 +103,7 @@ class CrossAttnDownBlock3D(_Block):
             if add_downsample else None)
 
     def forward(self, x, temb, text, adapter_residual=None,
-                cfg_expand=False):
+                cfg_expand=False, ctrl=NO_CTRL, store=None):
         """cfg_expand: x is the shared CFG half; the first attention block
         doubles it to [uncond; cond]."""
         skips = []
@@ -104,7 +111,8 @@ class CrossAttnDownBlock3D(_Block):
         for i in range(n):
             x = self._run(self.resnets[i], x, temb)
             x = self._run(self.attentions[i], x, text,
-                          cfg_expand=cfg_expand and i == 0)
+                          cfg_expand=cfg_expand and i == 0, ctrl=ctrl,
+                          store=store)
             if self.motion_modules is not None:
                 x = self.motion_modules[i](x)
             if i == n - 1 and adapter_residual is not None:
@@ -156,13 +164,13 @@ class UNetMidBlock3DCrossAttn(_Block):
                                       _resnet(cfg, ch, ch)])
         cross_idx = (len(cfg.block_out_channels) - 1) * cfg.layers_per_block
         self.attentions = nn.ModuleList([
-            _transformer(cfg, ch, cross_idx)])
+            _transformer(cfg, ch, cross_idx, 'mid', 0)])
         self.motion_modules = (nn.ModuleList([_motion(cfg, ch)])
                                if use_motion else None)
 
-    def forward(self, x, temb, text):
+    def forward(self, x, temb, text, ctrl=NO_CTRL, store=None):
         x = self._run(self.resnets[0], x, temb)
-        x = self._run(self.attentions[0], x, text)
+        x = self._run(self.attentions[0], x, text, ctrl=ctrl, store=store)
         if self.motion_modules is not None:
             x = self.motion_modules[0](x)
         return self._run(self.resnets[1], x, temb)
@@ -182,7 +190,8 @@ class CrossAttnUpBlock3D(_Block):
             self.resnets.append(_resnet(cfg, res_in + skip_ch, out_channels))
         self.attentions = nn.ModuleList([
             _transformer(cfg, out_channels,
-                         n_down_cross + 1 + (place_idx - 1) * n + i)
+                         n_down_cross + 1 + (place_idx - 1) * n + i, 'up',
+                         (place_idx - 1) * n + i)
             for i in range(n)])
         self.motion_modules = (nn.ModuleList([
             _motion(cfg, out_channels) for _ in range(n)])
@@ -191,11 +200,12 @@ class CrossAttnUpBlock3D(_Block):
             Upsample3D(out_channels, out_channels)])
             if add_upsample else None)
 
-    def forward(self, x, skips, temb, text, upsample_size=None):
+    def forward(self, x, skips, temb, text, upsample_size=None,
+                ctrl=NO_CTRL, store=None):
         for i in range(len(self.resnets)):
             x = torch.cat([x, skips.pop()], dim=-1)
             x = self._run(self.resnets[i], x, temb)
-            x = self._run(self.attentions[i], x, text)
+            x = self._run(self.attentions[i], x, text, ctrl=ctrl, store=store)
             if self.motion_modules is not None:
                 x = self.motion_modules[i](x)
         if self.upsamplers is not None:
@@ -315,12 +325,17 @@ class AnimateDiffUNet3DModel(nn.Module):
     def forward(self, sample: torch.Tensor, timesteps,
                 encoder_hidden_states: torch.Tensor,
                 adapter_residuals: Optional[Sequence[torch.Tensor]] = None,
-                cfg_prefix_dedup: bool = False) -> torch.Tensor:
+                cfg_prefix_dedup: bool = False, ctrl: AttnCtrl = NO_CTRL):
         """cfg_prefix_dedup: `sample` is the single shared CFG half while
         `encoder_hidden_states` carries both halves; the batch doubles to
         [uncond; cond] at the first cross-attention, where text enters.
         Same result as passing [sample; sample], without the duplicate
-        prefix compute."""
+        prefix compute. The controller never touches the deduplicated
+        prefix: its one spatial site has >= 32^2 tokens whenever dedup
+        applies (images of 256^2 and more).
+
+        ctrl: attention control. Returns eps, or (eps, store) when the
+        controller stores ({site name: probabilities})."""
         cfg = self.cfg
         dtype = self.conv_in.weight.dtype
         if cfg_prefix_dedup and \
@@ -340,16 +355,18 @@ class AnimateDiffUNet3DModel(nn.Module):
 
         # with dedup the conv_in skip is consumed at full CFG batch; temb
         # (batch 1 under dedup) broadcasts over the doubled batch
+        store = {} if ctrl.stores else None
         skips = [torch.cat([x, x]) if cfg_prefix_dedup else x]
         for i, block in enumerate(self.down_blocks):
             if isinstance(block, CrossAttnDownBlock3D):
                 x, s = block(x, temb, text, res[i],
-                             cfg_expand=cfg_prefix_dedup and i == 0)
+                             cfg_expand=cfg_prefix_dedup and i == 0,
+                             ctrl=ctrl, store=store)
             else:
                 x, s = block(x, temb, res[i])
             skips.extend(s)
 
-        x = self.mid_block(x, temb, text)
+        x = self.mid_block(x, temb, text, ctrl=ctrl, store=store)
 
         for block in self.up_blocks:
             n_take = len(block.resnets)
@@ -359,7 +376,8 @@ class AnimateDiffUNet3DModel(nn.Module):
             if isinstance(block, UpBlock3D):
                 x = block(x, block_skips, temb, upsample_size)
             else:
-                x = block(x, block_skips, temb, text, upsample_size)
+                x = block(x, block_skips, temb, text, upsample_size,
+                          ctrl=ctrl, store=store)
 
-        x = F.silu(self.conv_norm_out(x))
-        return self.conv_out(x)
+        eps = self.conv_out(F.silu(self.conv_norm_out(x)))
+        return (eps, store) if ctrl.stores else eps

@@ -1,5 +1,6 @@
-"""VideoSwap sampling pipeline (the port of `VideoSwapPipeline.sample` and
-`encode_prompt` in videoswap_tpu/pipelines/videoswap_pipeline.py).
+"""VideoSwap inference pipeline: DDIM inversion and guided re-denoising
+with prompt-to-prompt attention control and spatial latent blending (the
+port of videoswap_tpu/pipelines/videoswap_pipeline.py).
 
 Classifier-free guidance is the [uncond; cond] batch of the reference, with
 the CFG-prefix dedup of the JAX package: the U-Net runs the shared prefix
@@ -7,10 +8,19 @@ once and doubles the batch at the first cross-attention. Point-adapter
 residuals are gated by the step window `t2i_start`/`t2i_end`. DDIM steps
 run in a plain Python loop; the latents stay on the device, and the VAE
 decode quantises to uint8 there before the copy to the host.
+
+The blended production path (`validation`): `invert` DDIM-inverts the
+source video and stores, per step, the latents and exactly the attention
+maps the edits will read; each swap then loads its ED-LoRA concept
+(edlora.py), builds an `EditBundle` (p2p/edit.py) and runs `sample` with
+cross/self replacement inside the U-Net and latent blending after each
+step, and restores the weights.
 """
 
 from __future__ import annotations
 
+import copy
+import functools
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
@@ -20,9 +30,33 @@ import torch
 from videoswap_torch.models import AnimateDiffUNet3DModel, SparsePointAdapter
 from videoswap_torch.models.clip_text import CLIPTextModel
 from videoswap_torch.models.vae import AutoencoderKL
-from videoswap_torch.schedulers import (DiffusionSchedule, ddim_step,
+from videoswap_torch.p2p import NO_CTRL, AttnCtrl
+from videoswap_torch.p2p.edit import (EditBundle, inversion_store_filter,
+                                      latent_blend_step, make_edit_bundle,
+                                      make_store_edit_ctrl,
+                                      self_masks_for_step,
+                                      want_recompute_self)
+from videoswap_torch.schedulers import (DiffusionSchedule, ddim_inverse_step,
+                                        ddim_inverse_timesteps, ddim_step,
                                         ddim_timesteps)
+from videoswap_torch.utils.image import preprocess_video
 from videoswap_torch.utils.registry import PIPELINE_REGISTRY
+
+
+def make_target_prompt(source_prompt: str, swap_cfg: dict) -> str:
+    """The source prompt with the swap config's 'replace' (and
+    'replace_other') rules applied: the target prompt."""
+    src_subj, tgt_subj = [s.strip() for s in swap_cfg['replace'].split('->')]
+    if src_subj not in source_prompt:
+        raise ValueError(f'source subject {src_subj!r} is not in the source '
+                         f'prompt {source_prompt!r}')
+    target_prompt = source_prompt.replace(src_subj, tgt_subj)
+    if 'replace_other' in swap_cfg:
+        so, to = [s.strip() for s in swap_cfg['replace_other'].split('->')]
+        if so not in target_prompt:
+            raise ValueError(f'{so!r} is not in the prompt {target_prompt!r}')
+        target_prompt = target_prompt.replace(so, to)
+    return target_prompt
 
 
 def rescale_noise_cfg(noise_cfg, noise_pred_text, guidance_rescale):
@@ -43,6 +77,8 @@ class VideoSwapPipeline:
     tokenizer: Any
     sched: DiffusionSchedule
     adapter: Optional[SparsePointAdapter] = None
+    extra_token_embeds: Optional[torch.Tensor] = None   # ED-LoRA concept rows
+    new_concept_cfg: Optional[dict] = None
 
     @property
     def device(self) -> torch.device:
@@ -50,13 +86,18 @@ class VideoSwapPipeline:
 
     # ------------------------------------------------------------------ text
     def encode_prompt(self, prompts: list[str]) -> torch.Tensor:
-        """[B, 77, hidden] text embeddings in the text encoder's dtype."""
-        ids = self.tokenizer(prompts, padding='max_length',
-                             max_length=self.tokenizer.model_max_length,
-                             truncation=True).input_ids
-        ids = torch.as_tensor(np.asarray(ids), device=self.device)
+        """[B, 77, hidden] text embeddings in the text encoder's dtype; with
+        an ED-LoRA concept loaded, the layer-wise [B, 16, 77, hidden]."""
         with torch.no_grad():
-            return self.text_encoder(ids)
+            if self.new_concept_cfg:
+                from videoswap_torch.edlora import encode_edlora_prompt
+                return encode_edlora_prompt(self, prompts)
+            ids = self.tokenizer(prompts, padding='max_length',
+                                 max_length=self.tokenizer.model_max_length,
+                                 truncation=True).input_ids
+            ids = torch.as_tensor(np.asarray(ids), device=self.device)
+            return self.text_encoder(
+                ids, extra_token_embeds=self.extra_token_embeds)
 
     # ------------------------------------------------------------- adapter
     def _adapter_states(self, conditions, size, t2i_guidance_scale, cfg):
@@ -82,6 +123,67 @@ class VideoSwapPipeline:
             states = [torch.cat([s, s]) for s in states]
         return states
 
+    # ------------------------------------------------------------ inversion
+    @torch.no_grad()
+    def invert(self, video, prompt: str, num_inference_steps: int = 50,
+               store_ctrl: AttnCtrl = NO_CTRL,
+               callback: Optional[Callable[[int, torch.Tensor, torch.Tensor],
+                                           None]] = None):
+        """DDIM-invert a source video (reference `invert`). video: PIL
+        frames, or a (1, F, H, W, 3) array or tensor in [-1, 1].
+
+        Returns (inverted latents (1, F, h, w, 4), per_step) with per_step
+        'latents' (N, 1, F, h, w, 4) after each step, 'z0' the encoded
+        latents before any step, 'ts' the N inversion timesteps,
+        'src_text' the prompt's embedding and 'attn' {site: (N, F, heads,
+        S, T)} of the sites `store_ctrl` stores. `callback(i, t, latents)`
+        runs after every step. No CFG (guidance 1), and the VAE
+        posterior's mode: the inversion is deterministic."""
+        if isinstance(video, (np.ndarray, torch.Tensor)):
+            pixels = torch.as_tensor(video)
+        else:
+            pixels = torch.from_numpy(preprocess_video(video))
+        pixels = pixels.to(self.device, torch.float32)
+        text = self.encode_prompt([prompt])
+        ts = ddim_inverse_timesteps(self.sched.num_train_timesteps,
+                                    num_inference_steps)
+        lat = self.vae.encode_video(pixels).to(text.dtype)
+        z0 = lat
+        lat_hist, attn_hist = [], []
+        for i, t in enumerate(ts):
+            t_dev = torch.tensor(int(t), device=self.device)
+            out = self.unet(lat, t_dev, text, ctrl=store_ctrl)
+            eps, store = out if store_ctrl.stores else (out, {})
+            lat = ddim_inverse_step(self.sched, eps, int(t), lat,
+                                    num_inference_steps).to(lat.dtype)
+            lat_hist.append(lat)
+            attn_hist.append({k: a.to(lat.dtype) for k, a in store.items()})
+            if callback is not None:
+                callback(i, t_dev, lat)
+        attn = {k: torch.stack([s[k] for s in attn_hist])
+                for k in attn_hist[0]} if attn_hist else {}
+        per_step = {'latents': torch.stack(lat_hist), 'z0': z0,
+                    'ts': torch.as_tensor(np.asarray(ts)), 'src_text': text,
+                    'attn': attn}
+        return lat, per_step
+
+    def _recompute_self_maps(self, ecfg, estate, lat_pre, t_inv) -> dict:
+        """The inversion step's self-attention maps, regenerated from its
+        stored pre-step latent with the inversion's text and the U-Net
+        weights of the inversion (`estate['inv_unet']`: the originals of
+        whatever an ED-LoRA merge changed since)."""
+        names = set(ecfg.self_site_names)
+        ctrl = AttnCtrl(mode='store',
+                        store_filter=lambda site, q: site.name in names)
+        args = (lat_pre, t_inv, estate['src_text'])
+        inv_weights = estate.get('inv_unet') or {}
+        if inv_weights:
+            _, store = torch.func.functional_call(
+                self.unet, inv_weights, args, {'ctrl': ctrl}, strict=False)
+        else:
+            _, store = self.unet(*args, ctrl=ctrl)
+        return {n: store[n].float() for n in ecfg.self_site_names}
+
     # ------------------------------------------------------------- sampling
     @torch.no_grad()
     def sample(self,
@@ -98,22 +200,19 @@ class VideoSwapPipeline:
                t2i_start: float = 0.0,
                t2i_end: float = 1.0,
                guidance_rescale: float = 0.0,
-               edit_bundle: Any = None,
+               edit_bundle: Optional[EditBundle] = None,
                generator: Optional[torch.Generator] = None,
                output_type: str = 'pil',
                sampler: str = 'ddim',
                callback: Optional[Callable[[int, torch.Tensor, torch.Tensor],
                                            None]] = None):
-        """CFG DDIM sampling with point-adapter residual guidance (the
+        """CFG DDIM sampling with point-adapter residual guidance and, with
+        an `edit_bundle`, prompt-to-prompt control and latent blending (the
         reference `__call__`). `latents` (1, F, h, w, 4) start the loop
         (e.g. inverted latents); otherwise they are drawn from `generator`.
         `callback(i, t, latents)` runs after every step. output_type:
         'latent' (device tensor), 'np' (float video in [-1, 1], the uint8
         quantisation undone) or 'pil' (list of frames)."""
-        if edit_bundle is not None:
-            raise NotImplementedError(
-                'prompt-to-prompt editing (edit_bundle) is not ported yet; '
-                'see ROADMAP.md Queue 1 item 12')
         if sampler != 'ddim':
             raise NotImplementedError(
                 f'sampler {sampler!r} is not ported yet; only ddim (see '
@@ -138,8 +237,11 @@ class VideoSwapPipeline:
                             num_inference_steps)
         lo, hi = t2i_start * num_inference_steps, t2i_end * num_inference_steps
         # the CFG halves agree until text enters at the first
-        # cross-attention, so the U-Net runs that prefix on batch 1
+        # cross-attention, so the U-Net runs that prefix on batch 1 (no
+        # controller reaches that prefix's >= 32^2-token site)
         dedup = bool(do_cfg and lat.shape[0] == 1 and h8 * w8 >= 1024)
+        ecfg = edit_bundle.cfg if edit_bundle is not None else None
+        sums = dict(edit_bundle.init_sums) if ecfg is not None else {}
 
         for i, t in enumerate(ts):
             inp = lat if (not do_cfg or dedup) else torch.cat([lat, lat])
@@ -148,8 +250,15 @@ class VideoSwapPipeline:
                 gate = float(lo <= i <= hi)
                 res = [s * gate for s in adapter_states]
             t_dev = torch.tensor(int(t), device=dev)
-            eps = self.unet(inp, t_dev, text, adapter_residuals=res,
-                            cfg_prefix_dedup=dedup)
+            kw = dict(adapter_residuals=res, cfg_prefix_dedup=dedup)
+            if ecfg is None:
+                eps = self.unet(inp, t_dev, text, **kw)
+            else:
+                step = {k: ({n: a[i] for n, a in v.items()}
+                            if isinstance(v, dict) else v[i])
+                        for k, v in edit_bundle.xs.items()}
+                eps, tgt_maps = self._edited_unet(ecfg, edit_bundle, step, i,
+                                                  inp, t_dev, text, kw)
             if do_cfg:
                 eps_u, eps_c = eps.chunk(2)
                 eps = eps_u + guidance_scale * (eps_c - eps_u)
@@ -157,6 +266,10 @@ class VideoSwapPipeline:
                     eps = rescale_noise_cfg(eps, eps_c, guidance_rescale)
             lat = ddim_step(self.sched, eps.to(lat.dtype), int(t), lat,
                             num_inference_steps).to(lat.dtype)
+            if ecfg is not None and ecfg.blend_latents:
+                lat, sums = latent_blend_step(
+                    ecfg, edit_bundle.static_state, lat, step['inv_latents'],
+                    step['base_cross'], sums, tgt_maps, i)
             if callback is not None:
                 callback(i, t_dev, lat)
 
@@ -170,3 +283,154 @@ class VideoSwapPipeline:
             return video.astype(np.float32) / 127.5 - 1.0
         from PIL import Image
         return [Image.fromarray(f) for f in video[0]]
+
+    def _edited_unet(self, ecfg, bundle, step, i, inp, t_dev, text, kw):
+        """One U-Net call under the edit controller: (eps, this step's
+        stored target maps at the blend sites, the cond half)."""
+        estate = bundle.static_state
+        state = {'alpha_words': estate['alpha_words'][i],
+                 'base': step.get('base_cross', {})}
+        self_on = ecfg.self_range[0] <= i < ecfg.self_range[1]
+        if 'base_self' in step:
+            state['base_self'], state['self_on'] = step['base_self'], self_on
+        elif ecfg.recompute_self:
+            # regenerate inversion step N-1-i's self maps from its stored
+            # pre-step latent (storing them all would take ~4 GB at 512^2)
+            state['base_self'] = (self._recompute_self_maps(
+                ecfg, estate, step['inv_lat_pre'], step['inv_t'])
+                if self_on else {})
+            state['self_on'] = self_on
+        if ecfg.blend_self:
+            state['self_mask'] = self_masks_for_step(ecfg, estate,
+                                                     state['base'])
+        ctrl = make_store_edit_ctrl(ecfg, estate, state)
+        out = self.unet(inp, t_dev, text, ctrl=ctrl, **kw)
+        if not ctrl.stores:
+            return out, {}
+        eps, store = out
+        f = ecfg.video_length
+        return eps, {k: (m[f:] if ecfg.do_cfg else m)
+                     for k, m in store.items()}
+
+    # ------------------------------------------------------------ validation
+    def validation(self, source_video, source_conditions, source_prompt,
+                   editing_config: dict, train_dataset=None, save_dir=None,
+                   output_type: str = 'pil',
+                   callback: Optional[Callable[[str, int, torch.Tensor,
+                                                torch.Tensor], None]] = None):
+        """The per-swap loop of the reference `validation`: the inversion
+        (storing what the blends and edits read), then per swap a transient
+        ED-LoRA merge, the conditions, the target prompt, the controller,
+        seed-0 sampling and the weight restore. Returns {swap: frames}.
+
+        `output_type` is passed to `sample` (the one adaptation of the port:
+        the JAX package always returns PIL frames; the default is the
+        same). `callback(stage, i, t, latents)` runs after every step of
+        the inversion (stage 'invert') and of each swap (stage = the
+        swap's key). Not ported yet (ROADMAP.md): `tap_path` conditions
+        from a dataset, `visualize_attention`, `visualize_point`."""
+        cfg = editing_config
+        use_inv = cfg.get('use_invertion_latents', True)
+        use_blend = cfg.get('use_blend', False)
+        steps = cfg.get('num_inference_steps', 50)
+        if cfg.get('visualize_attention') or cfg.get('visualize_point'):
+            raise NotImplementedError(
+                'visualize_attention / visualize_point are not ported yet '
+                '(ROADMAP.md Queue 1 item 12)')
+        if use_blend and not use_inv:
+            raise ValueError('use_blend needs the inversion '
+                             '(use_invertion_latents)')
+
+        if isinstance(source_video, list):
+            width, height = source_video[0].size
+            video_length = len(source_video)
+        else:
+            video_length, height, width = source_video.shape[1:4]
+        width, height = width - width % 8, height - height % 8
+
+        ddim_latents, per_step = None, None
+        recompute_self = want_recompute_self(cfg, height, width,
+                                             video_length, steps)
+        if use_inv:
+            store_ctrl = NO_CTRL
+            if use_blend:
+                store_ctrl = AttnCtrl(
+                    mode='store',
+                    store_filter=inversion_store_filter(
+                        cfg, self.tokenizer, height, width,
+                        video_length=video_length, num_steps=steps))
+            ddim_latents, per_step = self.invert(
+                source_video, source_prompt, num_inference_steps=steps,
+                store_ctrl=store_ctrl,
+                callback=(None if callback is None
+                          else functools.partial(callback, 'invert')))
+
+        from videoswap_torch.edlora import (load_edlora_into_pipeline,
+                                            restore_pipeline)
+        results = {}
+        for key, swap_cfg in cfg.get('editing_prompts', {}).items():
+            if swap_cfg.get('tap_path'):
+                raise NotImplementedError(
+                    'tap_path conditions are not ported yet (ROADMAP.md)')
+            lora_ctx = None
+            if swap_cfg.get('lora_path'):
+                path, alpha = swap_cfg['lora_path'].rsplit('---', 1)
+                lora_ctx = load_edlora_into_pipeline(self, path, float(alpha))
+            try:
+                conditions = copy.deepcopy(source_conditions)
+                if conditions is not None and swap_cfg.get('select_point'):
+                    conditions['index_list'] = [
+                        conditions['point_name2id'][n]
+                        for n in swap_cfg['select_point']]
+                elif conditions is not None:
+                    conditions['index_list'] = None
+                src_subj, tgt_subj = [s.strip() for s in
+                                      swap_cfg['replace'].split('->')]
+                target_prompt = make_target_prompt(source_prompt, swap_cfg)
+                guidance_scale = swap_cfg.get(
+                    'guidance_scale', cfg.get('guidance_scale', 7.5))
+                edit_bundle = None
+                if use_blend:
+                    edit_bundle = make_edit_bundle(
+                        self.tokenizer, source_prompt, target_prompt,
+                        num_steps=steps, video_length=video_length,
+                        height=height, width=width,
+                        inv_latents_per_step=per_step['latents'],
+                        inv_attn_store=per_step['attn'],
+                        blend_words=[src_subj.split(' '),
+                                     tgt_subj.split(' ')],
+                        blend_cfg=swap_cfg.get('blend_cfg', {}),
+                        do_cfg=guidance_scale > 1.0,
+                        recompute_self=recompute_self,
+                        inv_z0=per_step['z0'], inv_ts=per_step['ts'])
+                    if edit_bundle.cfg.recompute_self:
+                        # the maps were made before the concept load:
+                        # regenerate them with the inversion's text and
+                        # pre-merge weights
+                        estate = edit_bundle.static_state
+                        estate['src_text'] = per_step['src_text']
+                        estate['inv_unet'] = (lora_ctx['unet'] if lora_ctx
+                                              is not None else {})
+                results[key] = self.sample(
+                    prompt=target_prompt, video_length=video_length,
+                    height=height, width=width, num_inference_steps=steps,
+                    guidance_scale=guidance_scale,
+                    negative_prompt=swap_cfg.get(
+                        'negative_prompt', cfg.get('negative_prompt')),
+                    latents=ddim_latents, conditions=conditions,
+                    t2i_guidance_scale=swap_cfg.get(
+                        't2i_guidance_scale',
+                        cfg.get('t2i_guidance_scale', 1.0)),
+                    t2i_start=cfg.get('t2i_start', 0.0),
+                    t2i_end=cfg.get('t2i_end', 1.0), edit_bundle=edit_bundle,
+                    generator=torch.Generator(device=self.device)
+                    .manual_seed(0),
+                    output_type=output_type,
+                    sampler=swap_cfg.get('sampler',
+                                         cfg.get('sampler', 'ddim')),
+                    callback=(None if callback is None
+                              else functools.partial(callback, key)))
+            finally:
+                if lora_ctx is not None:
+                    restore_pipeline(self, lora_ctx)
+        return results
