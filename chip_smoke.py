@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (videoswap_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases build,kernels,unet,small,sample,train_small,train,blend_small,blend,atlas_small,atlas]
+    python3 chip_smoke.py [--phases build,kernels,unrouted,unet,small,sample,train_small,train,blend_small,blend,atlas_small,atlas]
 
 Phases (all by default):
 
@@ -25,6 +25,24 @@ Phases (all by default):
                (C = 320, with the FFN) and 1 (C = 640, the attention half),
                timed beside the layer-wise module it replaces, and its
                autograd Function's gradients;
+- unrouted:    the fifth slice's path, the port's counterpart of the JAX
+               package's two never-routed kernels and of the scripts that
+               run them (scripts/bench_spatial_attn.py,
+               scripts/bench_resnet_fused.py): spatial self-attention at
+               (32, 4096, 320) and (32, 1024, 640), 8 heads, and the fused
+               GroupNorm-SiLU-conv3x3 at 32x64x64x320 and 32x32x32x640,
+               each once through its public wrapper, then on the full-width
+               U-Net's own inputs: one 16-frame 512x512 CFG forward with
+               pre-hooks on the first transformer block's attn1 and the
+               first ResnetBlock3D of levels 0 and 1; the spatial kernel
+               against the flash route (dot_product_attention) on the
+               hooked attn1's q, k, v, and the conv kernel, fed the video's
+               GroupNorm statistics, against the module's own
+               conv1(silu(norm1(x))); then each kernel against its plain
+               version at the benchmark shapes, timed beside its bound,
+               scaled_dot_product_attention and the flash forward kernel
+               (spatial) or cuDNN's conv2d alone and the group_norm, silu,
+               conv2d chain (conv);
 - unet:        one full-width U-Net forward (512x512, 2 frames, CFG, adapter
                residuals): the kernel path on the GPU in bf16 against the
                plain path on the CPU in fp32, same weights and inputs;
@@ -74,9 +92,10 @@ Phases (all by default):
                16 times a main step), the reconstruction PSNR of 4 frames
                and one propagated point drag.
 
-Launch counts are set to 0 just before the sample, train, blend and atlas
-paths and read just after each. scripts/fault_control.py shows that the unet, small,
-train_small and atlas_small limits fail a kernel with a planted fault;
+Launch counts are set to 0 just before the unrouted, sample, train, blend
+and atlas paths and read just after each. scripts/fault_control.py shows
+that the unet, small, train_small, blend_small, atlas_small and unrouted
+limits fail a kernel with a planted fault;
 scripts/profile_step.py breaks one full-width U-Net step, training step or
 atlas iteration down by device time.
 
@@ -100,8 +119,9 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ('build', 'kernels', 'unet', 'small', 'sample', 'train_small',
-          'train', 'blend_small', 'blend', 'atlas_small', 'atlas')
+PHASES = ('build', 'kernels', 'unrouted', 'unet', 'small', 'sample',
+          'train_small', 'train', 'blend_small', 'blend', 'atlas_small',
+          'atlas')
 SEED = 0
 FRAMES, SIZE, POINTS = 16, 512, 10
 STEPS = 4          # DDIM steps of the full-width sample (a smoke run's time)
@@ -157,10 +177,19 @@ KERNELS = {
         'fused_temporal', 'bfhw_launches',
         'videoswap_torch/csrc/fused_temporal.cu',
         'videoswap_tpu/ops/fused_temporal.py:282'),
+    'spatial_self_attention': (
+        'spatial_attention', 'launches',
+        'videoswap_torch/csrc/spatial_attention.cu',
+        'videoswap_tpu/ops/spatial_attention.py:108'),
+    'gn_silu_conv': ('gn_silu_conv', 'launches',
+                     'videoswap_torch/csrc/gn_silu_conv.cu',
+                     'scripts/bench_resnet_fused.py:102'),
 }
 # the path whose launch count the kernels line reports for each kernel
 # ('sample_4d': the sample path run again with FT_4D, the frame-major layout)
-KERNEL_PATH = {'hash_table_grad': 'atlas', 'fused_temporal_bfhw': 'sample_4d'}
+KERNEL_PATH = {'hash_table_grad': 'atlas', 'fused_temporal_bfhw': 'sample_4d',
+               'spatial_self_attention': 'unrouted',
+               'gn_silu_conv': 'unrouted'}
 FORWARD_KERNELS = ('geglu_ffn', 'temporal_attention', 'flash_attention_fwd',
                    'fused_temporal')
 # max |kernel - plain| allowed, bf16 kernel vs fp32 plain on the same bf16
@@ -175,10 +204,18 @@ FORWARD_KERNELS = ('geglu_ffn', 'temporal_attention', 'flash_attention_fwd',
 # FFN product, h before proj_out): its error is taken relative to the
 # largest |plain| entry; sound readings on the H100 4.1e-3 (C = 320) and
 # 3.8e-3 (C = 640); a head skipped reads 0.25 (scripts/fault_control.py)
+# the spatial kernel's outputs are O(1), rounded once to bf16, after the
+# bf16 rounding of its exponentials (absolute, as the flash forward); the
+# fused conv's outputs reach ~4 (a bf16 ulp 0.016) from bf16 activations
+# summed over 9 Cin products: relative to the largest |plain| entry. Sound
+# readings on the H100: spatial 8.5e-4 (level 0) and 2.7e-3 (level 1),
+# conv 2.0e-3 of max|plain| at both levels; a skipped key tile reads 7.6e-2,
+# a skipped tap 0.34 (scripts/fault_control.py)
 TOL = {'geglu_ffn': 3e-2, 'temporal_attention': 1e-2,
        'flash_attention_fwd': 1e-2, 'flash_attention_bwd_dq': 1e-2,
        'flash_attention_bwd_dkv': 1e-2, 'fused_temporal': 1.5e-2,
-       'fused_temporal_bfhw': 1.5e-2}
+       'fused_temporal_bfhw': 1.5e-2, 'spatial_self_attention': 1e-2,
+       'gn_silu_conv': 1e-2}
 # the hash-grid scatter is fp32 on both sides: its atomics only reorder each
 # entry's fp32 sum (~830 rows an entry at level 0), a few 1e-7 of the
 # largest |plain| entry; the limit is relative to that entry. The same for
@@ -191,6 +228,19 @@ GRAD_TOL = 2e-2
 # relative L2 error allowed for whole-model comparisons (GPU bf16 vs CPU
 # fp32): bf16 activations through ~100 layers with random weights
 MODEL_REL_TOL = 5e-2
+# the unrouted phase on the U-Net's own level-0 and level-1 inputs, relative
+# L2, both sides bf16 on the card: the spatial kernel against the flash route
+# on the hooked attn1's q, k, v (each rounds its exponentials, or its
+# probabilities, and its output to bf16), the fused conv fed the video's
+# GroupNorm statistics against the module's conv1(silu(norm1(x))) (which
+# rounds the normalised and the activated input to bf16, the kernel the
+# activation once). Sound readings on the H100: spatial 8.3e-4 (level 0)
+# and 7.9e-4 (level 1), conv 3.86e-3 and 3.89e-3; the spatial kernel's last
+# 64-key tile skipped reads 1.6e-2 and 1.9e-2, the conv's last tap skipped
+# 0.34 (scripts/fault_control.py): the limits sit at about 5x and 2.5x the
+# sound readings
+UNROUTED_ATTN_TOL = 4e-3
+UNROUTED_CONV_TOL = 1e-2
 # the same for sampled latents: guidance 7.5 multiplies the U-Net's bf16
 # error in (eps_cond - eps_uncond) by up to 7.5 at every step
 SAMPLE_REL_TOL = 5e-2
@@ -831,6 +881,217 @@ def _hash_kernels(report, gen):
         raise PhaseError(f'hash_encode gradients on the card: {errs}')
 
 
+# --------------------------------------------------------------- unrouted
+# the JAX package's benchmark shapes: the 16-frame CFG batch of 32 images at
+# U-Net levels 0 and 1, 8 heads; (S, C) for attention, (side, C) for the conv
+UNROUTED_BATCH = 2 * FRAMES
+UNROUTED_ATTN = ((4096, 320), (1024, 640))
+UNROUTED_CONV = ((64, 320), (32, 640))
+
+
+def unrouted_sites(unet) -> dict:
+    """The U-Net modules whose inputs the unrouted phase takes: the first
+    transformer block's self-attention and the first ResnetBlock3D of down
+    levels 0 and 1."""
+    sites = {}
+    for lv in (0, 1):
+        blk = unet.down_blocks[lv]
+        sites[f'attn1 level {lv}'] = blk.attentions[0].transformer_blocks[0] \
+            .attn1
+        sites[f'resnet level {lv}'] = blk.resnets[0]
+    return sites
+
+
+def unrouted_inputs(unet) -> dict:
+    """The hidden states each unrouted site receives in one 16-frame
+    512x512 CFG U-Net forward (forward pre-hooks, removed afterwards)."""
+    captured = {}
+
+    def hook(name):
+        def fn(module, args):
+            captured[name] = args[0].detach().clone()
+        return fn
+
+    handles = [m.register_forward_pre_hook(hook(name))
+               for name, m in unrouted_sites(unet).items()]
+    try:
+        unet_forward(unet, FRAMES)
+    finally:
+        for h in handles:
+            h.remove()
+    return captured
+
+
+def unrouted_module_errors(unet, captured) -> dict:
+    """Both kernels on the U-Net's own inputs, relative L2: the spatial
+    kernel against the flash route on the hooked attn1's q, k, v; the fused
+    conv, fed the video's GroupNorm statistics (over its frames, as
+    ResnetBlock3D takes them) repeated as per-frame rows, against the
+    module's own conv1(silu(norm1(x)))."""
+    import torch
+    import torch.nn.functional as F
+    from videoswap_torch.ops import gn_silu_conv as gc
+    from videoswap_torch.ops import spatial_attention as sa
+    from videoswap_torch.ops.attention import dot_product_attention
+    sites = unrouted_sites(unet)
+    errs = {}
+
+    def err(out, ref):
+        return rel_err(out, ref) if bool(torch.isfinite(out).all()) \
+            else math.inf
+
+    with torch.no_grad():
+        for lv in (0, 1):
+            attn = sites[f'attn1 level {lv}']
+            h = captured[f'attn1 level {lv}']
+            q, k, v = attn.to_q(h), attn.to_k(h), attn.to_v(h)
+            errs[f'spatial level {lv}'] = err(
+                sa.spatial_self_attention(q, k, v, attn.heads),
+                dot_product_attention(q, k, v, attn.heads))
+            blk = sites[f'resnet level {lv}']
+            x = captured[f'resnet level {lv}']
+            b, f, hh, ww, c = x.shape
+            scale, shift = gc.gn_scale_shift(
+                *gc.gn_stats(x.reshape(b, f * hh, ww, c), blk.norm1.num_groups,
+                             blk.norm1.eps), blk.norm1.weight, blk.norm1.bias)
+            out = gc.gn_silu_conv_kernel(
+                x.reshape(b * f, hh, ww, c), scale.repeat_interleave(f, 0),
+                shift.repeat_interleave(f, 0), blk.conv1.weight,
+                blk.conv1.bias)
+            errs[f'conv level {lv}'] = err(
+                out, blk.conv1(F.silu(blk.norm1(x))).reshape(out.shape))
+    return errs
+
+
+def unrouted_fails(errs) -> bool:
+    return any(v > (UNROUTED_ATTN_TOL if k.startswith('spatial')
+                    else UNROUTED_CONV_TOL) for k, v in errs.items())
+
+
+def _unrouted_conv_args(gen, side, c):
+    """x, gamma, beta, an OIHW weight on a (9 C)^-1/2 scale and a bias, as
+    scripts/bench_resnet_fused.py draws them."""
+    import torch
+    x = _rand(gen, (UNROUTED_BATCH, side, side, c))
+    gamma = torch.rand(c, generator=gen, device='cuda') + 0.5
+    beta = torch.randn(c, generator=gen, device='cuda') * 0.1
+    weight = _rand(gen, (c, c, 3, 3), (9 * c) ** -0.5)
+    bias = torch.randn(c, generator=gen, device='cuda') * 0.01
+    return x, gamma, beta, weight, bias
+
+
+def phase_unrouted(report, state):
+    import torch
+    import torch.nn.functional as F
+    from videoswap_torch.ops import flash_attention as fa
+    from videoswap_torch.ops import gn_silu_conv as gc
+    from videoswap_torch.ops import spatial_attention as sa
+    unet = state['pipe'].unet
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 8)
+    heads = 8
+    attn_args = [[_rand(gen, (UNROUTED_BATCH, s, c)) for _ in range(3)]
+                 for s, c in UNROUTED_ATTN]
+    conv_args = [_unrouted_conv_args(gen, side, c)
+                 for side, c in UNROUTED_CONV]
+
+    # ---- the path: each kernel once through its public wrapper at the
+    # benchmark's two shapes, then on the U-Net's own level-0 and level-1
+    # inputs
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        outs = [sa.spatial_self_attention(*a, heads) for a in attn_args]
+        outs += [gc.fused_gn_silu_conv(*a) for a in conv_args]
+        captured = unrouted_inputs(unet)
+        errs = unrouted_module_errors(unet, captured)
+    torch.cuda.synchronize()
+    t_path = time.perf_counter() - t0
+    counts = read_launches()
+    report['launches']['unrouted'] = counts
+    report['unrouted'] = errs
+    finite = all(bool(torch.isfinite(o).all()) for o in outs)
+    shapes = {k: list(v.shape) for k, v in captured.items()}
+    log(f'# unrouted path ({t_path:.2f} s, the 16-frame U-Net forward '
+        f'included): outputs finite {finite}; U-Net inputs {json.dumps(shapes)}'
+        f'; rel L2 against the routed computation {json.dumps(errs)} (tol '
+        f'spatial {UNROUTED_ATTN_TOL:g}, conv {UNROUTED_CONV_TOL:g}) '
+        f'{"FAIL" if unrouted_fails(errs) or not finite else "ok"}')
+    log(f'# unrouted kernel launches: {json.dumps(counts)}')
+    del outs, captured
+    if not finite or unrouted_fails(errs):
+        raise PhaseError(f'unrouted path: outputs finite {finite}, module '
+                         f'errors {errs}')
+    missing = [n for n, p in KERNEL_PATH.items()
+               if p == 'unrouted' and counts[n] <= 0]
+    if missing:
+        raise PhaseError(f'kernels not launched on the unrouted path: '
+                         f'{missing}')
+
+    # ---- each kernel against its plain version, timed
+    f32 = (lambda ts: [t.float() for t in ts])
+    for (s, c), (q, k, v) in zip(UNROUTED_ATTN, attn_args):
+        b, d = UNROUTED_BATCH, c // heads
+        chunk = max(1, (1 << 28) // (heads * s * s))   # <= 1 GiB of logits
+        view = (lambda t: t.view(b, s, heads, d))
+        with torch.no_grad():
+            flash_ms = cuda_time_ms(lambda: fa.flash_attention_kernel(
+                view(q), view(k), view(v)), 5)
+            desc = f'B={b} S={s} C={c} h={heads}'
+            _compare('spatial_self_attention', desc,
+                     lambda: sa.spatial_attention_kernel(q, k, v, heads),
+                     lambda: sa.spatial_attention_plain(q, k, v, heads, chunk),
+                     lambda: sa.spatial_attention_plain(
+                         *f32((q, k, v)), heads, max(1, chunk // 2)), report,
+                     (4 * b * heads * s * s * d, 2 * 4 * b * s * c),
+                     lambda: cuda_time_ms(
+                         lambda: _sdpa(view(q), view(k), view(v)), 5),
+                     iters=5)
+        log(f'# kernel spatial_self_attention {desc}: the port\'s flash '
+            f'forward kernel (its routed counterpart) {flash_ms:.3f} ms')
+        report['kernels']['spatial_self_attention'].setdefault(
+            'flash_ms', flash_ms)
+    for (side, c), (x, gamma, beta, weight, bias) in zip(UNROUTED_CONV,
+                                                          conv_args):
+        n = UNROUTED_BATCH
+        scale, shift = gc.gn_scale_shift(*gc.gn_stats(x, 32), gamma, beta)
+        a = F.silu(x.float() * scale[:, None, None] + shift[:, None, None]) \
+            .bfloat16().permute(0, 3, 1, 2)              # NCHW view, NHWC
+        x_cl = x.permute(0, 3, 1, 2)
+        w_cl = weight.contiguous(memory_format=torch.channels_last)
+        b16 = [t.bfloat16() for t in (gamma, beta, bias)]
+        with torch.no_grad():
+            conv_ms = cuda_time_ms(lambda: F.conv2d(a, w_cl, b16[2],
+                                                    padding=1), 10)
+            chain_ms = cuda_time_ms(lambda: F.conv2d(F.silu(F.group_norm(
+                x_cl, 32, b16[0], b16[1])), w_cl, b16[2], padding=1), 10)
+            wrapper_ms = cuda_time_ms(lambda: gc.fused_gn_silu_conv(
+                x, gamma, beta, weight, bias), 10)
+            desc = f'N={n} H=W={side} C={c}'
+            pixels = n * side * side
+            _compare('gn_silu_conv', desc,
+                     lambda: gc.gn_silu_conv_kernel(x, scale, shift, weight,
+                                                    bias),
+                     lambda: gc.gn_silu_conv_plain(x, scale, shift, weight,
+                                                   bias),
+                     lambda: gc.gn_silu_conv_plain(x.float(), scale, shift,
+                                                   weight.float(), bias),
+                     report, (2 * pixels * c * 9 * c,
+                              2 * pixels * 2 * c + 2 * 9 * c * c + 8 * n * c
+                              + 4 * c),
+                     lambda: conv_ms, relative=True)
+        log(f'# kernel gn_silu_conv {desc}: with the GroupNorm statistics '
+            f'(fused_gn_silu_conv) {wrapper_ms:.3f} ms; cuDNN conv2d alone '
+            f'(channels-last bf16) {conv_ms:.3f} ms; group_norm + silu + '
+            f'conv2d {chain_ms:.3f} ms')
+        entry = report['kernels']['gn_silu_conv']
+        entry.setdefault('chain_ms', chain_ms)
+        entry.setdefault('wrapper_ms', wrapper_ms)
+        entry['library_is'] = ('F.conv2d alone (cuDNN, channels-last bf16) '
+                               'on the activated input; chain_ms: '
+                               'group_norm + silu + conv2d')
+
+
 # --------------------------------------------------------------- models
 def build_pipeline(device, dtype):
     """The full-width models from videoswap_torch.builders (random weights
@@ -869,16 +1130,16 @@ def conditions(frames, size, points=POINTS):
             'index_list': None}
 
 
-def unet_forward(unet):
-    """The unet phase's forward: 512x512, 2 frames, CFG-prefix dedup,
-    adapter residuals. Inputs come from SEED + 1 rounded to bf16, so the
-    GPU bf16 model and the CPU fp32 model see the same values."""
+def unet_forward(unet, frames=2):
+    """The unet phase's forward: 512x512, 2 frames (or `frames`),
+    CFG-prefix dedup, adapter residuals. Inputs come from SEED + 1 rounded to
+    bf16, so the GPU bf16 model and the CPU fp32 model see the same values."""
     import torch
     gen = torch.Generator().manual_seed(SEED + 1)
     h8 = SIZE // 8
-    x = torch.randn((1, 2, h8, h8, 4), generator=gen)
+    x = torch.randn((1, frames, h8, h8, 4), generator=gen)
     text = torch.randn((2, 77, 768), generator=gen)
-    res = [torch.randn((2, 2, h8 // r, h8 // r, c), generator=gen) * 0.1
+    res = [torch.randn((2, frames, h8 // r, h8 // r, c), generator=gen) * 0.1
            for r, c in ((1, 320), (2, 640), (4, 1280), (8, 1280))]
     p = next(unet.parameters())
     put = (lambda a: a.to(torch.bfloat16).to(p.device, p.dtype))
@@ -1699,7 +1960,8 @@ def main() -> None:
                 if phase in ('unet', 'small', 'train_small', 'blend_small') \
                         and 'cpu' not in state:
                     state['cpu'] = cpu_copy(state['pipe'])
-                {'unet': phase_unet, 'small': phase_small,
+                {'unrouted': phase_unrouted, 'unet': phase_unet,
+                 'small': phase_small,
                  'sample': phase_sample, 'train_small': phase_train_small,
                  'train': phase_train, 'blend_small': phase_blend_small,
                  'blend': phase_blend}[phase](report, state)
@@ -1722,7 +1984,8 @@ def main() -> None:
                 'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
                 'library_ms', 'shape')},
             **{key: k[key] for key in ('max_err_over_max_plain', 'step_ms',
-                                       'step_bound_ms', 'library_is')
+                                       'step_bound_ms', 'library_is',
+                                       'flash_ms', 'chain_ms', 'wrapper_ms')
                if key in k}})
     log(json.dumps({'kernels': kernels}))
     log(power)

@@ -7,8 +7,11 @@ Plants one fault at a time, in a kernel's wrapper (a chunk of the kernel's
 work skipped), in the trainer or in the blended swap, and runs
 chip_smoke.py's unet, small, train_small and blend_small comparisons (GPU
 bf16 kernels against the CPU fp32 plain path; blend_small in its recompute
-tier) and its atlas_small comparison (GPU fp32 against CPU fp32) with it. A
-sound run comes first. For each kernel fault it also prints the
+tier), its atlas_small comparison (GPU fp32 against CPU fp32) and its
+unrouted comparisons (the two unrouted kernels on the full-width U-Net's own
+level-0 and level-1 inputs against the routed computation, both on the
+card; the inputs are captured once, from the sound model) with it. A sound
+run comes first. For each kernel fault it also prints the
 kernel-level error against the plain version at one level-0 shape, the
 check of chip_smoke.py's kernels phase. The faults:
 
@@ -40,7 +43,14 @@ check of chip_smoke.py's kernels phase. The faults:
                       source prompt's maps);
 - blend_latents_skipped: the blended swap's latent blending is skipped (the
                       edited latents kept where the mask would put back the
-                      inversion's).
+                      inversion's);
+- spatial_last_key_tile: the spatial self-attention kernel skips its last
+                      64-key tile wherever S > 64;
+- conv_last_tap:      the fused GroupNorm-SiLU-conv kernel skips its last
+                      tap, (ky, kx) = (2, 2) (its weight rows zeroed).
+
+The last two are faults of the unrouted kernels, which no model path runs:
+the unrouted limits catch them, beside the kernel limit.
 
 The last two are faults of the blended path with no kernel: blend_small
 alone can catch them. The skipped blend is reported but not required: with
@@ -59,8 +69,9 @@ every kernel fault fails the kernels-phase limit, the adapter fault fails
 train_small's update limits (the AdamW step's change of the weights against
 the CPU's, and the share of weights it moves), the hash-corner fault
 fails atlas_small's hash-table gradient limit (the atlas's forward and its
-other gradients are untouched), and the cross-edit fault fails
-blend_small's limit.
+other gradients are untouched), the cross-edit fault fails
+blend_small's limit, and the unrouted kernels' faults fail the unrouted
+limits.
 """
 
 from __future__ import annotations
@@ -214,6 +225,30 @@ def _blend_latents_skipped():
     return mock.patch.object(vp, 'latent_blend_step', faulted)
 
 
+def _spatial_last_key_tile():
+    from videoswap_torch.ops import spatial_attention as sa
+    launch = sa._launch
+
+    def faulted(q, k, v, out, heads):
+        sk = k.shape[1]
+        if sk > 64:
+            keep = (sk - 1) // 64 * 64
+            k, v = k[:, :keep], v[:, :keep]
+        return launch(q, k, v, out, heads)
+    return mock.patch.object(sa, '_launch', faulted)
+
+
+def _conv_last_tap():
+    from videoswap_torch.ops import gn_silu_conv as gc
+    launch = gc._launch
+
+    def faulted(x, scale, shift, w_packed, bias, out):
+        w_packed = w_packed.clone()
+        w_packed[8 * x.shape[-1]:] = 0          # tap (2, 2): the last Cin rows
+        return launch(x, scale, shift, w_packed, bias, out)
+    return mock.patch.object(gc, '_launch', faulted)
+
+
 @contextlib.contextmanager
 def _adapter_bf16_weights(trainer):
     trainer.adapter.bfloat16()
@@ -240,10 +275,14 @@ FAULTS = {
     'fused_skip_ffn': lambda tr: _fused_fault('skip_ffn'),
     'edit_cross_skipped': lambda tr: _edit_cross_skipped(),
     'blend_latents_skipped': lambda tr: _blend_latents_skipped(),
+    'spatial_last_key_tile': lambda tr: _spatial_last_key_tile(),
+    'conv_last_tap': lambda tr: _conv_last_tap(),
 }
 BACKWARD_FAULTS = ('flash_bwd_dkv_last_q_tile', 'flash_bwd_dq_last_k_tile')
 ATLAS_FAULTS = ('hash_last_corner',)
-KERNEL_ONLY_FAULTS = ('hash_last_block',)
+KERNEL_ONLY_FAULTS = ('hash_last_block', 'spatial_last_key_tile',
+                      'conv_last_tap')
+UNROUTED_FAULTS = ('spatial_last_key_tile', 'conv_last_tap')
 TRAINER_FAULTS = ('adapter_bf16_weights',)
 BLEND_FAULTS = ('edit_cross_skipped', 'blend_latents_skipped')
 BLIND_FAULTS = ('blend_latents_skipped',)     # reported, not required
@@ -265,6 +304,22 @@ def kernel_error(fault: str) -> float:
     from videoswap_torch.ops import temporal_attention as ta
     gen = torch.Generator(device='cuda').manual_seed(cs.SEED)
     f32 = (lambda ts: [t.float() for t in ts])
+    if fault.startswith('spatial'):
+        from videoswap_torch.ops import spatial_attention as sa
+        q, k, v = (cs._rand(gen, (2, 4096, 320)) for _ in range(3))
+        out = sa.spatial_self_attention(q, k, v, 8)
+        ref = sa.spatial_attention_plain(*f32((q, k, v)), 8, 1)
+        return float((out.float() - ref).abs().max())
+    if fault.startswith('conv'):
+        # level 0, two images, relative to the largest |plain| entry
+        from videoswap_torch.ops import gn_silu_conv as gc
+        x, gamma, beta, weight, bias = cs._unrouted_conv_args(gen, 64, 320)
+        x = x[:2].contiguous()
+        scale, shift = gc.gn_scale_shift(*gc.gn_stats(x, 32), gamma, beta)
+        out = gc.gn_silu_conv_kernel(x, scale, shift, weight, bias)
+        ref = gc.gn_silu_conv_plain(x.float(), scale, shift, weight.float(),
+                                    bias)
+        return float((out.float() - ref).abs().max() / ref.abs().max())
     if fault.startswith('hash'):
         # level 0 of a main step, relative to the largest |plain| entry
         idx, val = cs._hash_rows(gen, 240000, 289)
@@ -330,6 +385,7 @@ def main() -> None:
     lora = str(Path(lora_dir.name) / 'edlora_hermione.pth')
     cs.edlora_file(pipe, lora)
     ref_blend = cs.blend_small_run(cpu, lora, True)
+    unrouted_inputs = cs.unrouted_inputs(pipe.unet)
     rows = {}
     for name, plant in FAULTS.items():
         with plant(trainer):
@@ -350,6 +406,10 @@ def main() -> None:
                         if k != 'per_net'})
             row['atlas_fails'] = sorted(
                 k for k, v in cs.atlas_small_fails(atlas).items() if v)
+            unrouted = cs.unrouted_module_errors(pipe.unet, unrouted_inputs)
+            row.update({f'unrouted_{k.replace(" ", "_")}_rel_err': v
+                        for k, v in unrouted.items()})
+            row['unrouted_fails'] = cs.unrouted_fails(unrouted)
             if name not in ('sound',) + TRAINER_FAULTS + BLEND_FAULTS:
                 row['kernel_err'] = kernel_error(name)
         row['unet_fails'] = row['unet_rel_err'] > cs.MODEL_REL_TOL
@@ -373,7 +433,9 @@ def main() -> None:
                   'flash_bwd_dkv': cs.TOL['flash_attention_bwd_dkv'],
                   'flash_bwd_dq': cs.TOL['flash_attention_bwd_dq'],
                   'flash_last': cs.TOL['flash_attention_fwd'],
-                  'fused': cs.TOL['fused_temporal']}
+                  'fused': cs.TOL['fused_temporal'],
+                  'spatial': cs.TOL['spatial_self_attention'],
+                  'conv': cs.TOL['gn_silu_conv']}
     caught = {}
     for name, r in rows.items():
         if name in TRAINER_FAULTS:
@@ -384,7 +446,9 @@ def main() -> None:
             continue
         tol = next(t for key, t in kernel_tol.items()
                    if name.startswith(key))
-        if name in KERNEL_ONLY_FAULTS:
+        if name in UNROUTED_FAULTS:
+            model = r['unrouted_fails']
+        elif name in KERNEL_ONLY_FAULTS:
             model = True
         elif name in ATLAS_FAULTS:
             model = 'hash_grad' in r['atlas_fails']
@@ -404,6 +468,8 @@ def main() -> None:
                       'train_grad_tol': cs.TRAIN_GRAD_TOL,
                       'train_update_tol': cs.TRAIN_UPDATE_TOL,
                       'train_moved_min': cs.TRAIN_MOVED_MIN,
+                      'unrouted_tols': {'spatial': cs.UNROUTED_ATTN_TOL,
+                                        'conv': cs.UNROUTED_CONV_TOL},
                       'atlas_tols': {'loss': cs.ATLAS_LOSS_TOL,
                                      'grad': cs.ATLAS_GRAD_TOL,
                                      'hash_grad': cs.ATLAS_HASH_GRAD_TOL,

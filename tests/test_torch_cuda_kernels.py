@@ -16,7 +16,11 @@ rounding of P, dS and the output, summed over keys or queries). The fused
 temporal transformer's output (x + the module, O(1) to O(3)) passes through
 about ten bf16 roundings of its intermediates and is held to 5e-2. The
 hash-grid scatter is fp32 on both sides: its atomics only reorder each
-entry's sum, so it is held to 1e-5 of the largest |plain| entry.
+entry's sum, so it is held to 1e-5 of the largest |plain| entry. The
+spatial-attention kernel (outputs O(1), one bf16 rounding of the
+exponentials and of the output) is held to 1e-2; the fused GroupNorm-SiLU
+convolution, whose outputs reach ~5 and whose bf16 activations are summed
+over 9 Cin products in another order, to 1e-2 of the largest |plain| entry.
 """
 
 import numpy as np
@@ -26,7 +30,9 @@ import torch
 from videoswap_torch.ops import flash_attention as tfa
 from videoswap_torch.ops import fused_temporal as tft
 from videoswap_torch.ops import geglu_ffn as tgf
+from videoswap_torch.ops import gn_silu_conv as tgc
 from videoswap_torch.ops import hash_table_grad as thg
+from videoswap_torch.ops import spatial_attention as tsa
 from videoswap_torch.ops import temporal_attention as tta
 
 pytestmark = pytest.mark.cuda
@@ -383,3 +389,103 @@ def test_fused_temporal_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):                          # C = 1280
         tft.fused_temporal_transformer(g2, x2, pe2, flat2, 8, 16,
                                        include_ffn=False)
+
+
+@pytest.mark.parametrize('b,s,heads,d', [(2, 256, 8, 40), (1, 300, 4, 80),
+                                         (1, 2304, 2, 64), (3, 77, 1, 128),
+                                         (2, 129, 2, 8), (1, 64, 4, 24)])
+def test_spatial_attention_kernel_matches_plain(cuda, b, s, heads, d):
+    """Every key attended, the tail of a 64-key tile and of a 64-row query
+    block masked, head dims from 8 to 128."""
+    q, k, v = (_randn((b, s, heads * d), i).to(cuda).bfloat16()
+               for i in range(3))
+    before = tsa.launches
+    out = tsa.spatial_self_attention(q, k, v, heads)
+    assert tsa.launches == before + 1
+    ref = tsa.spatial_attention_plain(q.float(), k.float(), v.float(), heads)
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+    assert (out.float() - ref).abs().max().item() < 1e-2
+
+
+def test_spatial_attention_reads_rows_by_stride(cuda):
+    """q, k, v as column slices of one fused projection (row stride 3C)."""
+    qkv = _randn((2, 256, 3 * 320), 4).to(cuda).bfloat16()
+    q, k, v = qkv.chunk(3, dim=-1)
+    assert not q.is_contiguous()
+    out = tsa.spatial_self_attention(q, k, v, 8)
+    ref = tsa.spatial_attention_plain(q.float(), k.float(), v.float(), 8)
+    assert (out.float() - ref).abs().max().item() < 1e-2
+
+
+def test_spatial_attention_is_differentiable_on_the_card(cuda):
+    qkv = [_randn((1, 256, 160), s).to(cuda).bfloat16() for s in range(3)]
+    _grads_match_plain(lambda *t: tsa.spatial_self_attention(*t, 4),
+                       lambda *t: tsa.spatial_attention_plain(*t, 4), qkv,
+                       _randn((1, 256, 160), 3).to(cuda).bfloat16())
+
+
+def _conv_args(n, h, w, cin, cout, seed, device):
+    """x bf16, per-image fp32 scale and shift from x's statistics (32
+    groups, or Cin / 8 below that) with a random affine, an OIHW weight on
+    a (9 Cin)^-1/2 scale and an fp32 bias."""
+    rs = np.random.RandomState(seed)
+    x = _randn((n, h, w, cin), seed).to(device).bfloat16()
+    gamma = torch.from_numpy((rs.rand(cin) + 0.5).astype(np.float32))
+    beta = torch.from_numpy((rs.randn(cin) * 0.3).astype(np.float32))
+    scale, shift = tgc.gn_scale_shift(
+        *tgc.gn_stats(x, min(32, cin // 8)), gamma.to(device),
+        beta.to(device))
+    weight = _randn((cout, cin, 3, 3), seed + 1,
+                    (9 * cin) ** -0.5).to(device).bfloat16()
+    bias = _randn((cout,), seed + 2, 0.1).to(device)
+    return x, scale, shift, weight, bias
+
+
+@pytest.mark.parametrize('n,h,w,cin,cout', [
+    (2, 16, 8, 64, 64), (1, 64, 64, 320, 320), (2, 32, 32, 640, 640),
+    (1, 32, 32, 320, 640), (3, 7, 5, 32, 8), (2, 12, 48, 48, 24),
+    (1, 8, 136, 16, 72)])
+def test_gn_silu_conv_kernel_matches_plain(cuda, n, h, w, cin, cout):
+    """The U-Net's level-0 and level-1 shapes and a Cin != Cout resnet;
+    images narrower than a tile, sizes no tile divides, Cout not a
+    multiple of the 64-channel block."""
+    args = _conv_args(n, h, w, cin, cout, n * h + w, cuda)
+    before = tgc.launches
+    out = tgc.gn_silu_conv_kernel(*args)
+    assert tgc.launches == before + 1
+    ref = tgc.gn_silu_conv_plain(*args)
+    assert out.dtype == torch.bfloat16 and out.shape == (n, h, w, cout)
+    assert _close(out, ref)
+
+
+def test_gn_silu_conv_zero_pads_after_the_activation(cuda):
+    """A channel with gamma = 0 activates to silu(beta) inside the image
+    and to 0 in the padding ring."""
+    x, scale, shift, weight, bias = _conv_args(2, 16, 16, 64, 64, 7, cuda)
+    scale[:, :8] = 0.0
+    shift[:, :8] = 2.0
+    out = tgc.gn_silu_conv_kernel(x, scale, shift, weight, bias)
+    assert _close(out, tgc.gn_silu_conv_plain(x, scale, shift, weight, bias))
+
+
+def test_unrouted_kernels_refuse_what_they_do_not_take(cuda):
+    q = torch.zeros(1, 64, 320, device=cuda)                 # fp32
+    with pytest.raises(TypeError):
+        tsa.spatial_self_attention(q, q, q, 8)
+    qb = q.bfloat16()
+    with pytest.raises(ValueError):                          # head dim 160
+        tsa.spatial_self_attention(qb, qb, qb, 2)
+    with pytest.raises(ValueError):                          # head dim 20
+        tsa.spatial_self_attention(qb, qb, qb, 16)
+    with pytest.raises(ValueError):                          # cross
+        tsa.spatial_self_attention(qb, qb[:, :32], qb[:, :32], 8)
+    x, scale, shift, weight, bias = _conv_args(1, 8, 8, 64, 64, 8, cuda)
+    with pytest.raises(TypeError):                           # fp32 x
+        tgc.gn_silu_conv_kernel(x.float(), scale, shift, weight, bias)
+    with pytest.raises(TypeError):                           # bf16 scale
+        tgc.gn_silu_conv_kernel(x, scale.bfloat16(), shift, weight, bias)
+    with pytest.raises(ValueError):                          # Cin 40
+        tgc.gn_silu_conv_kernel(x[..., :40], scale[:, :40], shift[:, :40],
+                                weight[:, :40], bias)
+    with pytest.raises(ValueError):                          # 1x1 weight
+        tgc.gn_silu_conv_kernel(x, scale, shift, weight[:, :, :1, :1], bias)
