@@ -15,12 +15,19 @@ Phases (all by default):
                events, the bound of the same work at the H100's published
                peaks and, where one PyTorch call computes the same function,
                that call's time (scaled_dot_product_attention; timed here
-               only, never on the port's path); one gradient check each of
+               only, never on the port's path), every shape's numbers kept
+               (`shapes`), the attention kernels' log lines with the exp
+               floor too (one exponential a logit at the special-function
+               units' rate); one gradient check each of
                the GEGLU and temporal-attention autograd Functions; the
                hash-grid table-gradient kernel (fp32) against its plain
                version at the atlas levels' table sizes and 240000 rows,
-               with index_add_ as the library call, and the hash encoding's
-               gradients on the card against the CPU; the fused
+               with index_add_ as the library call, two calls (and both
+               forms of its scatter) on the same inputs bitwise equal, NaN
+               and infinite rows leaving their entries as the plain
+               version does, and
+               the hash encoding's gradients on the card against the CPU;
+               the fused
                temporal-transformer kernel in both layouts at U-Net levels 0
                (C = 320, with the FFN) and 1 (C = 640, the attention half),
                timed beside the layer-wise module it replaces, and its
@@ -69,7 +76,12 @@ Phases (all by default):
                window): inversion with attention stores, one swap with a
                synthetic ED-LoRA file, cross and self replacement 0.5 and
                latent blending, in both recompute-self tiers; GPU bf16 latents
-               against the CPU fp32 pipeline, and the merged weights restored;
+               against the CPU fp32 pipeline, the merged weights restored,
+               and, in a third GPU run at blend threshold BLEND_CHECK_TH, the
+               blend seen (BlendCheck: at each blended step, the share of
+               latents equal to the inversion's bit for bit, which is where
+               the blend mask put them back, must exceed the chance share
+               of the other steps and stay below 1);
 - blend:       the fourth slice's path, `validation` on a synthetic 16-frame
                512x512 video: the `man_to_hermione` swap of options/
                train_videoswap/human/1009_final_ss1010_manwalking_T07_Iter50
@@ -109,6 +121,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import functools
 import json
 import math
 import os
@@ -147,6 +160,15 @@ BLEND_SWAP = {'replace': 'man -> <hermione1> <hermione2>',
                             'self_replace_steps': 0.5},
               't2i_guidance_scale': 0.4}
 BLEND_LORA_ALPHA = 0.7
+# blend_small's exact-match check of the latent blend (BlendCheck) runs the
+# swap once more on the card at this blend threshold. With random weights the
+# cross-attention maps are nearly flat: at the swap's own 0.3, and up to
+# 0.95, the mask is 1 everywhere and the blend changes only rounding, so no
+# check can see it skipped. At 0.99 the mask is 0 on about half of the
+# latents (on the H100: exact-match shares 0.37-0.48 at the two blended
+# steps against <= 6e-4 by chance at the others, and 0 with the blend
+# skipped, scripts/fault_control.py)
+BLEND_CHECK_TH = 0.99
 
 # kernel -> (module, launch counter, source, TPU kernel it replaces)
 KERNELS = {
@@ -216,10 +238,12 @@ TOL = {'geglu_ffn': 3e-2, 'temporal_attention': 1e-2,
        'flash_attention_bwd_dkv': 1e-2, 'fused_temporal': 1.5e-2,
        'fused_temporal_bfhw': 1.5e-2, 'spatial_self_attention': 1e-2,
        'gn_silu_conv': 1e-2}
-# the hash-grid scatter is fp32 on both sides: its atomics only reorder each
-# entry's fp32 sum (~830 rows an entry at level 0), a few 1e-7 of the
-# largest |plain| entry; the limit is relative to that entry. The same for
-# the hash encoding's d_x and d_table on the card against the CPU
+# the hash-grid scatter sums in 64-bit fixed point (exact to ~1e-8 of
+# max|val|), its plain version in fp32 in another order (~830 rows an entry
+# at level 0): they differ by a few 1e-7 of the largest |plain| entry; the
+# limit is relative to that entry. The same for the hash encoding's d_x and
+# d_table on the card against the CPU. Two calls on the same inputs must
+# give the same bits
 HASH_TOL = 1e-5
 # the autograd Functions' gradients on the card (kernel forward, plain
 # backward in bf16) against autograd through the fp32 plain version,
@@ -275,6 +299,10 @@ TRAIN_MOVED_MIN = 0.99
 # FLOP/s outside the tensor cores and HBM3 bytes/s (at the full 700 W power
 # limit)
 PEAK_FLOPS, PEAK_FP32_FLOPS, PEAK_BYTES = 989e12, 67e12, 3.35e12
+# exp2 a clock on each streaming multiprocessor: the special-function units'
+# rate on sm_90 (CUDA C++ Programming Guide, arithmetic instruction
+# throughput); an attention forward takes one exponential a logit
+EXP_PER_CLOCK_SM = 16
 
 # options/train_atlas/atlas_swan.yml, its `models` and `train` blocks (the
 # card's machine has no YAML reader) and its clip size (`datasets`: res_x,
@@ -329,7 +357,7 @@ ATLAS_BG_SHIFT, ATLAS_DISK_SHIFT = (1.5, 0.5), (3.0, -1.25)
 # term (relative), each net's flattened gradient and the hash table's
 # (relative L2), and each net's change under Adam's first step (relative
 # L2). cuBLAS and the CPU's BLAS sum fp32 products in other orders, the
-# hash scatter's atomics in run-dependent ones; the rigidity terms divide
+# hash scatter in fixed point; the rigidity terms divide
 # by the determinant of a random-init Jacobian taken as differences of
 # neighbouring evaluations, which amplifies that rounding in the mappings'
 # gradients (to ~1e-4 on the CPU between the JAX package and the port).
@@ -420,24 +448,48 @@ def bound_ms(flops: float, nbytes: float,
             'operations' if t_ops >= t_bytes else 'bytes')
 
 
-def _record(report, name, shape_desc, err, ms, plain_ms, work, library):
-    """Print the shape's bound and library time; keep the largest error
-    over shapes, and the times, bound and library time of the first
-    (level-0, largest) shape."""
+def exp_floor_ms(exps: float) -> float:
+    """The least time the card's special-function units take for `exps`
+    exponentials at the SMs' maximum clock (nvidia-smi clocks.max.sm)."""
+    import torch
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return exps / (sms * EXP_PER_CLOCK_SM * sm_clock_hz()) * 1e3
+
+
+@functools.lru_cache(maxsize=None)
+def sm_clock_hz() -> float:
+    out = subprocess.run(['nvidia-smi', '--query-gpu=clocks.max.sm',
+                          '--format=csv,noheader,nounits'],
+                         capture_output=True, text=True, timeout=60,
+                         check=True)
+    return float(out.stdout.split()[0]) * 1e6
+
+
+def _record(report, name, shape_desc, err, ms, plain_ms, work, library,
+            exps=None, **extra):
+    """Print the shape's bound (and, for attention, `exps` exponentials'
+    floor, on this line only) and library time; keep the largest error over
+    shapes, the times, bound and library time of the first (level-0,
+    largest) shape, and every shape's in `shapes`."""
     b_ms, b_by = bound_ms(*work)
     lib_ms = library() if library else None
-    log(f'# kernel {name} {shape_desc}: bound {b_ms:.4f} ms ({b_by}), '
-        'library call ' + (f'{lib_ms:.4f} ms' if library else 'none'))
+    log(f'# kernel {name} {shape_desc}: bound {b_ms:.4f} ms ({b_by})'
+        + ('' if exps is None else
+           f', exp floor {exp_floor_ms(exps):.4f} ms')
+        + ', library call ' + (f'{lib_ms:.4f} ms' if library else 'none'))
     entry = report['kernels'].setdefault(name, {'max_abs_err': 0.0,
-                                                'ms': None})
+                                                'ms': None, 'shapes': []})
     entry['max_abs_err'] = max(entry['max_abs_err'], err)
+    row = dict(shape=shape_desc, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by, library_ms=lib_ms, **extra)
+    entry['shapes'].append(row)
     if entry['ms'] is None:
-        entry.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                     library_ms=lib_ms, shape=shape_desc)
+        entry.update(row)
 
 
 def _compare(name, shape_desc, kernel, plain_bf16, plain_fp32, report,
-             work, library=None, iters=10, relative=False):
+             work, library=None, iters=10, relative=False, exps=None,
+             **extra):
     """Kernel against its plain version; with `relative` the limit holds
     the error over the largest |plain| entry."""
     import torch
@@ -453,7 +505,8 @@ def _compare(name, shape_desc, kernel, plain_bf16, plain_fp32, report,
         + (f', /max|plain| {crit:.3e}' if relative else '')
         + f' (tol {TOL[name]:g}) kernel {ms:.3f} ms plain(bf16) '
         f'{plain_ms:.3f} ms {"ok" if ok else "FAIL"}')
-    _record(report, name, shape_desc, err, ms, plain_ms, work, library)
+    _record(report, name, shape_desc, err, ms, plain_ms, work, library, exps,
+            **extra)
     if relative:
         entry = report['kernels'][name]
         entry['max_err_over_max_plain'] = max(
@@ -616,7 +669,7 @@ def phase_kernels(report):
                       2 * (2 * b * s * h * d + 2 * b * sk * h * d)
                       + 4 * b * h * s),
                      lambda: cuda_time_ms(lambda: _sdpa(q, k, v), 5),
-                     iters=5)
+                     iters=5, exps=b * h * s * sk)
             # the logsumexp the backward needs
             _, lse = fa.flash_attention_fwd(q[:1], k[:1], v[:1])
             _, lse_ref = fa.flash_attention_plain(*f32((q[:1], k[:1],
@@ -815,15 +868,24 @@ def _hash_kernels(report, gen):
         modes = {m: cuda_time_ms(lambda: hg._launch(
             idx, val, torch.zeros((entries, 2), device='cuda'), m), 20,
             ahead=True)
-            for m in ('global', 'shared') if entries * 8 <= 48 * 1024}
-        ok = rel <= HASH_TOL and bool(torch.isfinite(out).all())
+            for m in ('global', 'shared') if entries * 16 <= 48 * 1024}
+        # the same inputs again, through each form of the scatter: the
+        # fixed-point sums give the same bits whatever order the atomics
+        # commit in
+        again = [hg.hash_table_grad(idx, val, entries)] + [
+            hg._launch(idx, val, torch.zeros((entries, 2), device='cuda'), m)
+            for m in modes]
+        same = all(torch.equal(out.view(torch.int32), a.view(torch.int32))
+                   for a in again)
+        ok = rel <= HASH_TOL and bool(torch.isfinite(out).all()) and same
         log(f'# kernel hash_table_grad {desc}: max_abs_err {err:.3e}, '
             f'/max|plain| {rel:.3e} (tol {HASH_TOL:.0e}) kernel {ms:.4f} ms '
             f'(device, queued ahead; table zeroing included), '
             f'{paced_ms:.4f} ms a call launched one after another; plain '
             f'(mask, which syncs, + index_add_) {plain_ms:.4f} ms'
             + ''.join(f', {m} form {t:.4f} ms' for m, t in modes.items())
-            + f' {"ok" if ok else "FAIL"}')
+            + f'; {1 + len(again)} calls bitwise equal {same} '
+            f'{"ok" if ok else "FAIL"}')
         _record(report, 'hash_table_grad', desc, err, ms, plain_ms,
                 _hash_work(rows, entries), lambda: cuda_time_ms(
                     lambda: torch.zeros((entries, 2), device='cuda')
@@ -831,9 +893,11 @@ def _hash_kernels(report, gen):
         entry = report['kernels']['hash_table_grad']
         entry['max_err_over_max_plain'] = max(
             entry.get('max_err_over_max_plain', 0.0), rel)
+        entry['bitwise_repeatable'] = same
         if not ok:
             raise PhaseError(f'hash_table_grad {desc}: error {rel:.3e} of '
-                             'the largest |plain| entry')
+                             f'the largest |plain| entry, calls bitwise '
+                             f'equal {same}')
 
     # one main step's 16 calls, as HashEncode's backward makes them
     res = _level_resolutions(16, 16, 1.38)
@@ -860,6 +924,33 @@ def _hash_kernels(report, gen):
         f'bound {b_ms:.4f} ms (bytes)')
     report['kernels']['hash_table_grad'].update(step_ms=step_ms,
                                                 step_bound_ms=b_ms)
+
+    # a diverging step: rows that are NaN or infinite leave their entries
+    # NaN or infinite as the plain version leaves them, in both forms, and
+    # take no part in the scale of the others
+    idx, val = _hash_rows(gen, rows, 289)
+    idx[:6] = torch.tensor([5, 5, 6, 7, 7, 8], dtype=torch.int32,
+                           device='cuda')
+    inf = float('inf')
+    val[:6, 0] = torch.tensor([inf, -inf, float('nan'), inf, inf, -inf],
+                              device='cuda')
+    plain = hg.hash_table_grad_plain(idx, val, 289)
+    finite = torch.isfinite(plain)
+    outs = [hg._launch(idx, val, torch.zeros((289, 2), device='cuda'), m)
+            for m in ('global', 'shared')]
+    same = int(finite.sum()) == plain.numel() - 4 and all(
+        torch.equal(f(o), f(plain)) for o in outs
+        for f in (torch.isnan, torch.isposinf, torch.isneginf))
+    rel = max(float((o - plain)[finite].abs().max()) for o in outs) / float(
+        plain[finite].abs().max())
+    ok = same and rel <= HASH_TOL
+    log(f'# kernel hash_table_grad T=289 R={rows} with NaN and infinite '
+        f'rows: NaN/inf entries as plain {same}, other entries '
+        f'max_abs_err/max|plain| {rel:.3e} (tol {HASH_TOL:.0e}) '
+        f'{"ok" if ok else "FAIL"}')
+    if not ok:
+        raise PhaseError(f'hash_table_grad with non-finite rows: entries as '
+                         f'plain {same}, error {rel:.3e}')
 
     # the hash encoding's gradients, card against CPU, at the full grid
     x = torch.rand((10000, 2), generator=gen, device='cuda') * 1.4 - 0.2
@@ -1046,11 +1137,9 @@ def phase_unrouted(report, state):
                      (4 * b * heads * s * s * d, 2 * 4 * b * s * c),
                      lambda: cuda_time_ms(
                          lambda: _sdpa(view(q), view(k), view(v)), 5),
-                     iters=5)
+                     iters=5, exps=b * heads * s * s, flash_ms=flash_ms)
         log(f'# kernel spatial_self_attention {desc}: the port\'s flash '
             f'forward kernel (its routed counterpart) {flash_ms:.3f} ms')
-        report['kernels']['spatial_self_attention'].setdefault(
-            'flash_ms', flash_ms)
     for (side, c), (x, gamma, beta, weight, bias) in zip(UNROUTED_CONV,
                                                           conv_args):
         n = UNROUTED_BATCH
@@ -1527,14 +1616,65 @@ def blend_config(lora_path, recompute):
                 BLEND_SWAP, lora_path=f'{lora_path}---{BLEND_LORA_ALPHA}')}}
 
 
-def blend_small_run(pipe, lora, recompute):
+def blend_open_steps(steps: int) -> list[int]:
+    """The edit steps at which the latent blend runs: its gate in
+    videoswap_torch/p2p/edit.py, 0.2 N < step + 1 < 0.8 N (int parts)."""
+    return [i for i in range(steps)
+            if int(0.2 * steps) < i + 1 < int(0.8 * steps)]
+
+
+class BlendCheck:
+    """A `validation(callback=...)` that sees the latent blend. The blend
+    returns x_src + m (x_tgt - x_src) with x_src the inversion's latents
+    (edit step i takes inversion step N-1-i's, cast to the latents' dtype):
+    where the mask m is 0 the edited latents equal them bit for bit. So at
+    each step where the blend runs, `shares` holds the share of the
+    latents' entries equal to those inversion latents; at the other edit
+    steps `chance` holds the same share, the rate at which edited latents
+    meet the inversion's by chance. `ok()`: every blended step's share
+    exceeds every chance share (the blend put latents back) and is below 1
+    (the mask is not 0 everywhere)."""
+
+    def __init__(self, steps: int):
+        self.steps, self.open = steps, set(blend_open_steps(steps))
+        self.inv, self.shares, self.chance = {}, {}, {}
+
+    def __call__(self, stage, i, t, latents):
+        if stage == 'invert':
+            self.inv[i] = latents.detach().clone()
+            return
+        ref = self.inv[self.steps - 1 - i].to(latents.dtype)
+        share = float((latents == ref).float().mean())
+        (self.shares if i in self.open else self.chance)[f'{stage} {i}'] = \
+            share
+
+    def ok(self) -> bool:
+        floor = max(self.chance.values(), default=0.0)
+        return bool(self.shares) and all(
+            floor < v < 1.0 for v in self.shares.values())
+
+    def summary(self) -> str:
+        return (f'exact-match shares at the blended steps '
+                f'{json.dumps(self.shares)}, at the others (chance) '
+                f'{json.dumps(self.chance)}')
+
+
+def blend_small_run(pipe, lora, recompute, blend_th=None):
     """blend_small's swap: `validation` of a synthetic 2-frame 256x256
-    clip, BLEND_STEPS steps, with the ED-LoRA file `lora`; its latents."""
+    clip, BLEND_STEPS steps, with the ED-LoRA file `lora` (and `blend_th`
+    for the blend threshold, if given); its latents and the BlendCheck of
+    the run."""
     frames, size = 2, 256
-    return pipe.validation(blend_video(frames, size, SEED + 6),
-                           conditions(frames, size), BLEND_PROMPT,
-                           blend_config(lora, recompute),
-                           output_type='latent')['man_to_hermione']
+    config = blend_config(lora, recompute)
+    if blend_th is not None:
+        swap = config['editing_prompts']['man_to_hermione']
+        swap['blend_cfg'] = dict(swap['blend_cfg'], blend_th=blend_th)
+    check = BlendCheck(BLEND_STEPS)
+    out = pipe.validation(blend_video(frames, size, SEED + 6),
+                          conditions(frames, size), BLEND_PROMPT, config,
+                          output_type='latent',
+                          callback=check)['man_to_hermione']
+    return out, check
 
 
 def phase_blend_small(report, state):
@@ -1551,11 +1691,11 @@ def phase_blend_small(report, state):
         edlora_file(pipe, lora)
         for tier in (False, True):
             t0 = time.perf_counter()
-            out = blend_small_run(pipe, lora, tier)
+            out, _ = blend_small_run(pipe, lora, tier)
             torch.cuda.synchronize()
             t_gpu = time.perf_counter() - t0
             t0 = time.perf_counter()
-            ref = blend_small_run(cpu, lora, tier)
+            ref, _ = blend_small_run(cpu, lora, tier)
             t_cpu = time.perf_counter() - t0
             err = rel_err(out, ref)
             errs[tier] = err
@@ -1567,9 +1707,16 @@ def phase_blend_small(report, state):
             if not ok:
                 raise PhaseError(f'blend_small (recompute_self {tier}) GPU '
                                  f'vs CPU: rel err {err:.3e}')
+        _, check = blend_small_run(pipe, lora, True, BLEND_CHECK_TH)
+        log(f'# blend_small recompute_self True, blend_th {BLEND_CHECK_TH}, '
+            f'GPU: {check.summary()} {"ok" if check.ok() else "FAIL"}')
+        if not check.ok():
+            raise PhaseError(f'blend_small: the latent blend is not seen: '
+                             f'{check.summary()}')
     restored = all(torch.equal(a, b) for a, b in zip(before, probe))
     report['blend_small_rel_err'] = {('recompute' if k else 'stored'): v
                                      for k, v in errs.items()}
+    report['blend_small_exact_shares'] = check.shares
     if not restored:
         raise PhaseError('blend_small: the ED-LoRA merge was not undone')
 
@@ -1985,7 +2132,8 @@ def main() -> None:
                 'library_ms', 'shape')},
             **{key: k[key] for key in ('max_err_over_max_plain', 'step_ms',
                                        'step_bound_ms', 'library_is',
-                                       'flash_ms', 'chain_ms', 'wrapper_ms')
+                                       'flash_ms', 'chain_ms', 'wrapper_ms',
+                                       'bitwise_repeatable', 'shapes')
                if key in k}})
     log(json.dumps({'kernels': kernels}))
     log(power)

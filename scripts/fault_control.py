@@ -43,7 +43,7 @@ check of chip_smoke.py's kernels phase. The faults:
                       source prompt's maps);
 - blend_latents_skipped: the blended swap's latent blending is skipped (the
                       edited latents kept where the mask would put back the
-                      inversion's);
+                      inversion's): blend_small's exact-match check fails;
 - spatial_last_key_tile: the spatial self-attention kernel skips its last
                       64-key tile wherever S > 64;
 - conv_last_tap:      the fused GroupNorm-SiLU-conv kernel skips its last
@@ -52,13 +52,14 @@ check of chip_smoke.py's kernels phase. The faults:
 The last two are faults of the unrouted kernels, which no model path runs:
 the unrouted limits catch them, beside the kernel limit.
 
-The last two are faults of the blended path with no kernel: blend_small
-alone can catch them. The skipped blend is reported but not required: with
-random weights the 5-step swap's edited latents stay next to the
-inversion's at the two blend steps, so skipping the blend moves
-blend_small's error by about 1e-4 of itself (a blind spot of the card
-check; the CPU tests hold the blend mask and `latent_blend_step` to the JAX
-package's on inputs where the mask matters).
+The two p2p faults are faults of the blended path with no kernel:
+blend_small alone can catch them, by its error against the CPU or by its
+exact-match check of the latent blend (chip_smoke.BlendCheck, on a swap
+run at blend threshold BLEND_CHECK_TH: where the blend mask is 0 the
+blended latents equal the inversion's bit for bit). With random weights
+the mask at the swap's own threshold is 1 everywhere, so skipping the
+blend moves blend_small's error by only about 1e-4 of itself; the
+exact-match check sees it.
 
 The faulted wrappers call the real kernels on the GPU; CPU tensors go to
 the plain versions untouched, so the CPU reference stays sound. Prints one
@@ -69,9 +70,9 @@ every kernel fault fails the kernels-phase limit, the adapter fault fails
 train_small's update limits (the AdamW step's change of the weights against
 the CPU's, and the share of weights it moves), the hash-corner fault
 fails atlas_small's hash-table gradient limit (the atlas's forward and its
-other gradients are untouched), the cross-edit fault fails
-blend_small's limit, and the unrouted kernels' faults fail the unrouted
-limits.
+other gradients are untouched), both p2p faults fail blend_small's limit
+or its exact-match check, and the unrouted kernels' faults fail the
+unrouted limits.
 """
 
 from __future__ import annotations
@@ -285,7 +286,6 @@ KERNEL_ONLY_FAULTS = ('hash_last_block', 'spatial_last_key_tile',
 UNROUTED_FAULTS = ('spatial_last_key_tile', 'conv_last_tap')
 TRAINER_FAULTS = ('adapter_bf16_weights',)
 BLEND_FAULTS = ('edit_cross_skipped', 'blend_latents_skipped')
-BLIND_FAULTS = ('blend_latents_skipped',)     # reported, not required
 
 
 def kernel_error(fault: str) -> float:
@@ -384,12 +384,15 @@ def main() -> None:
     lora_dir = tempfile.TemporaryDirectory()
     lora = str(Path(lora_dir.name) / 'edlora_hermione.pth')
     cs.edlora_file(pipe, lora)
-    ref_blend = cs.blend_small_run(cpu, lora, True)
+    ref_blend, _ = cs.blend_small_run(cpu, lora, True)
     unrouted_inputs = cs.unrouted_inputs(pipe.unet)
     rows = {}
     for name, plant in FAULTS.items():
         with plant(trainer):
             loss, grad, update = cs.small_train_step(trainer, batch, draws)
+            blend, _ = cs.blend_small_run(pipe, lora, True)
+            _, check = cs.blend_small_run(pipe, lora, True,
+                                          cs.BLEND_CHECK_TH)
             row = {'unet_rel_err': cs.rel_err(cs.unet_forward(pipe.unet),
                                               ref_unet),
                    'small_rel_err': cs.rel_err(cs.small_sample(pipe),
@@ -398,8 +401,10 @@ def main() -> None:
                    'train_grad_rel_err': cs.rel_err(grad, ref_grad),
                    'train_update_rel_err': cs.rel_err(update, ref_update),
                    'train_moved': cs.moved_share(update),
-                   'blend_small_rel_err': cs.rel_err(
-                       cs.blend_small_run(pipe, lora, True), ref_blend)}
+                   'blend_small_rel_err': cs.rel_err(blend, ref_blend),
+                   'blend_exact_shares': check.shares,
+                   'blend_chance_shares': check.chance,
+                   'blend_exact_fails': not check.ok()}
             atlas = cs.atlas_small_errors(
                 cs.atlas_small_step(atlas_gpu, atlas_draws), ref_atlas)
             row.update({f'atlas_{k}_rel_err': v for k, v in atlas.items()
@@ -442,7 +447,8 @@ def main() -> None:
             caught[name] = bool(r['train_update_fails'])
             continue
         if name in BLEND_FAULTS:
-            caught[name] = bool(r['blend_small_fails'])
+            caught[name] = bool(r['blend_small_fails']
+                                or r['blend_exact_fails'])
             continue
         tol = next(t for key, t in kernel_tol.items()
                    if name.startswith(key))
@@ -456,11 +462,11 @@ def main() -> None:
             model = r['train_grad_fails']
         else:
             model = (r['unet_fails'] or r['small_fails']
-                     or r['blend_small_fails'] or r['train_loss_fails']
-                     or r['train_grad_fails'])
+                     or r['blend_small_fails'] or r['blend_exact_fails']
+                     or r['train_loss_fails'] or r['train_grad_fails'])
         caught[name] = bool(model and r['kernel_err'] > tol)
     ok = not any(v for k, v in sound.items() if k.endswith('_fails')) \
-        and all(v for k, v in caught.items() if k not in BLIND_FAULTS)
+        and all(caught.values())
     print(json.dumps({'ok': ok, 'unet_tol': cs.MODEL_REL_TOL,
                       'small_tol': cs.SAMPLE_REL_TOL,
                       'blend_small_tol': cs.BLEND_REL_TOL,

@@ -54,6 +54,7 @@ GROUPS = (('fused_temporal', 'fused temporal transformer kernel'),
           ('geglu', 'geglu_ffn kernel'),
           ('hash_grad', 'hash_table_grad kernel'),
           ('flash_fwd', 'flash forward kernel'),
+          ('onlinesoftmax', 'flash forward kernel'),      # attention_sm90.cuh
           ('flash_bwd', 'flash backward kernels'),
           ('temporal_attention', 'temporal attention kernel'),
           ('fprop', 'convolution (cuDNN)'), ('conv', 'convolution (cuDNN)'),

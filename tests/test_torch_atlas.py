@@ -49,7 +49,8 @@ from videoswap_torch.atlas.propagate import (bind_nets,
 from videoswap_torch.atlas.trainer import AtlasTrainer
 from videoswap_torch.builders import build_atlas_nets
 from videoswap_torch.models.converters import jax_params_to_state_dict
-from videoswap_torch.ops.hash_table_grad import hash_table_grad_plain
+from videoswap_torch.ops.hash_table_grad import (hash_table_grad_fixed,
+                                                 hash_table_grad_plain)
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -147,6 +148,89 @@ def test_hash_table_grad_plain_drops_rows_and_takes_any_row_count():
                           bf16x2=False, interpret=True)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-6,
                                atol=1e-6)
+
+
+@pytest.mark.parametrize('num_entries', [289, 2048, 82944])
+def test_hash_table_grad_fixed_point_matches_jax_in_any_row_order(
+        num_entries):
+    """The CUDA kernel's fixed-point arithmetic, stated in PyTorch: within
+    1e-5 of the largest entry of the JAX package's XLA scatter (the card
+    check's limit), the same bits for the rows in any order, and `out=`
+    accumulates."""
+    rs = np.random.RandomState(num_entries + 7)
+    r = 4096
+    idx = rs.randint(0, num_entries, size=r).astype(np.int32)
+    idx[rs.rand(r) < 0.05] = -1
+    idx[:3] = num_entries                          # past the end: dropped
+    val = (rs.randn(r, 2) * 1e-3).astype(np.float32)
+    keep = (idx >= 0) & (idx < num_entries)
+    ref = np.asarray(hash_table_grad_xla(jnp.asarray(idx[keep]),
+                                         jnp.asarray(val[keep].T),
+                                         num_entries))
+    ti, tv = torch.from_numpy(idx), torch.from_numpy(val)
+    out = hash_table_grad_fixed(ti, tv, num_entries)
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0,
+                               atol=1e-5 * np.abs(ref).max())
+    perm = torch.from_numpy(rs.permutation(r))
+    again = hash_table_grad_fixed(ti[perm], tv[perm], num_entries)
+    assert torch.equal(out.view(torch.int32), again.view(torch.int32))
+    acc = torch.ones((num_entries, 2))
+    hash_table_grad_fixed(ti, tv, num_entries, out=acc)
+    np.testing.assert_allclose((acc - 1).numpy(), ref, rtol=0, atol=2e-7)
+
+
+def _same_non_finite(a, b):
+    """The same entries NaN, +inf and -inf in a and b."""
+    return all(torch.equal(f(a), f(b)) for f in (
+        torch.isnan, torch.isposinf, torch.isneginf))
+
+
+@pytest.mark.parametrize('num_entries', [289, 82944])
+def test_hash_table_grad_fixed_point_keeps_what_is_not_finite(num_entries):
+    """Rows that are NaN, +inf or -inf (a diverging step) leave their
+    entries NaN or infinite as the plain version and the JAX package's XLA
+    scatter leave them, in any row order, and take no part in the scale:
+    the other entries stay within 1e-5 of the largest finite entry."""
+    rs = np.random.RandomState(num_entries + 11)
+    r = 4096
+    idx = rs.randint(0, num_entries, size=r).astype(np.int32)
+    idx[rs.rand(r) < 0.05] = -1
+    val = (rs.randn(r, 2) * 1e-3).astype(np.float32)
+    idx[10:16] = [5, 5, 6, 7, 7, 8]
+    val[10:16, 0] = [np.inf, -np.inf, np.nan, np.inf, np.inf, -np.inf]
+    val[16, 1] = np.nan                            # a dropped row's NaN
+    idx[16] = -1
+    keep = idx >= 0
+    ref = np.array(hash_table_grad_xla(jnp.asarray(idx[keep]),
+                                       jnp.asarray(val[keep].T),
+                                       num_entries))
+    ti, tv = torch.from_numpy(idx), torch.from_numpy(val)
+    out = hash_table_grad_fixed(ti, tv, num_entries)
+    plain = hash_table_grad_plain(ti, tv, num_entries)
+    assert _same_non_finite(out, plain)
+    assert _same_non_finite(out, torch.from_numpy(ref))
+    assert torch.isnan(out[5, 0]) and torch.isnan(out[6, 0])
+    assert torch.isposinf(out[7, 0]) and torch.isneginf(out[8, 0])
+    finite = torch.isfinite(plain)
+    assert int(finite.sum()) == plain.numel() - 4
+    tol = 1e-5 * float(plain[finite].abs().max())
+    assert float((out - plain)[finite].abs().max()) <= tol
+    perm = torch.from_numpy(rs.permutation(r))
+    again = hash_table_grad_fixed(ti[perm], tv[perm], num_entries)
+    assert _same_non_finite(out, again)
+    assert torch.equal(out[finite].view(torch.int32),
+                       again[finite].view(torch.int32))
+
+
+def test_hash_table_grad_fixed_point_does_not_overflow():
+    """Every row into one entry at the largest value: the integer sum stays
+    below 2^63 and comes back to R * max|val|."""
+    r = 240000
+    val = torch.full((r, 2), 3.0e4)
+    val[::2, 1] = -3.0e4
+    out = hash_table_grad_fixed(torch.zeros(r, dtype=torch.int32), val, 4)
+    assert float(out[0, 0]) == np.float32(r * 3.0e4)
+    assert float(out[0, 1]) == 0.0 and float(out[1:].abs().sum()) == 0.0
 
 
 def test_hash_encode_matches_jax_custom_vjp():

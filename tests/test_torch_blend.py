@@ -26,7 +26,10 @@ edge by a level; at most 1% of the values may differ, none by more than 2
 levels.
 """
 
+import importlib.util
 import math
+from pathlib import Path
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -70,6 +73,16 @@ ADAPTER_KW = dict(embedding_channels=12, channels=(16, 32, 32, 32),
 VAE_KW = dict(block_out_channels=(4, 4, 8, 8), norm_groups=4)
 F, SIZE, STEPS = 2, 256, 5
 PROMPT = 'a cat walking on the floor'
+
+
+def _chip_smoke():
+    """chip_smoke.py, for its BlendCheck (the card run's check that the
+    latent blend ran)."""
+    path = Path(__file__).resolve().parents[1] / 'chip_smoke.py'
+    spec = importlib.util.spec_from_file_location('chip_smoke', path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 @pytest.fixture(autouse=True, scope='module')
@@ -278,3 +291,33 @@ def test_recompute_tier_equals_stored_tier(port_runs):
     for key, video_np in out[False].items():
         np.testing.assert_allclose(out[True][key], video_np, rtol=0,
                                    atol=1e-5)
+
+
+def test_blend_check_sees_the_latent_blend(pipes):
+    """chip_smoke.BlendCheck on the tiny blended swap: with the blend, the
+    latents at the blended steps equal the inversion's where the mask is 0
+    (a share above the chance one, below 1); with `latent_blend_step`
+    returning the latents unblended, no entry does. At the default blend
+    threshold (0.3) this random model's mask is 1 everywhere (the blend
+    keeps the edit); at 0.9 it puts about 60% of the latents back."""
+    from videoswap_torch.pipelines import videoswap_pipeline as vp
+    cs = _chip_smoke()
+    _, tpipe, lora = pipes
+    video, conditions = _inputs()
+    config = _editing_config(lora, True)
+    swap = config['editing_prompts']['cat_to_concept']
+    swap['blend_cfg'] = dict(swap['blend_cfg'], blend_th=0.9)
+    blended, skipped = cs.BlendCheck(STEPS), cs.BlendCheck(STEPS)
+    tpipe.validation(video, conditions, PROMPT, config, output_type='latent',
+                     callback=blended)
+    with mock.patch.object(vp, 'latent_blend_step',
+                           lambda cfg, state, lat, *a: (lat, {})):
+        tpipe.validation(video, conditions, PROMPT, config,
+                         output_type='latent', callback=skipped)
+    assert sorted(blended.shares) == [
+        f'cat_to_concept {i}' for i in cs.blend_open_steps(STEPS)]
+    assert blended.ok(), blended.summary()
+    assert min(blended.shares.values()) > 0.1
+    assert sorted(skipped.shares) == sorted(blended.shares)
+    assert max(skipped.shares.values()) == 0.0, skipped.summary()
+    assert not skipped.ok()

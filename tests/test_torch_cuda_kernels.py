@@ -15,8 +15,9 @@ their error is taken relative to the largest |plain| entry (1e-2: bf16
 rounding of P, dS and the output, summed over keys or queries). The fused
 temporal transformer's output (x + the module, O(1) to O(3)) passes through
 about ten bf16 roundings of its intermediates and is held to 5e-2. The
-hash-grid scatter is fp32 on both sides: its atomics only reorder each
-entry's sum, so it is held to 1e-5 of the largest |plain| entry. The
+hash-grid scatter sums in 64-bit fixed point (two calls give the same
+bits, those of `hash_table_grad_fixed`), its plain version in fp32 in
+another order: it is held to 1e-5 of the largest |plain| entry. The
 spatial-attention kernel (outputs O(1), one bf16 rounding of the
 exponentials and of the output) is held to 1e-2; the fused GroupNorm-SiLU
 convolution, whose outputs reach ~5 and whose bf16 activations are summed
@@ -86,6 +87,49 @@ def test_flash_kernel_matches_plain(cuda, sq, sk, d):
     before = tfa.launches
     out, lse = tfa.flash_attention_fwd(q, k, v)
     assert tfa.launches == before + 1
+    ref, lse_ref = tfa.flash_attention_plain(q.float(), k.float(), v.float())
+    assert (out.float() - ref).abs().max().item() < 1e-2
+    assert (lse - lse_ref).abs().max().item() < 1e-2
+
+
+# every head dim the wrapper takes; Sq not a multiple of the 128-row block,
+# Sk = 129 leaves a last key tile of one key (tiles of 128 keys, or of 64
+# at d > 128)
+@pytest.mark.parametrize('d', [d for d in range(8, 161, 8)
+                               if (d + 15) // 16 * 16 in tfa.PADDED_HEAD_DIMS])
+def test_flash_kernel_takes_every_head_dim(cuda, d):
+    for sq, sk in ((200, 129), (1, 1)):
+        q = _randn((2, sq, 3, d), d).to(cuda).bfloat16()
+        k, v = (_randn((2, sk, 3, d), d + s).to(cuda).bfloat16()
+                for s in (1, 2))
+        out, lse = tfa.flash_attention_fwd(q, k, v)
+        ref, lse_ref = tfa.flash_attention_plain(q.float(), k.float(),
+                                                 v.float())
+        assert (out.float() - ref).abs().max().item() < 1e-2, (sq, sk)
+        assert (lse - lse_ref).abs().max().item() < 1e-2, (sq, sk)
+
+
+def test_flash_kernel_full_width_level0(cuda):
+    """One (batch, head) pair row of the U-Net's level-0 self-attention:
+    B*H = 8, S = 4096, d = 40, and its cross-attention (Sk = 77)."""
+    q = _randn((1, 4096, 8, 40), 11).to(cuda).bfloat16()
+    for sk in (4096, 77):
+        k, v = (_randn((1, sk, 8, 40), s).to(cuda).bfloat16()
+                for s in (12, 13))
+        out, lse = tfa.flash_attention_fwd(q, k, v)
+        ref, lse_ref = tfa.flash_attention_plain(q.float(), k.float(),
+                                                 v.float())
+        assert (out.float() - ref).abs().max().item() < 1e-2, sk
+        assert (lse - lse_ref).abs().max().item() < 1e-2, sk
+
+
+def test_flash_kernel_reads_a_batch_slice_by_stride(cuda):
+    """Every other batch entry of q, k and v: a batch stride twice the
+    contiguous one, read through the same tensor maps."""
+    q, k, v = (_randn((4, 150, 4, 80), s).to(cuda).bfloat16()[::2]
+               for s in (14, 15, 16))
+    assert not q.is_contiguous()
+    out, lse = tfa.flash_attention_fwd(q, k, v)
     ref, lse_ref = tfa.flash_attention_plain(q.float(), k.float(), v.float())
     assert (out.float() - ref).abs().max().item() < 1e-2
     assert (lse - lse_ref).abs().max().item() < 1e-2
@@ -244,13 +288,65 @@ def test_hash_table_grad_kernel_matches_plain(cuda, rows, entries):
     out = thg.hash_table_grad(idx, val, entries)
     assert thg.launches == before + 1 and out.dtype == torch.float32
     assert _close(out, ref, 1e-5)
-    for mode in ('global', 'shared') if entries * 8 <= 48 * 1024 else ():
+    for mode in ('global', 'shared') if entries * 16 <= 48 * 1024 else ():
         acc = torch.ones((entries, 2), device=cuda)
         thg._launch(idx, val, acc, mode)
         assert _close(acc - 1, ref, 1e-5), mode
     one = _randn((rows, 1), 2).to(cuda)                     # F = 1
     assert _close(thg.hash_table_grad(idx, one, entries),
                   thg.hash_table_grad_plain(idx, one, entries), 1e-5)
+
+
+@pytest.mark.parametrize('rows,entries', [(240000, 289), (240000, 529),
+                                          (240000, 23409), (240000, 524288)])
+def test_hash_table_grad_kernel_is_deterministic(cuda, rows, entries):
+    """Two calls, and both forms of the scatter where the shared one fits,
+    give the same bits at the atlas levels' table sizes, and those of the
+    fixed-point arithmetic stated in PyTorch."""
+    rs = np.random.RandomState(entries + 1)
+    idx = torch.from_numpy(rs.randint(-1, entries, rows).astype(np.int32))
+    val = _randn((rows, 2), 3, 1e-3)
+    idx, val = idx.to(cuda), val.to(cuda)
+    outs = [thg.hash_table_grad(idx, val, entries) for _ in range(2)]
+    outs += [thg._launch(idx, val, torch.zeros((entries, 2), device=cuda), m)
+             for m in ('global', 'shared') if entries * 16 <= 48 * 1024]
+    outs.append(thg.hash_table_grad_fixed(idx, val, entries))
+    bits = [o.view(torch.int32) for o in outs]
+    assert all(torch.equal(bits[0], b) for b in bits[1:])
+    assert _close(outs[0], thg.hash_table_grad_plain(idx, val, entries), 1e-5)
+
+
+@pytest.mark.parametrize('entries', [289, 524288])
+def test_hash_table_grad_kernel_keeps_what_is_not_finite(cuda, entries):
+    """NaN and infinite rows leave their entries NaN or infinite as the
+    plain version leaves them, in both forms of the scatter where the shared
+    one fits, with the other entries bit-equal to `hash_table_grad_fixed`;
+    the next call on finite rows is unharmed (the kept scratch is zero)."""
+    rows = 240000
+    rs = np.random.RandomState(entries + 5)
+    idx = torch.from_numpy(rs.randint(-1, entries, rows).astype(np.int32))
+    val = _randn((rows, 2), 4, 1e-3)
+    idx[10:16] = torch.tensor([5, 5, 6, 7, 7, 8], dtype=torch.int32)
+    val[10:16, 0] = torch.tensor([float('inf'), -float('inf'), float('nan'),
+                                  float('inf'), float('inf'), -float('inf')])
+    idx, val = idx.to(cuda), val.to(cuda)
+    plain = thg.hash_table_grad_plain(idx, val, entries)
+    fixed = thg.hash_table_grad_fixed(idx, val, entries)
+    finite = torch.isfinite(plain)
+    assert int(finite.sum()) == plain.numel() - 4
+    outs = [thg.hash_table_grad(idx, val, entries)]
+    outs += [thg._launch(idx, val, torch.zeros((entries, 2), device=cuda), m)
+             for m in ('global', 'shared') if entries * 16 <= 48 * 1024]
+    for out in outs:
+        for f in (torch.isnan, torch.isposinf, torch.isneginf):
+            assert torch.equal(f(out), f(plain))
+        assert torch.equal(out[finite].view(torch.int32),
+                           fixed[finite].view(torch.int32))
+    good = _randn((rows, 2), 6, 1e-3).to(cuda)
+    assert torch.equal(thg.hash_table_grad(idx, good, entries)
+                       .view(torch.int32),
+                       thg.hash_table_grad_fixed(idx, good, entries)
+                       .view(torch.int32))
 
 
 def test_hash_table_grad_kernel_refuses_what_it_does_not_take(cuda):
@@ -393,10 +489,12 @@ def test_fused_temporal_kernel_refuses_what_it_does_not_take(cuda):
 
 @pytest.mark.parametrize('b,s,heads,d', [(2, 256, 8, 40), (1, 300, 4, 80),
                                          (1, 2304, 2, 64), (3, 77, 1, 128),
-                                         (2, 129, 2, 8), (1, 64, 4, 24)])
+                                         (2, 129, 2, 8), (1, 64, 4, 24),
+                                         (1, 1, 8, 40), (2, 4096, 4, 40)])
 def test_spatial_attention_kernel_matches_plain(cuda, b, s, heads, d):
-    """Every key attended, the tail of a 64-key tile and of a 64-row query
-    block masked, head dims from 8 to 128."""
+    """Every key attended, the tail of a key tile and of a query block
+    masked (a last tile of one key at S = 129, one row at S = 1), head dims
+    from 8 to 128, and the level-0 shape at B*H = 8."""
     q, k, v = (_randn((b, s, heads * d), i).to(cuda).bfloat16()
                for i in range(3))
     before = tsa.launches

@@ -1,0 +1,144 @@
+// Hopper warpgroup matrix products (wgmma, sm_90a), bf16 x bf16 -> fp32.
+//
+// wgmma_ss<N>: D(64 x N) (+)= A(64 x 16) B(16 x N), both operands read from
+//   shared memory through descriptors, both K-major (A row-major, B stored
+//   N rows of K). Used for S = Q.K^T.
+// wgmma_rs<N>: the same with A taken from registers (four 32-bit registers a
+//   thread, the mma.m16n8k16 A-fragment layout for the warp's 16 rows) and
+//   B MN-major (stored K rows of N, the "transposed" flag set). Used for
+//   O += P.V with P converted in registers from the S accumulator.
+//
+// scale_d = 0 overwrites D, 1 accumulates into it. Each accumulator register
+// is its own asm operand, so every width N has its own wrapper, one line
+// below each: N/2 fp32 registers a thread, laid out as the mma.m16n8k16 C
+// fragment of each n8 column block (d[4j..4j+1] row g, d[4j+2..4j+3] row
+// g + 8, columns 8j + 2t, 8j + 2t + 1 of the warp's 16 rows; g = lane / 4,
+// t = lane % 4). The products are asynchronous: issue between wgmma_fence()
+// and wgmma_commit(), and read D (or change rs's A registers) only after
+// wgmma_wait<>() (attention_sm90.cuh).
+//
+// Operands: six come first (rs: the four A registers, the B descriptor and
+// scale_d; ss: the two descriptors, scale_d and three unused words), so that
+// the accumulators are %6 upward at every width and in both forms:
+// VS_ACC<R>(M, M_) lists the operand numbers of R accumulators four at a
+// time, M for the first four and M_ for each next four. Every operand is
+// read-write ("+"), so rs's A operands are P's own registers, which the
+// product reads after it is issued.
+#pragma once
+
+#include <stdint.h>
+
+namespace vs {
+namespace sm90 {
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db,
+                                         int scale_d);
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, uint32_t* a, uint64_t db,
+                                         int scale_d);
+
+// four accumulators: their numbers in the asm text, their operands
+#define VS_S4(a, b, c, e) "%" #a ", %" #b ", %" #c ", %" #e
+#define VS_S4_(a, b, c, e) ", " VS_S4(a, b, c, e)
+#define VS_F4_(a, b, c, e) \
+  , "+f"(d[a - 6]), "+f"(d[b - 6]), "+f"(d[c - 6]), "+f"(d[e - 6])
+
+#define VS_ACC4(M, M_) M(6, 7, 8, 9)
+#define VS_ACC8(M, M_) VS_ACC4(M, M_) M_(10, 11, 12, 13)
+#define VS_ACC12(M, M_) VS_ACC8(M, M_) M_(14, 15, 16, 17)
+#define VS_ACC16(M, M_) VS_ACC12(M, M_) M_(18, 19, 20, 21)
+#define VS_ACC20(M, M_) VS_ACC16(M, M_) M_(22, 23, 24, 25)
+#define VS_ACC24(M, M_) VS_ACC20(M, M_) M_(26, 27, 28, 29)
+#define VS_ACC28(M, M_) VS_ACC24(M, M_) M_(30, 31, 32, 33)
+#define VS_ACC32(M, M_) VS_ACC28(M, M_) M_(34, 35, 36, 37)
+#define VS_ACC36(M, M_) VS_ACC32(M, M_) M_(38, 39, 40, 41)
+#define VS_ACC40(M, M_) VS_ACC36(M, M_) M_(42, 43, 44, 45)
+#define VS_ACC44(M, M_) VS_ACC40(M, M_) M_(46, 47, 48, 49)
+#define VS_ACC48(M, M_) VS_ACC44(M, M_) M_(50, 51, 52, 53)
+#define VS_ACC52(M, M_) VS_ACC48(M, M_) M_(54, 55, 56, 57)
+#define VS_ACC56(M, M_) VS_ACC52(M, M_) M_(58, 59, 60, 61)
+#define VS_ACC60(M, M_) VS_ACC56(M, M_) M_(62, 63, 64, 65)
+#define VS_ACC64(M, M_) VS_ACC60(M, M_) M_(66, 67, 68, 69)
+#define VS_ACC68(M, M_) VS_ACC64(M, M_) M_(70, 71, 72, 73)
+#define VS_ACC72(M, M_) VS_ACC68(M, M_) M_(74, 75, 76, 77)
+#define VS_ACC76(M, M_) VS_ACC72(M, M_) M_(78, 79, 80, 81)
+#define VS_ACC80(M, M_) VS_ACC76(M, M_) M_(82, 83, 84, 85)
+
+#define VS_WGMMA_SS(N, R)                                                     \
+  template <>                                                                 \
+  __device__ __forceinline__ void wgmma_ss<N>(float* d, uint64_t da,          \
+                                              uint64_t db, int scale_d) {     \
+    uint32_t unused0 = 0, unused1 = 0, unused2 = 0;                           \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\n"                 \
+                 "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {" \
+                 VS_ACC##R(VS_S4, VS_S4_) "}, %0, %1, p, 1, 1, 0, 0;\n}\n"   \
+                 : "+l"(da), "+l"(db), "+r"(scale_d), "+r"(unused0),          \
+                   "+r"(unused1),                                             \
+                   "+r"(unused2) VS_ACC##R(VS_F4_, VS_F4_));                  \
+  }
+
+#define VS_WGMMA_RS(N, R)                                                     \
+  template <>                                                                 \
+  __device__ __forceinline__ void wgmma_rs<N>(float* d, uint32_t* a,          \
+                                              uint64_t db, int scale_d) {     \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %5, 0;\n"                 \
+                 "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {" \
+                 VS_ACC##R(VS_S4, VS_S4_) "}, {%0, %1, %2, %3}, %4, p, 1, 1, " \
+                 "1;\n}\n"                                                   \
+                 : "+r"(a[0]), "+r"(a[1]), "+r"(a[2]), "+r"(a[3]), "+l"(db),  \
+                   "+r"(scale_d) VS_ACC##R(VS_F4_, VS_F4_));                  \
+  }
+
+// (N, N / 2)
+VS_WGMMA_SS(64, 32)
+VS_WGMMA_SS(128, 64)
+VS_WGMMA_RS(8, 4)
+VS_WGMMA_RS(16, 8)
+VS_WGMMA_RS(24, 12)
+VS_WGMMA_RS(32, 16)
+VS_WGMMA_RS(40, 20)
+VS_WGMMA_RS(48, 24)
+VS_WGMMA_RS(56, 28)
+VS_WGMMA_RS(64, 32)
+VS_WGMMA_RS(72, 36)
+VS_WGMMA_RS(80, 40)
+VS_WGMMA_RS(88, 44)
+VS_WGMMA_RS(96, 48)
+VS_WGMMA_RS(104, 52)
+VS_WGMMA_RS(112, 56)
+VS_WGMMA_RS(120, 60)
+VS_WGMMA_RS(128, 64)
+VS_WGMMA_RS(136, 68)
+VS_WGMMA_RS(144, 72)
+VS_WGMMA_RS(152, 76)
+VS_WGMMA_RS(160, 80)
+
+#undef VS_WGMMA_RS
+#undef VS_WGMMA_SS
+#undef VS_ACC4
+#undef VS_ACC8
+#undef VS_ACC12
+#undef VS_ACC16
+#undef VS_ACC20
+#undef VS_ACC24
+#undef VS_ACC28
+#undef VS_ACC32
+#undef VS_ACC36
+#undef VS_ACC40
+#undef VS_ACC44
+#undef VS_ACC48
+#undef VS_ACC52
+#undef VS_ACC56
+#undef VS_ACC60
+#undef VS_ACC64
+#undef VS_ACC68
+#undef VS_ACC72
+#undef VS_ACC76
+#undef VS_ACC80
+#undef VS_F4_
+#undef VS_S4_
+#undef VS_S4
+
+}  // namespace sm90
+}  // namespace vs

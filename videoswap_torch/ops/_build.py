@@ -40,7 +40,7 @@ _SIGNATURES = {
                                   _I, _STRIDES, _P],
     'vs_flash_attention_bwd_dkv': [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                    _I, _I, _I, _STRIDES, _P],
-    'vs_hash_table_grad': [_P, _P, _P, _I, _I, _I, _I, _P],
+    'vs_hash_table_grad': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     'vs_fused_temporal': [ctypes.POINTER(_P), _I, _I, _I, _I, _I, _I,
                           ctypes.c_longlong, _I, ctypes.c_float, _P],
     'vs_spatial_attention': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _STRIDES,
