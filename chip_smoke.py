@@ -583,7 +583,7 @@ def _flash_backward(fa, gen, b, h, s, sk, d, report):
             f'(bf16 inputs, dq+dk+dv) {plain_ms:.3f} ms '
             f'{"ok" if ok else "FAIL"}')
         _record(report, name, desc, max(abs_errs), ms, plain_ms, work,
-                lambda: lib_ms)
+                lambda: lib_ms, exps=b * h * s * sk)
         entry = report['kernels'][name]
         entry['max_err_over_max_plain'] = max(
             entry.get('max_err_over_max_plain', 0.0), max(rel_errs))

@@ -229,6 +229,11 @@ def main() -> None:
     cs.log('top kernels:')
     for name, (ms, n) in sorted(names.items(), key=lambda kv: -kv[1][0])[:25]:
         cs.log(f'{ms:9.2f} ms x{n:5d} {name[:120]}')
+    # launches of each flash instantiation (its head dim) in the step
+    cs.log('flash kernels by instantiation:')
+    for name, (ms, n) in sorted(names.items()):
+        if 'flash' in name:
+            cs.log(f'{ms:9.2f} ms x{n:5d} {name[:90]}')
     if mode == '--atlas':
         atlas_constant_copies_ab(step)
 

@@ -95,8 +95,7 @@ def test_flash_kernel_matches_plain(cuda, sq, sk, d):
 # every head dim the wrapper takes; Sq not a multiple of the 128-row block,
 # Sk = 129 leaves a last key tile of one key (tiles of 128 keys, or of 64
 # at d > 128)
-@pytest.mark.parametrize('d', [d for d in range(8, 161, 8)
-                               if (d + 15) // 16 * 16 in tfa.PADDED_HEAD_DIMS])
+@pytest.mark.parametrize('d', tfa.HEAD_DIMS)
 def test_flash_kernel_takes_every_head_dim(cuda, d):
     for sq, sk in ((200, 129), (1, 1)):
         q = _randn((2, sq, 3, d), d).to(cuda).bfloat16()
@@ -174,35 +173,121 @@ def _close(out, ref, tol=1e-2):
     return (out.float() - ref).abs().max().item() <= tol * ref.abs().max().item()
 
 
+def _backward_matches_plain(q, k, v, dout, need_q=True, need_kv=True):
+    """The kernels' gradients against the fp32 plain version on the same
+    bf16 inputs (out and lse from the forward kernel); a gradient that is
+    not needed is None and its kernel does not launch."""
+    out, lse = tfa.flash_attention_fwd(q, k, v)
+    before = (tfa.bwd_dq_launches, tfa.bwd_dkv_launches)
+    grads = tfa.flash_attention_bwd(q, k, v, out, lse, dout, need_q, need_kv)
+    assert (tfa.bwd_dq_launches, tfa.bwd_dkv_launches) == (
+        before[0] + need_q, before[1] + need_kv)
+    ref = tfa.flash_attention_bwd_plain(q.float(), k.float(), v.float(),
+                                        out.float(), lse, dout.float())
+    needed = (need_q, need_kv, need_kv)
+    for g, r, name, need in zip(grads, ref, 'qkv', needed):
+        if not need:
+            assert g is None, f'd{name}'
+            continue
+        assert g.dtype == torch.bfloat16 and g.shape == r.shape
+        assert torch.isfinite(g).all(), f'd{name}'
+        if k.shape[1] == 1 and name in 'qk':
+            # one key: p = 1, out = v, so dP = D and dq = dk = 0 up to the
+            # rounding of the two sums; the relative check has no scale
+            assert g.float().abs().max().item() <= 1e-3, f'd{name}'
+        else:
+            assert _close(g, r), f'd{name}'
+
+
+# Sq and Sk on both sides of the 64-row consumer and the 128-row block,
+# with ragged 64-row streamed tiles, at a d of two consumers (40) and of
+# one consumer in the dK/dV kernel (96)
+RAGGED = (1, 63, 65, 77, 127, 129, 300)
+
+
 @pytest.mark.parametrize('sq,sk,d', [(300, 77, 40), (257, 257, 80),
                                      (64, 64, 160), (1, 5, 8), (130, 77, 128),
-                                     (200, 130, 40)])
+                                     (200, 130, 40)]
+                         + [(sq, sk, d) for d in (40, 96) for sq in RAGGED
+                            for sk in RAGGED])
 def test_flash_backward_kernels_match_plain(cuda, sq, sk, d):
     q = _randn((2, sq, 8, d), 1).to(cuda).bfloat16()
     k, v = (_randn((2, sk, 8, d), s).to(cuda).bfloat16() for s in (2, 3))
     dout = _randn((2, sq, 8, d), 4).to(cuda).bfloat16()
+    _backward_matches_plain(q, k, v, dout)
+
+
+@pytest.mark.parametrize('d', tfa.HEAD_DIMS)
+def test_flash_backward_takes_every_head_dim(cuda, d):
+    for sq, sk in ((200, 129), (1, 1)):
+        q = _randn((2, sq, 3, d), d).to(cuda).bfloat16()
+        k, v = (_randn((2, sk, 3, d), d + s).to(cuda).bfloat16()
+                for s in (1, 2))
+        dout = _randn((2, sq, 3, d), d + 3).to(cuda).bfloat16()
+        _backward_matches_plain(q, k, v, dout)
+
+
+@pytest.mark.parametrize('d', [40, 64, 88])
+def test_flash_backward_reads_heads_by_stride(cuda, d):
+    """The wide map: q/k/v as (B, S, H, D) views of merged projections
+    (a row's heads side by side; d = 40 and 88 leave 8 columns of the next
+    head in the last k-step), with a contiguous dO."""
+    qkv = _randn((2, 100, 3 * 4 * d), 5).to(cuda).bfloat16()
+    q, k, v = (t.view(2, 100, 4, d) for t in qkv.chunk(3, dim=-1))
+    assert not q.is_contiguous()
+    dout = _randn((2, 100, 4, d), 6).to(cuda).bfloat16()
+    _backward_matches_plain(q, k, v, dout)
+
+
+def test_flash_backward_reads_one_head_at_a_time(cuda):
+    """The per-head map: every other batch entry and every other head (the
+    heads no longer side by side), and a dO transposed from (B, H, S, D)."""
+    q, k, v = (_randn((4, 150, 8, 40), s).to(cuda).bfloat16()[::2, :, ::2]
+               for s in (14, 15, 16))
+    dout = _randn((2, 4, 150, 40), 17).to(cuda).bfloat16().transpose(1, 2)
+    assert not dout.is_contiguous() and q.stride(2) != 40
+    _backward_matches_plain(q, k, v, dout)
+
+
+@pytest.mark.parametrize('need_q,need_kv', [(True, False), (False, True)])
+def test_flash_backward_runs_only_the_kernel_needed(cuda, need_q, need_kv):
+    q = _randn((2, 130, 8, 40), 7).to(cuda).bfloat16()
+    k, v = (_randn((2, 77, 8, 40), s).to(cuda).bfloat16() for s in (8, 9))
+    dout = _randn((2, 130, 8, 40), 10).to(cuda).bfloat16()
+    _backward_matches_plain(q, k, v, dout, need_q, need_kv)
+
+
+@pytest.mark.parametrize('sq,sk,d', [(300, 300, 40), (129, 77, 128),
+                                     (1000, 1000, 80)])
+def test_flash_backward_is_bitwise_deterministic(cuda, sq, sk, d):
+    """Each output element is written by one block, with no atomics: two
+    calls on the same inputs give the same bits."""
+    q = _randn((2, sq, 8, d), 11).to(cuda).bfloat16()
+    k, v = (_randn((2, sk, 8, d), s).to(cuda).bfloat16() for s in (12, 13))
+    dout = _randn((2, sq, 8, d), 14).to(cuda).bfloat16()
     out, lse = tfa.flash_attention_fwd(q, k, v)
-    before = (tfa.bwd_dq_launches, tfa.bwd_dkv_launches)
+    first = tfa.flash_attention_bwd(q, k, v, out, lse, dout)
+    second = tfa.flash_attention_bwd(q, k, v, out, lse, dout)
+    for a, b, name in zip(first, second, 'qkv'):
+        assert torch.equal(a, b), f'd{name}'
+
+
+def test_flash_backward_matches_sdpa_at_level1(cuda):
+    """The training step's level-1 self-attention (B = 16 frames, S = 1024,
+    8 heads, d = 80): the kernels' gradients against the backward of
+    `scaled_dot_product_attention` in fp32 on the same bf16 inputs, within
+    1e-2 of the largest |reference| entry."""
+    import torch.nn.functional as F
+    b, s, h, d = 16, 1024, 8, 80
+    q, k, v, dout = (_randn((b, s, h, d), i).to(cuda).bfloat16()
+                     for i in (21, 22, 23, 24))
+    out, lse = tfa.flash_attention_fwd(q, k, v)
     grads = tfa.flash_attention_bwd(q, k, v, out, lse, dout)
-    assert (tfa.bwd_dq_launches, tfa.bwd_dkv_launches) == (before[0] + 1,
-                                                           before[1] + 1)
-    ref = tfa.flash_attention_bwd_plain(q.float(), k.float(), v.float(),
-                                        out.float(), lse, dout.float())
+    xs = [t.float().transpose(1, 2).requires_grad_() for t in (q, k, v)]
+    ref = torch.autograd.grad(F.scaled_dot_product_attention(*xs), xs,
+                              dout.float().transpose(1, 2))
     for g, r, name in zip(grads, ref, 'qkv'):
-        assert g.dtype == torch.bfloat16 and g.shape == r.shape
-        assert _close(g, r), f'd{name}'
-
-
-def test_flash_backward_reads_heads_by_stride(cuda):
-    qkv = _randn((2, 100, 3 * 4 * 40), 5).to(cuda).bfloat16()
-    q, k, v = (t.view(2, 100, 4, 40) for t in qkv.chunk(3, dim=-1))
-    dout = _randn((2, 100, 4, 40), 6).to(cuda).bfloat16()
-    out, lse = tfa.flash_attention_fwd(q, k, v)
-    grads = tfa.flash_attention_bwd(q, k, v, out, lse, dout)
-    ref = tfa.flash_attention_bwd_plain(q.float(), k.float(), v.float(),
-                                        out.float(), lse, dout.float())
-    for g, r in zip(grads, ref):
-        assert _close(g, r)
+        assert _close(g, r.transpose(1, 2)), f'd{name}'
 
 
 def _grads_match_plain(fn, plain, args, dout):

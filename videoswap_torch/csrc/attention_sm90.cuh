@@ -31,8 +31,10 @@
 //   keys (128; 64 at D > 88, where the accumulators would spill) into a
 //   ring of STAGES stages (3; 2 at D > 128, for shared memory), each with a
 //   full and an empty mbarrier for K and for V (V is released later than K);
-// - warpgroups 1 and 2 are consumers of 64 query rows each, at 240
-//   registers. S = Q.K^T is one wgmma chain with both operands in shared
+// - warpgroups 1 and 2 are consumers of 64 query rows each, raised to 240
+//   registers (ptxas still compiles them within the launch's 168 a thread:
+//   it allocates from an SM quarter's registers, three warps to a quarter
+//   here, and does not count on setmaxnreg). S = Q.K^T is one wgmma chain with both operands in shared
 //   memory (N = BK keys, ceil(D/16) k-steps: 3 at D = 40); P is converted
 //   in registers from the S accumulator to bf16 and is the register A
 //   operand of O += P.V, with V the MN-major B operand (N = D);
@@ -216,6 +218,61 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
+// ------------------------------------------------------------- products
+// The two forms of every attention product. Tiles in shared memory are
+// rows of 128 bytes (64 bf16 columns) with the 128-byte swizzle, a chunk of
+// 64 columns after another, `*_chunk` bytes apart. Issue between
+// wgmma_fence() and wgmma_commit().
+//
+// acc (64 x N) = A (64 x D) . B^T for a B tile of N rows x D: both operands
+// K-major in shared memory, ceil(D/16) k-steps, the first overwriting acc
+// (S = Q.K^T).
+template <int N, int D>
+__device__ __forceinline__ void mma_ss_kmajor(float (&acc)[N / 2], uint32_t a,
+                                              int a_chunk, uint32_t b,
+                                              int b_chunk) {
+#pragma unroll
+  for (int ks = 0; ks < (D + 15) / 16; ++ks) {
+    const uint32_t off = (ks & 3) * 32;  // 16 columns inside an atom
+    wgmma_ss<N>(acc, desc_sw128(a + (ks >> 2) * a_chunk + off, 16, 1024),
+                desc_sw128(b + (ks >> 2) * b_chunk + off, 16, 1024), ks > 0);
+  }
+}
+
+// acc (64 x N) += A (64 x K) . B for a B tile of K rows x N columns: A in
+// registers (the bf16 pairs of a converted 64 x K accumulator, `to_bf16`),
+// B MN-major in shared memory; K/16 k-steps of 16 rows (O += P.V)
+template <int N, int K>
+__device__ __forceinline__ void mma_rs_mnmajor(float (&acc)[N / 2],
+                                               uint32_t (&a)[K / 4],
+                                               uint32_t b, int b_chunk) {
+#pragma unroll
+  for (int kc = 0; kc < K / 16; ++kc)
+    wgmma_rs<N>(acc, a + 4 * kc,
+                desc_sw128(b + kc * 16 * kAtomBytes, b_chunk, 1024), 1);
+}
+
+// an fp32 accumulator -> the bf16 pairs of a register A operand
+template <int NS>
+__device__ __forceinline__ void to_bf16(uint32_t (&p)[NS / 2],
+                                        const float (&s)[NS]) {
+#pragma unroll
+  for (int i = 0; i < NS / 2; ++i) p[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+}
+
+// Zero columns [D, D + 8) of row r of a tile (chunks `chunk` bytes apart)
+// where D % 16 == 8: a K-major product's last k-step reads them, and a
+// wide map brought the next head's values there. Follow with
+// fence_proxy_async() and a barrier before the product.
+template <int D>
+__device__ __forceinline__ void zero_pad_columns(unsigned char* tile,
+                                                 int chunk, int r) {
+  static_assert(D % 16 == 8, "only the last k-step's half is read");
+  const int unit = ((D % 64) / 8) ^ (r & 7);  // 16-byte unit, swizzled
+  *reinterpret_cast<uint4*>(tile + (D / 64) * chunk + r * kAtomBytes +
+                            unit * 16) = make_uint4(0u, 0u, 0u, 0u);
+}
+
 // --------------------------------------------------------------- shapes
 template <int D>
 struct Shape {
@@ -227,7 +284,6 @@ struct Shape {
   // K/V ring depth: 3 where the ring fits the shared memory (measured a
   // little faster than 2 at D = 40 and 80 on the H100), else 2
   static constexpr int STAGES = D > 128 ? 2 : 3;
-  static constexpr int KSTEPS = (D + 15) / 16;      // k16 steps of Q.K^T
   static constexpr int Q_BYTES = NCH * kBQ * kAtomBytes;
   static constexpr int KV_BYTES = NCH * BK * kAtomBytes;  // one K or V tile
   static constexpr int BAR_BYTES = 8 * (1 + 4 * STAGES);
@@ -417,32 +473,14 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap tq,
 
     auto qk = [&](float (&s)[NS], int st) {
       wgmma_fence();
-#pragma unroll
-      for (int ks = 0; ks < S::KSTEPS; ++ks) {
-        const uint32_t off = (ks & 3) * 32;  // 16 columns inside an atom
-        const uint64_t da = desc_sw128(
-            q_addr + (ks >> 2) * kBQ * kAtomBytes + off, 16, 1024);
-        const uint64_t db = desc_sw128(
-            k_addr + st * S::KV_BYTES + (ks >> 2) * BK * kAtomBytes + off, 16,
-            1024);
-        wgmma_ss<BK>(s, da, db, ks > 0);
-      }
+      mma_ss_kmajor<BK, D>(s, q_addr, kBQ * kAtomBytes,
+                           k_addr + st * S::KV_BYTES, BK * kAtomBytes);
       wgmma_commit();
     };
     auto pv = [&](float (&o)[NO], uint32_t (&p)[NP], int st) {
       wgmma_fence();
-#pragma unroll
-      for (int kc = 0; kc < BK / 16; ++kc) {
-        const uint64_t db = desc_sw128(
-            v_addr + st * S::KV_BYTES + kc * 16 * kAtomBytes, BK * kAtomBytes,
-            1024);
-        wgmma_rs<D>(o, p + 4 * kc, db, 1);
-      }
+      mma_rs_mnmajor<D, BK>(o, p, v_addr + st * S::KV_BYTES, BK * kAtomBytes);
       wgmma_commit();
-    };
-    auto to_p = [&](uint32_t (&p)[NP], const float (&s)[NS]) {
-#pragma unroll
-      for (int i = 0; i < NP; ++i) p[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
     };
 
     Softmax sm(scale_log2);
@@ -459,13 +497,8 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap tq,
       // brought the next head's values there, so zero Q's (and with them
       // those products)
       const int tid = threadIdx.x & 127;
-      if (tid < 64) {
-        const int r = cw * 64 + tid;
-        const int chunk = ((D % 64) / 8) ^ (r & 7);  // 16-byte unit, swizzled
-        *reinterpret_cast<uint4*>(q_s + (D / 64) * kBQ * kAtomBytes +
-                                  r * kAtomBytes + chunk * 16) =
-            make_uint4(0u, 0u, 0u, 0u);
-      }
+      if (tid < 64)
+        zero_pad_columns<D>(q_s, kBQ * kAtomBytes, cw * 64 + tid);
       fence_proxy_async();
       named_sync(3 + cw, 128);
     }
@@ -481,7 +514,7 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap tq,
       sm.template apply<NS, true>(s, last_valid, t);
     else
       sm.template apply<NS, false>(s, BK, t);
-    to_p(p, s);
+    to_bf16<NS>(p, s);
 
     // ---- tile n: S_n = Q K_n^T issued, then O += P_{n-1} V_{n-1}, then
     // the softmax of S_n while the product runs
@@ -506,7 +539,7 @@ attention_fwd_kernel(const __grid_constant__ CUtensorMap tq,
       fence_regs(o);
       fence_regs(p);
       if (lane == 0) mbar_arrive(empty_v + pst);
-      to_p(p, s);
+      to_bf16<NS>(p, s);
     }
     // ---- the last P.V
     {

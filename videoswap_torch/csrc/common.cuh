@@ -53,26 +53,6 @@ __device__ __forceinline__ uint32_t ldg32(const bf16* p) {
   return __ldg(reinterpret_cast<const unsigned int*>(p));
 }
 
-// Rows [r0, r0 + ROWS) of a (rows, d) bf16 matrix with row stride
-// `row_stride` (elements) -> shared (ROWS, DP) with leading dimension DP + 8,
-// zero-filled past `rows` and past d. d is a multiple of 8 and rows start
-// 16-byte aligned, so each thread moves 16 bytes at a time.
-template <int DP, int ROWS, int THREADS>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
-                                          long long row_stride, int r0,
-                                          int rows, int d) {
-  constexpr int LD = DP + 8;
-  constexpr int V = DP / 8;
-  for (int i = threadIdx.x; i < ROWS * V; i += THREADS) {
-    const int r = i / V;
-    const int col = (i - r * V) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < rows && col < d)
-      val = *reinterpret_cast<const uint4*>(src + (long long)(r0 + r) * row_stride + col);
-    *reinterpret_cast<uint4*>(dst + r * LD + col) = val;
-  }
-}
-
 // A fragment (16x16) of rows [r, r + 16), columns [c, c + 16) of a
 // row-major shared tile with leading dimension LD
 __device__ __forceinline__ void frag_a(uint32_t a[4], const bf16* tile,

@@ -2,7 +2,7 @@
 //
 // wgmma_ss<N>: D(64 x N) (+)= A(64 x 16) B(16 x N), both operands read from
 //   shared memory through descriptors, both K-major (A row-major, B stored
-//   N rows of K). Used for S = Q.K^T.
+//   N rows of K). Used for S = Q.K^T and the backward's S and dP.
 // wgmma_rs<N>: the same with A taken from registers (four 32-bit registers a
 //   thread, the mma.m16n8k16 A-fragment layout for the warp's 16 rows) and
 //   B MN-major (stored K rows of N, the "transposed" flag set). Used for

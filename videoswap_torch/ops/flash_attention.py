@@ -3,13 +3,17 @@ their plain PyTorch versions.
 
 `flash_attention_fwd(q, k, v)` takes q (B, Sq, H, D) and k, v (B, Sk, H, D)
 and returns (out (B, Sq, H, D), lse (B*H, Sq) fp32), non-causal. A CUDA
-tensor launches `csrc/flash_attention.cu` (bf16, D a multiple of 8 whose
-multiple of 16 the kernel is built for, read through its strides) or
-raises; a CPU tensor takes `flash_attention_plain`.
+tensor launches `csrc/flash_attention.cu` (bf16, a head dim of
+`HEAD_DIMS`, read through its strides) or raises; a CPU tensor takes
+`flash_attention_plain`.
 
 `flash_attention_bwd(q, k, v, out, lse, dout)` returns (dq, dk, dv): on
-CUDA tensors the dQ and dK/dV kernels of `csrc/flash_attention_bwd.cu`, on
-CPU tensors `flash_attention_bwd_plain`.
+CUDA tensors the two kernels of `csrc/flash_attention_bwd.cu`, built like
+the forward on `csrc/attention_sm90.cuh` (TMA, wgmma, warp-specialised):
+the dQ kernel (128 query rows a block, K and V streamed) and the dK/dV
+kernel (128 keys a block, Q and dO streamed), each recomputing P from the
+forward's lse, with no atomics; D = rowsum(dO * O) is a plain op before
+them. On CPU tensors `flash_attention_bwd_plain`.
 
 `flash_attention(q, k, v)` returns `out` and is differentiable: it runs as
 the `FlashAttention` autograd Function, which saves q, k, v, out and lse
@@ -31,9 +35,11 @@ launches = 0
 bwd_dq_launches = 0
 bwd_dkv_launches = 0
 
-# D rounded up to a multiple of 16: the head dims csrc/flash_attention.cu
-# instantiates (its VS_FLASH_CASE list)
-PADDED_HEAD_DIMS = (16, 32, 48, 64, 80, 96, 128, 160)
+# the head dims the wrappers take, forward and backward alike. Both kernel
+# files instantiate these and 112 (their VS_FLASH_CASE lists), which the
+# wrappers have never admitted.
+HEAD_DIMS = (8, 16, 24, 32, 40, 48, 56, 64, 72, 80, 88, 96, 120, 128, 152,
+             160)
 
 
 def flash_attention_plain(q, k, v, batch_chunk: int | None = None):
@@ -95,10 +101,9 @@ def _check_kernel_args(q, k, v):
         raise ValueError('flash_attention: tensors on different devices')
     if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
         raise TypeError('flash_attention kernel takes bf16 tensors')
-    if d % 8 or (d + 15) // 16 * 16 not in PADDED_HEAD_DIMS:
-        raise ValueError(f'flash_attention kernel: head dim {d} must be a '
-                         f'multiple of 8 that rounds up to one of '
-                         f'{PADDED_HEAD_DIMS}')
+    if d not in HEAD_DIMS:
+        raise ValueError(f'flash_attention kernel: head dim {d} must be one '
+                         f'of {HEAD_DIMS}')
     for t in (q, k, v):
         if t.stride(3) != 1 or any(s % 8 for s in t.stride()[:3]) \
                 or t.data_ptr() % 16:
