@@ -18,10 +18,13 @@ Phases (all by default):
                only, never on the port's path), every shape's numbers kept
                (`shapes`), the attention kernels' log lines with the exp
                floor too (one exponential a logit at the special-function
-               units' rate); one gradient check each of
-               the GEGLU and temporal-attention autograd Functions; the
-               hash-grid table-gradient kernel (fp32) against its plain
-               version at the atlas levels' table sizes and 240000 rows,
+               units' rate); GEGLU by its width's route (the fused kernel
+               at C <= 640; above it the split route, its gate pass also
+               checked entry by entry and timed alone), beside the two
+               cuBLAS products alone; one gradient check each of the GEGLU
+               and temporal-attention autograd Functions; the hash-grid
+               table-gradient kernel (fp32) against its plain version at
+               the atlas levels' table sizes and 240000 rows,
                with index_add_ as the library call, two calls (and both
                forms of its scatter) on the same inputs bitwise equal, NaN
                and infinite rows leaving their entries as the plain
@@ -174,6 +177,11 @@ BLEND_CHECK_TH = 0.99
 KERNELS = {
     'geglu_ffn': ('geglu_ffn', 'launches', 'videoswap_torch/csrc/geglu_ffn.cu',
                   'videoswap_tpu/ops/geglu_ffn.py:110'),
+    # the gate pass of GEGLU's split route (C > 640), the JAX package's XLA
+    # route there: no Pallas kernel
+    'geglu_gate': ('geglu_ffn', 'gate_launches',
+                   'videoswap_torch/csrc/geglu_ffn.cu',
+                   'videoswap_tpu/ops/geglu_ffn.py:133'),
     'temporal_attention': (
         'temporal_attention', 'launches',
         'videoswap_torch/csrc/temporal_attention.cu',
@@ -212,8 +220,8 @@ KERNELS = {
 KERNEL_PATH = {'hash_table_grad': 'atlas', 'fused_temporal_bfhw': 'sample_4d',
                'spatial_self_attention': 'unrouted',
                'gn_silu_conv': 'unrouted'}
-FORWARD_KERNELS = ('geglu_ffn', 'temporal_attention', 'flash_attention_fwd',
-                   'fused_temporal')
+FORWARD_KERNELS = ('geglu_ffn', 'geglu_gate', 'temporal_attention',
+                   'flash_attention_fwd', 'fused_temporal')
 # max |kernel - plain| allowed, bf16 kernel vs fp32 plain on the same bf16
 # inputs: outputs are O(1) and rounded once to bf16 (2^-8 relative), plus
 # the bf16 rounding of the intermediate (gated product, probabilities). The
@@ -233,7 +241,12 @@ FORWARD_KERNELS = ('geglu_ffn', 'temporal_attention', 'flash_attention_fwd',
 # readings on the H100: spatial 8.5e-4 (level 0) and 2.7e-3 (level 1),
 # conv 2.0e-3 of max|plain| at both levels; a skipped key tile reads 7.6e-2,
 # a skipped tap 0.34 (scripts/fault_control.py)
-TOL = {'geglu_ffn': 3e-2, 'temporal_attention': 1e-2,
+# the GEGLU gate pass rounds as its plain version does in bf16 (gate/sqrt(2),
+# gelu, the product) and evaluates the polynomial with every operation
+# rounded apart, as PyTorch does: it is held entry by entry to the bf16
+# plain version, in bf16 ulps of each entry (bf16_ulps); its error against
+# the fp32 plain version is reported too
+TOL = {'geglu_ffn': 3e-2, 'geglu_gate': 1, 'temporal_attention': 1e-2,
        'flash_attention_fwd': 1e-2, 'flash_attention_bwd_dq': 1e-2,
        'flash_attention_bwd_dkv': 1e-2, 'fused_temporal': 1.5e-2,
        'fused_temporal_bfhw': 1.5e-2, 'spatial_self_attention': 1e-2,
@@ -425,7 +438,8 @@ def phase_build(report):
     log(f'# build: {path.name} in {seconds:.1f} s (0 = already built)')
     text = path.with_suffix('.log').read_text() if seconds else ''
     for line in text.splitlines():
-        if re.search(r'Compiling entry|registers|spill', line):
+        if re.search(r'Compiling entry|registers|spill|Performance Loss',
+                     line):
             log(f'# ptxas: {line.strip()}')
     report['build_s'] = seconds
 
@@ -487,30 +501,45 @@ def _record(report, name, shape_desc, err, ms, plain_ms, work, library,
         entry.update(row)
 
 
+def bf16_ulps(out, ref) -> float:
+    """Largest |out - ref| over entries, each in bf16 ulps of its entry of
+    `ref` (bf16 values; an ulp of 0 is the smallest bf16 subnormal)."""
+    import torch
+    r = ref.double()
+    ulp = torch.ldexp(torch.ones_like(r), torch.frexp(r).exponent - 8)
+    ulp = torch.where(r == 0, 2.0 ** -133, ulp).clamp_min(2.0 ** -133)
+    return float(((out.double() - r).abs() / ulp).max())
+
+
 def _compare(name, shape_desc, kernel, plain_bf16, plain_fp32, report,
-             work, library=None, iters=10, relative=False, exps=None,
-             **extra):
+             work, library=None, iters=10, relative=False, ulps=False,
+             exps=None, **extra):
     """Kernel against its plain version; with `relative` the limit holds
-    the error over the largest |plain| entry."""
+    the error over the largest |plain| entry, with `ulps` the error against
+    the bf16 plain version in bf16 ulps of each entry (bf16_ulps)."""
     import torch
     out = kernel()
     torch.cuda.synchronize()
     ref = plain_fp32()
     err = float((out.float() - ref.float()).abs().max())
     crit = err / float(ref.float().abs().max()) if relative else err
+    if ulps:
+        crit = bf16_ulps(out, plain_bf16())
     ms = cuda_time_ms(kernel, iters)
     plain_ms = cuda_time_ms(plain_bf16, max(2, iters // 3), warmup=1)
     ok = crit <= TOL[name] and bool(torch.isfinite(out).all())
     log(f'# kernel {name} {shape_desc}: max_abs_err {err:.3e}'
         + (f', /max|plain| {crit:.3e}' if relative else '')
+        + (f', bf16 ulps of the bf16 plain version {crit:g}' if ulps
+           else '')
         + f' (tol {TOL[name]:g}) kernel {ms:.3f} ms plain(bf16) '
         f'{plain_ms:.3f} ms {"ok" if ok else "FAIL"}')
     _record(report, name, shape_desc, err, ms, plain_ms, work, library, exps,
             **extra)
-    if relative:
+    if relative or ulps:
+        key = 'max_bf16_ulps' if ulps else 'max_err_over_max_plain'
         entry = report['kernels'][name]
-        entry['max_err_over_max_plain'] = max(
-            entry.get('max_err_over_max_plain', 0.0), crit)
+        entry[key] = max(entry.get(key, 0.0), crit)
     if not ok:
         raise PhaseError(f'{name} {shape_desc}: error {crit:.3e}')
 
@@ -616,23 +645,54 @@ def _grad_check(name, fn, plain, args, dout):
 
 def phase_kernels(report):
     import torch
+    import torch.nn.functional as F
     from videoswap_torch.ops import flash_attention as fa
     from videoswap_torch.ops import geglu_ffn as gf
     from videoswap_torch.ops import temporal_attention as ta
     gen = torch.Generator(device='cuda').manual_seed(SEED)
     f32 = (lambda ts: [t.float() for t in ts])
 
-    # GEGLU FFN: rows = CFG batch 2 x 16 frames x H*W, per U-Net level
+    # GEGLU FFN: rows = CFG batch 2 x 16 frames x H*W, per U-Net level; the
+    # fused kernel at C <= 640, above it the split route (two cuBLAS
+    # products around the gate pass, which is checked and timed alone too).
+    # No single PyTorch call computes the FFN: the two cuBLAS products
+    # alone on inputs of the same shapes stand in the library column
     for n, c in ((131072, 320), (32768, 640), (8192, 1280), (2048, 1280)):
         args = [_rand(gen, (n, c)), _rand(gen, (8 * c, c), c ** -0.5),
                 _rand(gen, (8 * c,), 0.1), _rand(gen, (c, 4 * c),
                                                  (4 * c) ** -0.5),
                 _rand(gen, (c,), 0.1)]
-        _compare('geglu_ffn', f'N={n} C={c}',
+        g_in = _rand(gen, (n, 4 * c))
+        route = 'fused' if gf.takes_fused_route(c) else 'split'
+        _compare('geglu_ffn', f'N={n} C={c} ({route})',
                  lambda: gf.geglu_ffn(*args),
                  lambda: gf.geglu_ffn_plain(*args),
                  lambda: gf.geglu_ffn_plain(*f32(args)), report,
-                 (24 * n * c * c, 2 * (2 * n * c + 12 * c * c + 9 * c)))
+                 (24 * n * c * c, 2 * (2 * n * c + 12 * c * c + 9 * c)),
+                 lambda: cuda_time_ms(lambda: (
+                     F.linear(args[0], args[1], args[2]),
+                     F.linear(g_in, args[3], args[4])), 10), route=route)
+        if route == 'fused':
+            # the split route at this width, for the choice of route (the
+            # JAX package's gate fixes it at MAX_KERNEL_WIDTH)
+            ms = cuda_time_ms(lambda: gf.geglu_ffn_split(*args), 10)
+            report['kernels']['geglu_ffn']['shapes'][-1]['split_route_ms'] = ms
+            log(f'# kernel geglu_ffn N={n} C={c}: the split route here '
+                f'{ms:.4f} ms')
+        if route == 'split':
+            h = F.linear(args[0], args[1], args[2])
+            # ~31 fp32 operations an output (gelu_fast's Horner erf)
+            _compare('geglu_gate', f'N={n} 8C={8 * c}',
+                     lambda: gf.geglu_gate(h),
+                     lambda: gf.geglu_gate_plain(h),
+                     lambda: gf.geglu_gate_plain(h.float()), report,
+                     (31 * 4 * n * c, 2 * 12 * n * c, PEAK_FP32_FLOPS),
+                     ulps=True)
+            del h
+        del args, g_in
+    report['kernels']['geglu_ffn']['library_is'] = (
+        'the two cuBLAS products alone (F.linear(x, w1, b1), '
+        'F.linear(g, w2, b2))')
 
     # temporal attention: L locations x F=16 frames, 8 heads
     for el, c in ((8192, 320), (2048, 640), (512, 1280), (128, 1280)):
@@ -2130,7 +2190,8 @@ def main() -> None:
             **{key: k.get(key) for key in (
                 'max_abs_err', 'ms', 'plain_ms', 'bound_ms', 'bound_by',
                 'library_ms', 'shape')},
-            **{key: k[key] for key in ('max_err_over_max_plain', 'step_ms',
+            **{key: k[key] for key in ('max_err_over_max_plain',
+                                       'max_bf16_ulps', 'step_ms',
                                        'step_bound_ms', 'library_is',
                                        'flash_ms', 'chain_ms', 'wrapper_ms',
                                        'bitwise_repeatable', 'shapes')

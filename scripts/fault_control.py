@@ -18,6 +18,12 @@ check of chip_smoke.py's kernels phase. The faults:
 - geglu_last_chunk:   the last 128 of the 4C intermediate columns (one or
                       two steps of the kernel's chunk loop) add nothing;
 - geglu_last_eighth:  the last 4C/8 intermediate columns add nothing;
+- geglu_gate_small_flushed: the split route's gate pass (C > 640) writes 0
+                      for every entry below 2^-4 in magnitude: a fault on
+                      the small entries alone, below a limit taken relative
+                      to the largest entry (1e-2 of it exceeds 2^-4 here),
+                      which the gate pass's limit in bf16 ulps of each entry
+                      must catch;
 - temporal_last_head: the last of the 8 heads writes zeros;
 - flash_last_key_tile: the last 64-key tile is skipped wherever Sk > 64;
 - flash_bwd_dkv_last_q_tile: the dK/dV kernel skips its last 64-query tile
@@ -102,6 +108,18 @@ def _geglu_skip(cols):
         b1[inner - skip:inner] = 0
         return geglu_ffn(x, w1, b1, w2, b2)
     return mock.patch('videoswap_torch.models.layers.geglu_ffn', faulted)
+
+
+def _geglu_gate_small_flushed():
+    from videoswap_torch.ops import geglu_ffn as gf
+    gate = gf.geglu_gate
+
+    def faulted(h):
+        g = gate(h)
+        if g.is_cuda:
+            g[g.abs() < 2.0 ** -4] = 0
+        return g
+    return mock.patch.object(gf, 'geglu_gate', faulted)
 
 
 def _temporal_last_head():
@@ -264,6 +282,7 @@ FAULTS = {
     'sound': lambda tr: contextlib.nullcontext(),
     'geglu_last_chunk': lambda tr: _geglu_skip(lambda inner: 128),
     'geglu_last_eighth': lambda tr: _geglu_skip(lambda inner: inner // 8),
+    'geglu_gate_small_flushed': lambda tr: _geglu_gate_small_flushed(),
     'temporal_last_head': lambda tr: _temporal_last_head(),
     'flash_last_key_tile': lambda tr: _flash_last_key_tile(),
     'flash_bwd_dkv_last_q_tile': lambda tr: _flash_bwd_dkv_last_q_tile(),
@@ -281,8 +300,8 @@ FAULTS = {
 }
 BACKWARD_FAULTS = ('flash_bwd_dkv_last_q_tile', 'flash_bwd_dq_last_k_tile')
 ATLAS_FAULTS = ('hash_last_corner',)
-KERNEL_ONLY_FAULTS = ('hash_last_block', 'spatial_last_key_tile',
-                      'conv_last_tap')
+KERNEL_ONLY_FAULTS = ('hash_last_block', 'geglu_gate_small_flushed',
+                      'spatial_last_key_tile', 'conv_last_tap')
 UNROUTED_FAULTS = ('spatial_last_key_tile', 'conv_last_tap')
 TRAINER_FAULTS = ('adapter_bf16_weights',)
 BLEND_FAULTS = ('edit_cross_skipped', 'blend_latents_skipped')
@@ -293,8 +312,9 @@ def kernel_error(fault: str) -> float:
     faulted kernel, as chip_smoke.py's kernels phase measures it (for the
     backward kernels and the fused temporal transformer, relative to the
     largest |plain| entry; the backward at the training step's
-    self-attention shape)."""
+    self-attention shape; the gate pass at level 2's, in bf16 ulps)."""
     import torch
+    import torch.nn.functional as F
 
     from videoswap_torch.models import layers
     from videoswap_torch.ops import attention
@@ -335,6 +355,19 @@ def kernel_error(fault: str) -> float:
         ref = ft.fused_temporal_plain(g2.float(), x2.float(), pe.float(),
                                       f32(flat), 8, cs.FRAMES)
         return float((out.float() - ref).abs().max() / ref.abs().max())
+    if fault.startswith('geglu_gate'):
+        # level 2's gate pass, in bf16 ulps of each entry of the bf16 plain
+        # version (chip_smoke.py's limit); the error over the largest
+        # |plain| entry is logged beside it
+        c = 1280
+        h = F.linear(cs._rand(gen, (8192, c)),
+                     cs._rand(gen, (8 * c, c), c ** -0.5),
+                     cs._rand(gen, (8 * c,), 0.1))
+        out = gf.geglu_gate(h)
+        ref = gf.geglu_gate_plain(h.float())
+        rel = float((out.float() - ref).abs().max() / ref.abs().max())
+        cs.log(f'# {fault} kernel: max err / max|plain| {rel:.3e}')
+        return cs.bf16_ulps(out, gf.geglu_gate_plain(h))
     if fault.startswith('geglu'):
         c = 320
         args = [cs._rand(gen, (8192, c)), cs._rand(gen, (8 * c, c), c ** -0.5),
@@ -433,6 +466,7 @@ def main() -> None:
     lora_dir.cleanup()
     sound = rows.pop('sound')
     kernel_tol = {'hash': cs.HASH_TOL,
+                  'geglu_gate': cs.TOL['geglu_gate'],
                   'geglu': cs.TOL['geglu_ffn'],
                   'temporal': cs.TOL['temporal_attention'],
                   'flash_bwd_dkv': cs.TOL['flash_attention_bwd_dkv'],

@@ -50,6 +50,9 @@ import chip_smoke as cs  # noqa: E402
 ATLAS_PROFILE_PRETRAIN = 10
 ATLAS_AB_ROUNDS, ATLAS_AB_ITERS = 4, 30
 
+# the first key a kernel's name contains names its group. 'geglu' takes
+# both GEGLU kernels (the fused geglu_ffn_kernel<C> and the split route's
+# geglu_gate_kernel); the split route's two products show under cuBLAS
 GROUPS = (('fused_temporal', 'fused temporal transformer kernel'),
           ('geglu', 'geglu_ffn kernel'),
           ('hash_grad', 'hash_table_grad kernel'),

@@ -53,19 +53,62 @@ def _randn(shape, seed, scale=1.0):
     return torch.from_numpy((rs.randn(*shape) * scale).astype(np.float32))
 
 
-@pytest.mark.parametrize('n,c', [(1000, 320), (300, 640), (100, 1280),
-                                 (77, 64), (50, 128), (40, 1152)])
-def test_geglu_kernel_matches_plain(cuda, n, c):
+def _geglu_args(n, c, device):
     args = [_randn((n, c), 0, 0.5), _randn((8 * c, c), 1, c ** -0.5),
             _randn((8 * c,), 2, 0.1), _randn((c, 4 * c), 3, (4 * c) ** -0.5),
             _randn((c,), 4, 0.1)]
-    args = [a.to(cuda).bfloat16() for a in args]
-    before = tgf.launches
+    return [a.to(device).bfloat16() for a in args]
+
+
+# every instantiation of the fused kernel (C <= 640), and widths of the
+# split route (the U-Net's 1280 among them)
+GEGLU_FUSED = (64, 128, 192, 256, 320, 384, 512, 640)
+GEGLU_SPLIT = (768, 960, 1152, 1280)
+
+
+@pytest.mark.parametrize('n', [1, 63, 65, 129, 1000])
+@pytest.mark.parametrize('c', GEGLU_FUSED + GEGLU_SPLIT)
+def test_geglu_kernel_matches_plain(cuda, n, c):
+    args = _geglu_args(n, c, cuda)
+    before = (tgf.launches, tgf.gate_launches)
     out = tgf.geglu_ffn(*args)
-    assert tgf.launches == before + 1
+    # the fused kernel counts one launch a call; the split route its gate
+    fused = c in GEGLU_FUSED
+    assert (tgf.launches, tgf.gate_launches) == (before[0] + fused,
+                                                 before[1] + (not fused))
     ref = tgf.geglu_ffn_plain(*(a.float() for a in args))
     assert out.dtype == torch.bfloat16
     assert (out.float() - ref).abs().max().item() < 3e-2
+
+
+@pytest.mark.parametrize('c', [320, 640, 1280])
+def test_geglu_kernel_is_bitwise_repeatable(cuda, c):
+    args = _geglu_args(300, c, cuda)
+    assert torch.equal(tgf.geglu_ffn(*args), tgf.geglu_ffn(*args))
+
+
+def _bf16_ulps(out, ref):
+    """|out - ref| of each entry in bf16 ulps of its entry of ref (an ulp
+    of 0 is the smallest bf16 subnormal)."""
+    r = ref.double()
+    ulp = torch.ldexp(torch.ones_like(r), torch.frexp(r).exponent - 8)
+    ulp = torch.where(r == 0, 2.0 ** -133, ulp).clamp_min(2.0 ** -133)
+    return (out.double() - r).abs() / ulp
+
+
+@pytest.mark.parametrize('n,c', [(1, 1280), (517, 768)])
+def test_geglu_gate_kernel_matches_plain(cuda, n, c):
+    h = _randn((n, 8 * c), 6, 2.0).to(cuda).bfloat16()
+    before = tgf.gate_launches
+    out = tgf.geglu_gate(h)
+    assert tgf.gate_launches == before + 1
+    # the plain version's roundings in bf16 (gate / sqrt(2), gelu, the
+    # product), each operation of the polynomial rounded apart as PyTorch's
+    # are: every entry within one bf16 ulp of the bf16 plain version
+    ref = tgf.geglu_gate_plain(h)
+    assert out.dtype == torch.bfloat16 and out.shape == (n, 4 * c)
+    assert _bf16_ulps(out, ref).max().item() <= 1
+    assert _close(out, tgf.geglu_gate_plain(h.float()), 1e-2)
 
 
 @pytest.mark.parametrize('el,f,h,c', [(37, 16, 8, 320), (9, 24, 8, 1280),
@@ -152,12 +195,19 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
                       torch.zeros(512, device=cuda),
                       torch.zeros(64, 256, device=cuda),
                       torch.zeros(64, device=cuda))
-    xb = torch.zeros(4, 960, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError):                          # C = 960
-        tgf.geglu_ffn(xb, torch.zeros(7680, 960, device=cuda).bfloat16(),
-                      torch.zeros(7680, device=cuda).bfloat16(),
-                      torch.zeros(960, 3840, device=cuda).bfloat16(),
-                      torch.zeros(960, device=cuda).bfloat16())
+    # an odd width: neither the fused kernel (C a multiple of 64) nor the
+    # gate pass (C even) takes it, on either side of MAX_KERNEL_WIDTH
+    for c in (97, 961):
+        xb = torch.zeros(4, c, device=cuda, dtype=torch.bfloat16)
+        with pytest.raises(ValueError):
+            tgf.geglu_ffn(xb, torch.zeros(8 * c, c, device=cuda).bfloat16(),
+                          torch.zeros(8 * c, device=cuda).bfloat16(),
+                          torch.zeros(c, 4 * c, device=cuda).bfloat16(),
+                          torch.zeros(c, device=cuda).bfloat16())
+    with pytest.raises(TypeError):                           # fp32 h
+        tgf.geglu_gate(torch.zeros(4, 8 * 768, device=cuda))
+    with pytest.raises(ValueError):                          # odd C
+        tgf.geglu_gate(torch.zeros(4, 8 * 961, device=cuda).bfloat16())
     for d in (36, 104, 136, 168):       # d % 8 != 0, or no case for its pad
         q = torch.zeros(1, 8, 2, d, device=cuda, dtype=torch.bfloat16)
         with pytest.raises(ValueError):
@@ -311,6 +361,10 @@ def test_wrappers_are_differentiable_on_the_card(cuda):
     geglu = [a.to(cuda).bfloat16() for a in geglu]
     _grads_match_plain(tgf.geglu_ffn, tgf.geglu_ffn_plain, geglu,
                        _randn((300, c), 5).to(cuda).bfloat16())
+    # the split route (C > 640)
+    _grads_match_plain(tgf.geglu_ffn, tgf.geglu_ffn_plain,
+                       _geglu_args(70, 768, cuda),
+                       _randn((70, 768), 5).to(cuda).bfloat16())
     qkv = [_randn((37 * 16, c), s).to(cuda).bfloat16() for s in range(3)]
     _grads_match_plain(lambda *t: tta.temporal_attention(*t, 8, 16),
                        lambda *t: tta.temporal_attention_plain(*t, 8, 16),

@@ -75,7 +75,7 @@ def test_geglu_plain_matches_pallas_interpret(n, c):
                                rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.parametrize('n,c', [(77, 40), (64, 80)])
+@pytest.mark.parametrize('n,c', [(77, 40), (64, 80), (37, 768)])
 def test_geglu_plain_matches_jax_public(n, c):
     args = _geglu_args(n, c, c)
     ref = jgf.geglu_ffn(*map(jnp.asarray, args))
@@ -99,6 +99,54 @@ def test_geglu_keeps_x_dtype():
     out = tgf.geglu_ffn(x.bfloat16(), w1.T.bfloat16(), b1,
                         w2.T.bfloat16(), b2)
     assert out.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize('c', [64, 320, 640, 768, 1152, 1280])
+def test_geglu_route_follows_the_jax_gate(c):
+    """The fused kernel at C <= the JAX package's MAX_KERNEL_WIDTH, the
+    split route above it (the kernel library and the stream stood in for,
+    so that the routing runs on the CPU)."""
+    fused = c <= jgf.MAX_KERNEL_WIDTH
+    assert tgf.takes_fused_route(c) == fused
+    assert tgf.fused_supports(c) == fused
+    bf = torch.bfloat16
+    args = [torch.zeros(3, c, dtype=bf), torch.zeros(8 * c, c, dtype=bf),
+            torch.zeros(8 * c, dtype=bf), torch.zeros(c, 4 * c, dtype=bf),
+            torch.zeros(c, dtype=bf)]
+    lib = mock.Mock()
+    lib.vs_geglu_ffn.return_value = 0
+    before = tgf.launches
+    with mock.patch.object(tgf._build, 'library', return_value=lib), \
+            mock.patch.object(torch.cuda, 'current_stream',
+                              return_value=mock.Mock(cuda_stream=0)), \
+            mock.patch.object(tgf, 'geglu_ffn_split',
+                              wraps=tgf.geglu_ffn_split) as split:
+        out = tgf.geglu_ffn_kernel(*args)
+    assert out.shape == (3, c) and out.dtype == bf
+    assert lib.vs_geglu_ffn.called == fused
+    assert tgf.launches == before + fused
+    assert split.called == (not fused)
+
+
+@pytest.mark.parametrize('dtype,tol', [(np.float32, 1e-6),
+                                       (jnp.bfloat16, 2 ** -7)])
+def test_geglu_gate_plain_matches_jax(dtype, tol):
+    rs = np.random.RandomState(11)
+    h = (rs.randn(37, 8 * 96) * 2.0).astype(np.float32)
+    hj = jnp.asarray(h).astype(dtype)
+    a, gate = jnp.split(hj, 2, axis=-1)
+    ref = np.asarray((a * jgf.gelu_fast(gate)).astype(jnp.float32))
+    ht = torch.from_numpy(np.array(hj.astype(jnp.float32)))
+    if dtype is not np.float32:
+        ht = ht.bfloat16()
+    out = tgf.geglu_gate_plain(ht)
+    assert out.dtype == ht.dtype
+    # in bf16 both round the scaled gate, gelu and the product, but JAX
+    # scales the gate by 1/sqrt(2) rounded to bf16 (0.70703125), torch by
+    # its fp32 value: near erf = -1 that moves a small product by more than
+    # its own ulp, not by more than an ulp of the largest
+    np.testing.assert_allclose(out.float().numpy(), ref, rtol=tol,
+                               atol=tol * np.abs(ref).max())
 
 
 # ---------------------------------------------------- temporal attention

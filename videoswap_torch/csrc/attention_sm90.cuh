@@ -1,6 +1,9 @@
 // One attention forward mainloop for Hopper (sm_90a): TMA loads, mbarrier
 // pipelines, warpgroup matrix products (wgmma) and warp specialisation.
 //
+// Its PTX helpers, tensor maps and product forms also serve the GEGLU
+// feed-forward (csrc/geglu_ffn.cu).
+//
 // Serves both attention kernels of the port, which compute the same tiled
 // product over (B, S, H, D) operands read by stride and differ only in the
 // softmax (the `Softmax` policy):
@@ -128,6 +131,17 @@ __device__ __forceinline__ void fence_barrier_init() {
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
+// one box of a 2-D tensor map -> shared memory, completion on `bar`
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
 // one box of a 4-D tensor map -> shared memory, completion on `bar`
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1,
@@ -193,6 +207,15 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(lbo >> 4) << 16) |
          (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// the same with the 64-byte swizzle: rows of 64 bytes (32 bf16), the
+// pattern repeating every 8 rows (512 bytes)
+__device__ __forceinline__ uint64_t desc_sw64(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (2ull << 62);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -637,6 +660,25 @@ inline cudaError_t make_map(CUtensorMap* map, bool* wide, const void* ptr,
       strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A 2-D map over a row-major bf16 matrix (rows x cols, cols a multiple of
+// 8), read in boxes of box_cols x box_rows with the given swizzle (the box's
+// row is at most the swizzle's span); out-of-range elements read as zero.
+inline cudaError_t make_map_2d(CUtensorMap* map, const void* ptr, int cols,
+                               int rows, int box_cols, int box_rows,
+                               CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 

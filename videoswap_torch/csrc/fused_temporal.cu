@@ -32,17 +32,17 @@
 // Design: one block of 8 warps owns up to 64 rows (P whole locations of F
 // frames) and keeps h for them in mma.sync accumulator registers, each
 // warp owning C/8 columns. Every product is mma.sync m16n8k16 (bf16 in,
-// fp32 accumulate) with A from shared memory and B straight from the
-// L2-resident weights, as in geglu_ffn.cu. LayerNorm statistics are warp
-// shuffles plus a cross-warp sum in shared memory. q, k and v go to shared
-// memory as bf16 tiles; the frame attention of one (16-query tile, head)
-// pair is one warp's work: S = q k^T over the keys of the tile's locations
-// (a 16 x <= 64 product, keys of other locations masked), a max-subtracted
-// softmax in registers (the TPU kernel's max-free exp with logits clipped at
-// 60 was a VPU device; the F <= 32 logits of a row are in registers here),
-// P reused as the A operand of P.V without leaving registers, and the
+// fp32 accumulate) with A from shared memory and B loaded as fragments
+// straight from the L2-resident weights, with no shared staging. LayerNorm
+// statistics are warp shuffles plus a cross-warp sum in shared memory.
+// q, k and v go to shared memory as bf16 tiles; the frame attention of one
+// (16-query tile, head) pair is one warp's work: S = q k^T over the keys of
+// the tile's locations (a 16 x <= 64 product, keys of other locations
+// masked), a max-subtracted softmax in registers (the TPU kernel's max-free
+// exp with logits clipped at 60 was a VPU device; the F <= 32 logits of a
+// row are in registers here), P reused as the A operand of P.V without leaving registers, and the
 // output written over q. The GEGLU intermediate (4C) is walked in 64-column
-// chunks through a small shared tile, as geglu_ffn.cu does; the TPU
+// chunks through a small shared tile, never reaching device memory; the TPU
 // kernel's 128-row tiles, block-diagonal bias, ones-vector row sums and
 // shared logit scratch are not carried over. The frame-major layout changes
 // only the rows a block reads and writes (strided by HW), not the compute.

@@ -1,42 +1,72 @@
-// Fused GEGLU feed-forward for Hopper (sm_90a).
+// GEGLU feed-forward for Hopper (sm_90a): one fused kernel at C <= 640 and
+// the gate pass of the split route above it.
 //
 // Replaces: videoswap_tpu/ops/geglu_ffn.py, `_forward` / `_kernel` (the
-// Pallas TPU kernel behind `geglu_ffn`).
+// Pallas TPU kernel behind `geglu_ffn`), and, above its MAX_KERNEL_WIDTH =
+// 640, the elementwise pass of `_xla_reference` between its two products.
 //
 // Computes out = (a * gelu_fast(gate)) @ W2^T + b2 with
 // [a | gate] = x @ W1^T + b1, for x (N, C) bf16, W1 (8C, C), W2 (C, 4C) in
-// the torch Linear layout, all bf16. The 4C-wide intermediate never reaches
-// device memory.
+// the torch Linear layout, all bf16.
 //
-// What bounds it on the H100: the unfused version writes and re-reads the
-// (N, 8C) projection and the (N, 4C) gated product, 24*C bytes per row in
-// bf16 against 24*C*C multiply-adds, so at C = 320 it is memory-bound. Fused,
-// the only device-memory traffic is x, out and the weights; the weights
-// (24*C*C bytes) are re-read from L2 by every row block, so the kernel is
-// bounded by tensor-core issue and L2 latency, with BM multiply-adds per
-// weight byte: BM = 64 at C = 320 and 640, 32 at C = 1280.
+// What bounds it on the H100: 24*N*C^2 operations (0.326 ms at the bf16
+// peak at N*C^2 = 1.34e10, every U-Net level) against 4*N*C + 24*C^2 bytes
+// of device memory once the 4C intermediate stays on chip, so the tensor
+// cores; but a block reads all 24*C^2 bytes of weights from L2 for its row
+// block, BM*2 operations a weight byte, so with 64-row blocks (C > 320) the
+// L2 rate binds first. The design keeps the intermediate on chip, reads
+// every weight byte once a block through TMA, and gives each weight tile
+// 128 rows where the accumulator allows it.
 //
-// Design: one block of W warps (8, or 16 when C is a multiple of 128) owns
-// BM rows and the whole (BM, C) fp32 output accumulator, in registers: each
-// warp owns C/W output columns. The intermediate is walked in chunks of 8W
-// columns of a and the matching 8W of gate: warp w computes columns
-// 8w..8w+7 of both with mma.sync (A from the x tile in shared memory, B
-// straight from the L2-resident weights), applies bias and gelu_fast in
-// registers, and writes the bf16 product to a (BM, 8W) shared tile that
-// all warps then multiply into their output columns. The TPU's
-// MAX_KERNEL_WIDTH = 640 was a VMEM limit; here the limit is the register
-// accumulator, BM*C/(32W) <= 80 floats a thread, which the choice of W and
-// BM meets up to C = 1280 (C a multiple of 128, or of 64 up to 320).
+// Fused kernel (C a multiple of 64 up to 320, or of 128 up to 640): 256
+// threads, two warpgroups, 255 registers a thread (two warps to an SM
+// quarter; a producer warp would make three, and ptxas then allows 168).
+// One elected thread, warpgroup 1's first, issues the TMA loads between its
+// own products. A block TMA-loads its x tile once (rows past N zero-filled,
+// never stored), then walks the 4C intermediate in chunks of 32 columns:
+// the chunk's 32 rows of W1's `a` half and 32 of its gate half (one 64-row
+// K-major tile, 128-byte swizzle) and W2's 32 columns (C rows of 64 bytes,
+// 64-byte swizzle) stream through rings of ST1 and ST2 stages (2 and 2 at
+// C = 320; 1 and 1 at C = 640, where the x tile and one stage each fill
+// the shared memory), with full and empty mbarriers for W1 and for W2
+// apart, so that W1 of a later chunk loads while W2 of this one is read.
+// - C <= 320: each warpgroup owns 64 rows (128 a block, one weight tile
+//   serving both) and all C output columns: 64 x C fp32 in registers (160
+//   a thread at C = 320). h = x.W1_chunk^T is an SS wgmma (N = 64: 32 a and
+//   32 gate columns), bias, gelu_fast and the gate are applied in registers,
+//   and G, rounded to bf16, is the register A operand of out += G.W2^T (RS
+//   wgmma, B K-major). The warpgroups issue their products in turns (named
+//   barriers), so that one computes its gate while the other's products run.
+// - 320 < C <= 640: 64 rows a block; warpgroup w owns output columns
+//   [w*C/2, (w+1)*C/2) (160 fp32 a thread at C = 640) and computes 16 of
+//   the chunk's 32 G columns (SS, N = 32); the two halves meet in a
+//   double-buffered 64 x 32 shared tile, the A operand of an SS out product.
+// - Within a warpgroup, chunk j's first product is issued before chunk
+//   j-1's second, and chunk j's gate runs while the second is in flight.
+// Measured slower on the H100 and not kept: a 2-CTA cluster sharing each
+// weight tile by TMA multicast (both widths), and W1 tiles streamed in
+// K parts through a deeper ring of smaller stages.
+//
+// Gate pass (the split route, C > 640, as the JAX package's XLA route):
+// h (N, 8C) bf16 -> (N, 4C) bf16, 16-byte loads and stores, bounded by its
+// 24*N*C bytes; the two products around it are cuBLAS's.
 //
 // GELU: gelu_fast, the same Horner erf polynomial as the JAX package
-// (|gelu_fast - gelu| <= 4.7e-5), evaluated in fp32. The gated product is
-// rounded to bf16 before the second product, as in the Pallas kernel.
+// (|gelu_fast - gelu| <= 4.7e-5), evaluated in fp32. The fused kernel rounds
+// the gated product to bf16 before the second product, as the Pallas kernel
+// does. The gate pass takes bf16 h and rounds as the plain version does on
+// it: gate / sqrt(2) to bf16 before the polynomial (the JAX package's
+// gelu_fast on a bf16 input rounds it too, with 1/sqrt(2) itself in bf16),
+// gelu_fast(gate) to bf16, then the product. It evaluates the polynomial
+// with each product and sum rounded apart (no fused multiply-add), as
+// PyTorch's elementwise operations do, so that it gives the plain version's
+// bits.
 
-#include "common.cuh"
+#include "attention_sm90.cuh"
 
 namespace {
 
-using vs::bf16;
+using namespace vs::sm90;
 
 __device__ __forceinline__ float erf_fast(float u) {
   // erf(u) ~ u * q(u^2 / 9) on |u| <= 3, sign(u) beyond (clip)
@@ -59,152 +89,354 @@ __device__ __forceinline__ float gelu_fast(float x) {
   return 0.5f * x * (1.0f + erf_fast(x * 0.70710678118654752f));
 }
 
-template <int WARPS, int RT, int NTMAX>
-__global__ void __launch_bounds__(WARPS * 32)
-geglu_ffn_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
-                 const bf16* __restrict__ b1, const bf16* __restrict__ w2,
-                 const bf16* __restrict__ b2, bf16* __restrict__ out, int n,
-                 int c) {
-  constexpr int BM = RT * 16;
-  constexpr int kThreads = WARPS * 32;
-  constexpr int kChunk = 8 * WARPS;   // intermediate columns per step
-  constexpr int kGLd = kChunk + 8;    // shared row stride of the gated tile
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int xld = c + 8;
-  bf16* xs = reinterpret_cast<bf16*>(smem_raw);  // (BM, c) x tile
-  bf16* gs = xs + BM * xld;                      // (BM, kChunk) gated tile
+// gelu_fast of a bf16 gate as the plain version computes it on bf16: the
+// argument of erf rounded to bf16, every operation rounded apart (the
+// constants are the plain version's, doubles rounded to fp32)
+__device__ __forceinline__ float gelu_fast_rn(float x) {
+  const float u = __bfloat162float(
+      __float2bfloat16_rn(__fmul_rn(x, (float)0.70710678118654752)));
+  const float s = fminf(__fmul_rn(__fmul_rn(u, u), (float)(1.0 / 9.0)), 1.0f);
+  float q = (float)1.4207271411;
+  q = __fadd_rn(__fmul_rn(q, s), (float)-8.8140112788);
+  q = __fadd_rn(__fmul_rn(q, s), (float)24.913610011);
+  q = __fadd_rn(__fmul_rn(q, s), (float)-43.054002726);
+  q = __fadd_rn(__fmul_rn(q, s), (float)51.767980495);
+  q = __fadd_rn(__fmul_rn(q, s), (float)-46.861629272);
+  q = __fadd_rn(__fmul_rn(q, s), (float)33.590318391);
+  q = __fadd_rn(__fmul_rn(q, s), (float)-19.508373138);
+  q = __fadd_rn(__fmul_rn(q, s), (float)9.1353631098);
+  q = __fadd_rn(__fmul_rn(q, s), (float)-3.3850338503);
+  q = __fadd_rn(__fmul_rn(q, s), (float)1.1283787715);
+  const float e = fminf(fmaxf(__fmul_rn(u, q), -1.0f), 1.0f);
+  return __fmul_rn(__fmul_rn(0.5f, x), __fadd_rn(1.0f, e));
+}
 
-  const int warp = threadIdx.x >> 5;
+__device__ __forceinline__ float bf16_at(const bf16* p) {
+  return __bfloat162float(*p);
+}
+
+constexpr int kChunk = 32;     // intermediate columns a chunk (a and gate)
+constexpr int kThreadsFfn = 256;
+constexpr int kSmemMax = 232448;
+
+template <int C>
+struct Ffn {
+  static_assert(C % 64 == 0 && C <= 640 && (C <= 320 || C % 128 == 0),
+                "fused widths");
+  static constexpr bool kSplit = C > 320;  // warpgroups split the columns
+  static constexpr int BM = kSplit ? 64 : 128;    // rows a block
+  static constexpr int CW = kSplit ? C / 2 : C;   // output columns a wg
+  static constexpr int NI = CW > 160 ? CW / 2 : CW;  // N of an out product
+  static constexpr int NH = kSplit ? 32 : 64;     // N of the first product
+  static constexpr int NCH = C / 64;              // 128-byte column chunks
+  static constexpr int NJ = 4 * C / kChunk;       // intermediate chunks
+  static constexpr int X_BYTES = NCH * BM * kAtomBytes;
+  static constexpr int W1_BYTES = NCH * 2 * kChunk * kAtomBytes;
+  static constexpr int W2_BYTES = C * kChunk * 2;
+  static constexpr int G_TILE = 64 * kChunk * 2;  // one 64 x 32 G tile
+  static constexpr int G_BYTES = kSplit ? 2 * G_TILE : 0;
+  static constexpr int BAR_BYTES = 8 * (1 + 2 * 4 + 2 * 2);
+  static constexpr int FIXED = 1024 + X_BYTES + G_BYTES + BAR_BYTES;
+  static constexpr int ST2 = kSplit ? 1 : 2;      // W2 stages
+  static constexpr int FIT = (kSmemMax - FIXED - ST2 * W2_BYTES) / W1_BYTES;
+  static constexpr int ST1 = FIT < 4 ? FIT : 4;   // W1 stages
+  static constexpr int SMEM = FIXED + ST1 * W1_BYTES + ST2 * W2_BYTES;
+  static_assert(ST1 >= 1, "one W1 tile must fit the shared memory");
+  static_assert(CW % NI == 0 && NI % 8 == 0 && NI <= 160, "out products");
+};
+
+template <int C>
+__global__ void __launch_bounds__(kThreadsFfn, 1)
+geglu_ffn_kernel(const __grid_constant__ CUtensorMap tx,
+                 const __grid_constant__ CUtensorMap tw1,
+                 const __grid_constant__ CUtensorMap tw2,
+                 const bf16* __restrict__ b1, const bf16* __restrict__ b2,
+                 bf16* __restrict__ out, int n) {
+  using F = Ffn<C>;
+  constexpr int ST1 = F::ST1, ST2 = F::ST2;
+  constexpr int NH = F::NH;
+  constexpr int NO = F::CW / 2;         // out accumulators a thread
+  constexpr int NG = NH / 4;            // G values a thread (a chunk)
+  constexpr bool kPingPong = !F::kSplit;
+  extern __shared__ unsigned char smem_raw[];
+  // the 128-byte swizzle pattern repeats every 1024 bytes
+  unsigned char* base =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* x_s = base;
+  unsigned char* w1_s = x_s + F::X_BYTES;
+  unsigned char* w2_s = w1_s + ST1 * F::W1_BYTES;
+  unsigned char* g_s = w2_s + ST2 * F::W2_BYTES;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(g_s + F::G_BYTES);
+  uint64_t* full_x = bars;
+  uint64_t* full1 = bars + 1;
+  uint64_t* empty1 = full1 + ST1;
+  uint64_t* full2 = empty1 + ST1;
+  uint64_t* empty2 = full2 + ST2;
+
+  const int row0 = blockIdx.x * F::BM;
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x / 32) & 3;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
-  const int row0 = blockIdx.x * BM;
-  const int inner = 4 * c;
-  const int nt = c / (8 * WARPS);         // output n8-tiles of each warp
-  const int ocol0 = warp * (c / WARPS);   // first output column of the warp
+  // the elected TMA thread is warpgroup 1's: with the ping-pong it is the
+  // later of the two to release a stage, so it seldom waits for the other
+  const bool producer = threadIdx.x == 128;
 
-  // x tile -> shared, rows past n are zero
-  const int vpr = c / 8;
-  for (int i = threadIdx.x; i < BM * vpr; i += kThreads) {
-    const int r = i / vpr;
-    const int v = i - r * vpr;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n)
-      val = *reinterpret_cast<const uint4*>(x + (size_t)(row0 + r) * c + v * 8);
-    *reinterpret_cast<uint4*>(xs + r * xld + v * 8) = val;
+  // chunk j's W1 rows: [a 0..15 | gate 0..15 | a 16..31 | gate 16..31], so
+  // that each half of the split form is 32 contiguous rows
+  auto load_w1 = [&](int j) {
+    const int s = j % ST1;
+    unsigned char* dst = w1_s + s * F::W1_BYTES;
+    mbar_expect_tx(full1 + s, F::W1_BYTES);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int src = (q & 1) * 4 * C + j * kChunk + (q >> 1) * 16;
+#pragma unroll
+      for (int c = 0; c < F::NCH; ++c)
+        tma_load_2d(dst + c * 2 * kChunk * kAtomBytes + q * 16 * kAtomBytes,
+                    &tw1, full1 + s, c * 64, src);
+    }
+  };
+  // W2's 32 columns of chunk j: C rows in boxes of 64
+  auto load_w2 = [&](int j) {
+    const int s = j % ST2;
+    unsigned char* dst = w2_s + s * F::W2_BYTES;
+    mbar_expect_tx(full2 + s, F::W2_BYTES);
+#pragma unroll
+    for (int r = 0; r < C / 64; ++r)
+      tma_load_2d(dst + r * 64 * kChunk * 2, &tw2, full2 + s, j * kChunk,
+                  r * 64);
+  };
+  // a stage is free once all 8 warps are done with it
+  auto release = [&](uint64_t* bar) {
+    if (lane == 0) mbar_arrive(bar);
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_x, 1);
+    for (int s = 0; s < ST1; ++s) {
+      mbar_init(full1 + s, 1);
+      mbar_init(empty1 + s, 8);
+    }
+    for (int s = 0; s < ST2; ++s) {
+      mbar_init(full2 + s, 1);
+      mbar_init(empty2 + s, 8);
+    }
+    fence_barrier_init();
   }
+  // no thread waits on a barrier, and no TMA load completes on one, before
+  // its initialisation is visible to the block
   __syncthreads();
-
-  float acc[RT][NTMAX][4];
+  if (producer) {
+    mbar_expect_tx(full_x, F::X_BYTES);
 #pragma unroll
-  for (int r = 0; r < RT; ++r)
-#pragma unroll
-    for (int j = 0; j < NTMAX; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[r][j][e] = 0.0f;
-
-  for (int j0 = 0; j0 < inner; j0 += kChunk) {
-    // ---- first product: a and gate columns j0 + 8*warp .. +7
-    float ha[RT][4], hg[RT][4];
-#pragma unroll
-    for (int r = 0; r < RT; ++r)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) ha[r][e] = hg[r][e] = 0.0f;
-    const bf16* wa = w1 + (size_t)(j0 + 8 * warp + g) * c + 2 * t;
-    const bf16* wg = w1 + (size_t)(inner + j0 + 8 * warp + g) * c + 2 * t;
-#pragma unroll 4
-    for (int k0 = 0; k0 < c; k0 += 16) {
-      const uint32_t ba[2] = {vs::ldg32(wa + k0), vs::ldg32(wa + k0 + 8)};
-      const uint32_t bg[2] = {vs::ldg32(wg + k0), vs::ldg32(wg + k0 + 8)};
-#pragma unroll
-      for (int r = 0; r < RT; ++r) {
-        const bf16* xr = xs + (r * 16 + g) * xld + k0 + 2 * t;
-        const uint32_t a[4] = {vs::ld32(xr), vs::ld32(xr + 8 * xld),
-                               vs::ld32(xr + 8), vs::ld32(xr + 8 * xld + 8)};
-        vs::mma_16816(ha[r], a, ba);
-        vs::mma_16816(hg[r], a, bg);
-      }
-    }
-    // ---- bias + gate in registers -> bf16 gated tile
-    const int jc = 8 * warp + 2 * t;
-    const float ba0 = __bfloat162float(b1[j0 + jc]);
-    const float ba1 = __bfloat162float(b1[j0 + jc + 1]);
-    const float bg0 = __bfloat162float(b1[inner + j0 + jc]);
-    const float bg1 = __bfloat162float(b1[inner + j0 + jc + 1]);
-#pragma unroll
-    for (int r = 0; r < RT; ++r) {
-      const int rr = r * 16 + g;
-      *reinterpret_cast<uint32_t*>(gs + rr * kGLd + jc) = vs::pack_bf16(
-          (ha[r][0] + ba0) * gelu_fast(hg[r][0] + bg0),
-          (ha[r][1] + ba1) * gelu_fast(hg[r][1] + bg1));
-      *reinterpret_cast<uint32_t*>(gs + (rr + 8) * kGLd + jc) = vs::pack_bf16(
-          (ha[r][2] + ba0) * gelu_fast(hg[r][2] + bg0),
-          (ha[r][3] + ba1) * gelu_fast(hg[r][3] + bg1));
-    }
-    __syncthreads();
-
-    // ---- second product: out[:, ocol0 ..] += G (BM, kChunk) . W2[:, j0 ..]^T
-#pragma unroll
-    for (int kk = 0; kk < kChunk; kk += 16) {
-      uint32_t a[RT][4];
-#pragma unroll
-      for (int r = 0; r < RT; ++r) {
-        const bf16* gr = gs + (r * 16 + g) * kGLd + kk + 2 * t;
-        a[r][0] = vs::ld32(gr);
-        a[r][1] = vs::ld32(gr + 8 * kGLd);
-        a[r][2] = vs::ld32(gr + 8);
-        a[r][3] = vs::ld32(gr + 8 * kGLd + 8);
-      }
-#pragma unroll
-      for (int j = 0; j < NTMAX; ++j) {
-        if (j < nt) {
-          const bf16* wr =
-              w2 + (size_t)(ocol0 + 8 * j + g) * inner + j0 + kk + 2 * t;
-          const uint32_t b[2] = {vs::ldg32(wr), vs::ldg32(wr + 8)};
-#pragma unroll
-          for (int r = 0; r < RT; ++r) vs::mma_16816(acc[r][j], a[r], b);
-        }
-      }
-    }
-    __syncthreads();  // the gated tile is rewritten by the next chunk
+    for (int c = 0; c < F::NCH; ++c)
+      tma_load_2d(x_s + c * F::BM * kAtomBytes, &tx, full_x, c * 64, row0);
+    for (int j = 0; j < ST1; ++j) load_w1(j);
+    for (int j = 0; j < ST2; ++j) load_w2(j);
   }
+  __syncwarp();
 
-  // ---- epilogue: + b2, round once to bf16
+  // operand addresses: the warpgroup's 64 rows of x (C <= 320), its 32 W1
+  // rows and its CW W2 rows (split)
+  const uint32_t x_addr =
+      smem_u32(x_s) + (F::kSplit ? 0 : wg * 64 * kAtomBytes);
+  const uint32_t w1_addr =
+      smem_u32(w1_s) + (F::kSplit ? wg * kChunk * kAtomBytes : 0);
+  const uint32_t w2_addr =
+      smem_u32(w2_s) + (F::kSplit ? wg * F::CW * kChunk * 2 : 0);
+  const uint32_t g_addr = smem_u32(g_s);
+  // ping-pong (C <= 320): the warpgroups issue their products in turns, so
+  // that one computes its gate while the other's products run. A turn is a
+  // sync on the own barrier and then an arrival on the other's: warpgroup 1
+  // gives warpgroup 0 the first turn, each takes NJ + 1 turns, and
+  // warpgroup 0's last sync takes warpgroup 1's last arrival. A warpgroup
+  // arrives again only after the other's turn, so no barrier phase sees two
+  // arrivals of one warpgroup. Within a turn a warpgroup waits only for W2
+  // stages the producer loaded in an earlier turn of its own, and the
+  // producer waits for empty stages only outside its turns, for stages both
+  // warpgroups release outside theirs: no wait closes a cycle
+  const int my_bar = 2 + wg, other_bar = 3 - wg;
+
+  float o[NO];
 #pragma unroll
-  for (int j = 0; j < NTMAX; ++j) {
-    if (j < nt) {
-      const int col = ocol0 + 8 * j + 2 * t;
-      const float c0 = __bfloat162float(b2[col]);
-      const float c1 = __bfloat162float(b2[col + 1]);
+  for (int i = 0; i < NO; ++i) o[i] = 0.0f;
+  float h[NH / 2];
+  float gv[NG];
+  uint32_t p[8];   // G as the register A operand (C <= 320): 2 k-steps
+
+  // out += G(j) . W2_chunk^T, B K-major (64-byte rows, 64-byte swizzle)
+  auto second = [&](int j) {
+    const uint32_t w2 = w2_addr + (j % ST2) * F::W2_BYTES;
+    mbar_wait(full2 + j % ST2, (j / ST2) & 1);
+    wgmma_fence();
 #pragma unroll
-      for (int r = 0; r < RT; ++r) {
-        const int row = row0 + r * 16 + g;
-        if (row < n)
-          *reinterpret_cast<uint32_t*>(out + (size_t)row * c + col) =
-              vs::pack_bf16(acc[r][j][0] + c0, acc[r][j][1] + c1);
-        if (row + 8 < n)
-          *reinterpret_cast<uint32_t*>(out + (size_t)(row + 8) * c + col) =
-              vs::pack_bf16(acc[r][j][2] + c0, acc[r][j][3] + c1);
+    for (int kc = 0; kc < 2; ++kc)
+#pragma unroll
+      for (int i = 0; i < F::CW / F::NI; ++i) {
+        const uint64_t db = desc_sw64(w2 + i * F::NI * kChunk * 2 + kc * 32,
+                                      16, 512);
+        if constexpr (F::kSplit)
+          wgmma_ss<F::NI>(o + i * F::NI / 2,
+                          desc_sw64(g_addr + (j & 1) * F::G_TILE + kc * 32,
+                                    16, 512),
+                          db, 1);
+        else
+          wgmma_rs_k<F::NI>(o + i * F::NI / 2, p + 4 * kc, db, 1);
       }
+    wgmma_commit();
+  };
+
+  mbar_wait(full_x, 0);
+  if (kPingPong && wg == 1) named_arrive(2, kThreadsFfn);
+  for (int j = 0; j < F::NJ; ++j) {
+    // ---- h = x . W1_chunk^T, then out += G(j-1) . W2^T
+    const int s = j % ST1;
+    const uint32_t ph = (j / ST1) & 1;
+    mbar_wait(full1 + s, ph);
+    if (kPingPong) named_sync(my_bar, kThreadsFfn);
+    wgmma_fence();
+    mma_ss_kmajor<NH, C>(h, x_addr, F::BM * kAtomBytes,
+                         w1_addr + s * F::W1_BYTES, 2 * kChunk * kAtomBytes);
+    wgmma_commit();
+    if (j > 0) second(j - 1);
+    if (kPingPong) named_arrive(other_bar, kThreadsFfn);
+    if (j > 0)
+      wgmma_wait<1>();
+    else
+      wgmma_wait<0>();
+    fence_regs(h);
+    release(empty1 + s);
+    if (producer && j + ST1 < F::NJ) {
+      mbar_wait(empty1 + s, ph);
+      load_w1(j + ST1);
+    }
+    __syncwarp();
+
+    // ---- bias, gelu_fast and the gate in registers. h holds n8 blocks
+    // [a 0..15 | gate 0..15 | a 16..31 | gate 16..31] of the chunk (C <= 320)
+    // or [a | gate] of the warpgroup's 16 columns (split); G block m takes
+    // a block am and gate block am + 2
+#pragma unroll
+    for (int m = 0; m < NG / 4; ++m) {
+      const int am = F::kSplit ? m : (m >> 1) * 4 + (m & 1);
+      const int col = j * kChunk + (F::kSplit ? wg * 16 : 0) + 8 * m + 2 * t;
+      const float ba[2] = {bf16_at(b1 + col), bf16_at(b1 + col + 1)};
+      const float bg[2] = {bf16_at(b1 + 4 * C + col),
+                           bf16_at(b1 + 4 * C + col + 1)};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        gv[4 * m + e] = (h[4 * am + e] + ba[e & 1]) *
+                        gelu_fast(h[4 * (am + 2) + e] + bg[e & 1]);
+    }
+
+    if (j > 0) {
+      wgmma_wait<0>();
+      fence_regs(o);
+      if constexpr (!F::kSplit) fence_regs(p);
+      release(empty2 + (j - 1) % ST2);
+      if (producer && j - 1 + ST2 < F::NJ) {
+        mbar_wait(empty2 + (j - 1) % ST2, ((j - 1) / ST2) & 1);
+        load_w2(j - 1 + ST2);
+      }
+      __syncwarp();
+    }
+    if constexpr (F::kSplit) {
+      // this warpgroup's 16 columns of the 64 x 32 G tile, written in the
+      // 64-byte swizzle: 16-byte unit u of row r at u ^ ((r >> 1) & 3)
+      unsigned char* gt = g_s + (j & 1) * F::G_TILE;
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int r = warp * 16 + g + 8 * rr;
+          const int unit = (2 * wg + m) ^ ((r >> 1) & 3);
+          *reinterpret_cast<uint32_t*>(gt + r * 64 + unit * 16 + 4 * t) =
+              pack_bf16(gv[4 * m + 2 * rr], gv[4 * m + 2 * rr + 1]);
+        }
+      fence_proxy_async();
+      named_sync(1, kThreadsFfn);
+    } else {
+      to_bf16<NG>(p, gv);
+    }
+  }
+  if (kPingPong) named_sync(my_bar, kThreadsFfn);
+  second(F::NJ - 1);
+  if (kPingPong) named_arrive(other_bar, kThreadsFfn);
+  wgmma_wait<0>();
+  fence_regs(o);
+  // warpgroup 1's last arrival on warpgroup 0's barrier is matched here
+  if (kPingPong && wg == 0) named_sync(my_bar, kThreadsFfn);
+
+  // ---- epilogue: + b2, round once to bf16; rows past n are not stored
+  const int r0 = row0 + (F::kSplit ? 0 : wg * 64) + warp * 16 + g;
+  const int c0 = F::kSplit ? wg * F::CW : 0;
+#pragma unroll
+  for (int jj = 0; jj < F::CW / 8; ++jj) {
+    const int col = c0 + 8 * jj + 2 * t;
+    const float bias0 = bf16_at(b2 + col), bias1 = bf16_at(b2 + col + 1);
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int row = r0 + 8 * rr;
+      if (row < n)
+        *reinterpret_cast<uint32_t*>(out + (size_t)row * C + col) =
+            pack_bf16(o[4 * jj + 2 * rr] + bias0,
+                      o[4 * jj + 2 * rr + 1] + bias1);
     }
   }
 }
 
-template <int WARPS, int RT, int NTMAX>
-cudaError_t launch(const bf16* x, const bf16* w1, const bf16* b1,
-                   const bf16* w2, const bf16* b2, bf16* out, int n, int c,
-                   cudaStream_t stream) {
-  constexpr int BM = RT * 16;
-  const size_t smem =
-      (size_t)(BM * (c + 8) + BM * (8 * WARPS + 8)) * sizeof(bf16);
-  cudaError_t err = cudaFuncSetAttribute(
-      geglu_ffn_kernel<WARPS, RT, NTMAX>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <int C>
+cudaError_t launch_ffn(const bf16* x, const bf16* w1, const bf16* b1,
+                       const bf16* w2, const bf16* b2, bf16* out, int n,
+                       cudaStream_t stream) {
+  using F = Ffn<C>;
+  CUtensorMap tx, tw1, tw2;
+  cudaError_t err;
+  if ((err = make_map_2d(&tx, x, C, n, 64, F::BM,
+                         CU_TENSOR_MAP_SWIZZLE_128B)) != cudaSuccess ||
+      (err = make_map_2d(&tw1, w1, C, 8 * C, 64, 16,
+                         CU_TENSOR_MAP_SWIZZLE_128B)) != cudaSuccess ||
+      (err = make_map_2d(&tw2, w2, 4 * C, C, kChunk, 64,
+                         CU_TENSOR_MAP_SWIZZLE_64B)) != cudaSuccess)
+    return err;
+  err = cudaFuncSetAttribute(geglu_ffn_kernel<C>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             F::SMEM);
   if (err != cudaSuccess) return err;
-  const dim3 grid((n + BM - 1) / BM);
-  geglu_ffn_kernel<WARPS, RT, NTMAX>
-      <<<grid, WARPS * 32, smem, stream>>>(x, w1, b1, w2, b2, out, n, c);
+  const dim3 grid((n + F::BM - 1) / F::BM);
+  geglu_ffn_kernel<C><<<grid, kThreadsFfn, F::SMEM, stream>>>(
+      tx, tw1, tw2, b1, b2, out, n);
   return cudaGetLastError();
+}
+
+// g[r, c] = bf16(a * bf16(gelu_fast(gate))) with a = h[r, c] and gate =
+// h[r, inner + c]; eight columns a thread
+__global__ void __launch_bounds__(256)
+geglu_gate_kernel(const bf16* __restrict__ h, bf16* __restrict__ g,
+                  long long n, int inner) {
+  const int vpr = inner / 8;
+  const long long total = n * vpr;
+  for (long long i = blockIdx.x * 256LL + threadIdx.x; i < total;
+       i += (long long)gridDim.x * 256) {
+    const long long r = i / vpr;
+    const int v = (int)(i - r * vpr);
+    const bf16* hr = h + r * 2 * inner + v * 8;
+    const uint4 av = __ldg(reinterpret_cast<const uint4*>(hr));
+    const uint4 gv = __ldg(reinterpret_cast<const uint4*>(hr + inner));
+    const bf16* a = reinterpret_cast<const bf16*>(&av);
+    const bf16* gate = reinterpret_cast<const bf16*>(&gv);
+    uint4 ov;
+    bf16* o = reinterpret_cast<bf16*>(&ov);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const float ge = __bfloat162float(
+          __float2bfloat16_rn(gelu_fast_rn(__bfloat162float(gate[e]))));
+      o[e] = __float2bfloat16_rn(__fmul_rn(__bfloat162float(a[e]), ge));
+    }
+    *reinterpret_cast<uint4*>(g + r * inner + v * 8) = ov;
+  }
 }
 
 }  // namespace
@@ -213,7 +445,7 @@ cudaError_t launch(const bf16* x, const bf16* w1, const bf16* b1,
 extern "C" int vs_geglu_ffn(const void* x, const void* w1, const void* b1,
                             const void* w2, const void* b2, void* out, int n,
                             int c, void* stream) {
-  if (n <= 0 || c <= 0 || c % 64 != 0) return (int)cudaErrorInvalidValue;
+  if (n <= 0) return (int)cudaErrorInvalidValue;
   const auto* xb = static_cast<const bf16*>(x);
   const auto* w1b = static_cast<const bf16*>(w1);
   const auto* b1b = static_cast<const bf16*>(b1);
@@ -221,12 +453,32 @@ extern "C" int vs_geglu_ffn(const void* x, const void* w1, const void* b1,
   const auto* b2b = static_cast<const bf16*>(b2);
   auto* ob = static_cast<bf16*>(out);
   auto s = static_cast<cudaStream_t>(stream);
-  // output n8-tiles per warp: c / (8 * warps) <= NTMAX, RT * NTMAX <= 20
-  if (c % 128 == 0 && c <= 640)
-    return (int)launch<16, 4, 5>(xb, w1b, b1b, w2b, b2b, ob, n, c, s);
-  if (c % 128 == 0 && c <= 1280)
-    return (int)launch<16, 2, 10>(xb, w1b, b1b, w2b, b2b, ob, n, c, s);
-  if (c <= 320)
-    return (int)launch<8, 4, 5>(xb, w1b, b1b, w2b, b2b, ob, n, c, s);
-  return (int)cudaErrorInvalidValue;
+  switch (c) {
+#define VS_FFN_CASE(C) \
+  case C:              \
+    return (int)launch_ffn<C>(xb, w1b, b1b, w2b, b2b, ob, n, s);
+    VS_FFN_CASE(64)
+    VS_FFN_CASE(128)
+    VS_FFN_CASE(192)
+    VS_FFN_CASE(256)
+    VS_FFN_CASE(320)
+    VS_FFN_CASE(384)
+    VS_FFN_CASE(512)
+    VS_FFN_CASE(640)
+#undef VS_FFN_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// h (n, 2 * inner) -> g (n, inner), inner a multiple of 8
+extern "C" int vs_geglu_gate(const void* h, void* g, int n, int inner,
+                             void* stream) {
+  if (n <= 0 || inner <= 0 || inner % 8) return (int)cudaErrorInvalidValue;
+  const long long total = (long long)n * (inner / 8);
+  const long long blocks = (total + 255) / 256;
+  geglu_gate_kernel<<<(unsigned)(blocks < (1 << 20) ? blocks : (1 << 20)),
+                      256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(h), static_cast<bf16*>(g), n, inner);
+  return (int)cudaGetLastError();
 }

@@ -2,11 +2,15 @@
 //
 // wgmma_ss<N>: D(64 x N) (+)= A(64 x 16) B(16 x N), both operands read from
 //   shared memory through descriptors, both K-major (A row-major, B stored
-//   N rows of K). Used for S = Q.K^T and the backward's S and dP.
+//   N rows of K). Used for S = Q.K^T, the backward's S and dP, and the
+//   GEGLU feed-forward's products.
 // wgmma_rs<N>: the same with A taken from registers (four 32-bit registers a
 //   thread, the mma.m16n8k16 A-fragment layout for the warp's 16 rows) and
 //   B MN-major (stored K rows of N, the "transposed" flag set). Used for
 //   O += P.V with P converted in registers from the S accumulator.
+// wgmma_rs_k<N>: the register form with B K-major (stored N rows of K, as
+//   wgmma_ss's B). Used for the GEGLU feed-forward's out += G.W2^T, where
+//   W2's rows are the output columns.
 //
 // scale_d = 0 overwrites D, 1 accumulates into it. Each accumulator register
 // is its own asm operand, so every width N has its own wrapper, one line
@@ -37,6 +41,9 @@ __device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db,
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float* d, uint32_t* a, uint64_t db,
                                          int scale_d);
+template <int N>
+__device__ __forceinline__ void wgmma_rs_k(float* d, uint32_t* a, uint64_t db,
+                                           int scale_d);
 
 // four accumulators: their numbers in the asm text, their operands
 #define VS_S4(a, b, c, e) "%" #a ", %" #b ", %" #c ", %" #e
@@ -78,21 +85,28 @@ __device__ __forceinline__ void wgmma_rs(float* d, uint32_t* a, uint64_t db,
                    "+r"(unused2) VS_ACC##R(VS_F4_, VS_F4_));                  \
   }
 
-#define VS_WGMMA_RS(N, R)                                                     \
+// FN: wgmma_rs (B MN-major, the transpose flag set) or wgmma_rs_k (B
+// K-major, stored N rows of K)
+#define VS_WGMMA_RS_(FN, TNSP_B, N, R)                                        \
   template <>                                                                 \
-  __device__ __forceinline__ void wgmma_rs<N>(float* d, uint32_t* a,          \
-                                              uint64_t db, int scale_d) {     \
+  __device__ __forceinline__ void FN<N>(float* d, uint32_t* a, uint64_t db,   \
+                                        int scale_d) {                        \
     asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %5, 0;\n"                 \
                  "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {" \
                  VS_ACC##R(VS_S4, VS_S4_) "}, {%0, %1, %2, %3}, %4, p, 1, 1, " \
-                 "1;\n}\n"                                                   \
+                 TNSP_B ";\n}\n"                                              \
                  : "+r"(a[0]), "+r"(a[1]), "+r"(a[2]), "+r"(a[3]), "+l"(db),  \
                    "+r"(scale_d) VS_ACC##R(VS_F4_, VS_F4_));                  \
   }
+#define VS_WGMMA_RS(N, R) VS_WGMMA_RS_(wgmma_rs, "1", N, R)
+#define VS_WGMMA_RS_K(N, R) VS_WGMMA_RS_(wgmma_rs_k, "0", N, R)
 
 // (N, N / 2)
+VS_WGMMA_SS(32, 16)
 VS_WGMMA_SS(64, 32)
+VS_WGMMA_SS(96, 48)
 VS_WGMMA_SS(128, 64)
+VS_WGMMA_SS(160, 80)
 VS_WGMMA_RS(8, 4)
 VS_WGMMA_RS(16, 8)
 VS_WGMMA_RS(24, 12)
@@ -113,8 +127,14 @@ VS_WGMMA_RS(136, 68)
 VS_WGMMA_RS(144, 72)
 VS_WGMMA_RS(152, 76)
 VS_WGMMA_RS(160, 80)
+VS_WGMMA_RS_K(64, 32)
+VS_WGMMA_RS_K(96, 48)
+VS_WGMMA_RS_K(128, 64)
+VS_WGMMA_RS_K(160, 80)
 
+#undef VS_WGMMA_RS_K
 #undef VS_WGMMA_RS
+#undef VS_WGMMA_RS_
 #undef VS_WGMMA_SS
 #undef VS_ACC4
 #undef VS_ACC8

@@ -33,6 +33,7 @@ _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 # C entry point -> argument types; every entry point returns a cudaError_t
 _SIGNATURES = {
     'vs_geglu_ffn': [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    'vs_geglu_gate': [_P, _P, _I, _I, _P],
     'vs_temporal_attention': [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     'vs_flash_attention_fwd': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _STRIDES, _P],
