@@ -857,6 +857,29 @@ def _fused_temporal(report, gen, side, c):
                                               include_ffn=False), x2, mod), 5)
             log(f'# fused_temporal C={c}: kernel + ffn_tail {route:.3f} ms, '
                 f'the whole layer-wise module {full:.3f} ms')
+    # a model of the kernel's L2 traffic, not a measurement: each block
+    # (64-row sets of 64 // F whole locations, two a block at C <= 320)
+    # reads all the weights it uses
+    per_block = 2 if c <= 320 else 1
+    sets = -(-b * hw // (64 // f))       # over the B x HW locations
+    blocks = -(-sets // per_block)
+    l2_gb = blocks * 2 * n_mat * c * c / 1e9
+    log(f'# fused_temporal C={c}: model: {blocks} blocks of '
+        f'{64 * per_block} rows would read {l2_gb:.2f} GB of weights from L2')
+    with torch.no_grad():
+        one = ft.fused_temporal_transformer(g2, x2, pe, flat, heads, f,
+                                            include_ffn=inc)
+        two = ft.fused_temporal_transformer(g2, x2, pe, flat, heads, f,
+                                            include_ffn=inc)
+        fm = ft.fused_temporal_transformer_bfhw(g4, x4, pe, flat, heads, f,
+                                                include_ffn=inc)
+    same = torch.equal(one, two) and torch.equal(ft.unrows(one, b, f, hw),
+                                                 fm)
+    log(f'# fused_temporal C={c}: two calls and the two layouts give the '
+        f'same bits: {same}')
+    if not same:
+        raise PhaseError(f'fused_temporal C={c}: calls or layouts differ')
+    del one, two, fm
     f32 = [p.float() for p in flat]
     desc = f'rows={rows} F={f} C={c}' + ('' if inc else ' attention half')
     _compare('fused_temporal', desc,

@@ -44,6 +44,12 @@ check of chip_smoke.py's kernels phase. The faults:
                       zeroed), in both attention blocks, at C = 320 and 640;
 - fused_skip_ffn:     the fused kernel's FFN half adds nothing at C = 320
                       (its second GEGLU product and bias zeroed);
+- fused_last_location: the fused kernel's output rows of the last location
+                      of each 64-row set (the kernel's row sets hold 64 // F
+                      whole locations, in (batch, location) order in both
+                      layouts) are zero, at both widths: the likeliest slip
+                      of the kernel's row tiling (a location dropped at the
+                      end of a tile);
 - edit_cross_skipped: the prompt-to-prompt controller leaves the
                       cross-attention maps unedited (no refinement from the
                       source prompt's maps);
@@ -208,6 +214,37 @@ def _fused_fault(kind):
         yield
 
 
+@contextlib.contextmanager
+def _fused_last_location():
+    """Zero the fused kernel's output rows of the last location of each
+    row set (CUDA tensors only; a mask product, so autograd goes on)."""
+    import torch
+
+    from videoswap_torch.models import motion_module as mm
+
+    def wrap(fn, bfhw):
+        def faulted(g, x, pe, flat, heads, f, n_blocks=1, include_ffn=True):
+            out = fn(g, x, pe, flat, heads, f, n_blocks, include_ffn)
+            if not out.is_cuda:
+                return out
+            c = out.shape[-1]
+            locs = 64 // f       # whole locations a 64-row set of the kernel
+            n = out.shape[0] * out.shape[2] if bfhw else out.shape[0] // f
+            keep = (torch.arange(n, device=out.device) % locs
+                    != locs - 1).to(out.dtype)
+            if bfhw:
+                return out * keep.view(out.shape[0], 1, -1, 1)
+            return (out.view(n, f, c) * keep.view(n, 1, 1)).view(-1, c)
+        return faulted
+
+    with mock.patch.object(mm, 'fused_temporal_transformer',
+                           wrap(mm.fused_temporal_transformer, False)), \
+            mock.patch.object(mm, 'fused_temporal_transformer_bfhw',
+                              wrap(mm.fused_temporal_transformer_bfhw,
+                                   True)):
+        yield
+
+
 def _hash_skip(kept):
     from videoswap_torch.ops import hash_table_grad as hg
     launch = hg._launch
@@ -293,6 +330,7 @@ FAULTS = {
         lambda r: max(0, (r - 1) // 256 * 256)),
     'fused_last_head': lambda tr: _fused_fault('last_head'),
     'fused_skip_ffn': lambda tr: _fused_fault('skip_ffn'),
+    'fused_last_location': lambda tr: _fused_last_location(),
     'edit_cross_skipped': lambda tr: _edit_cross_skipped(),
     'blend_latents_skipped': lambda tr: _blend_latents_skipped(),
     'spatial_last_key_tile': lambda tr: _spatial_last_key_tile(),

@@ -575,7 +575,8 @@ def test_fused_temporal_kernel_matches_plain(cuda, locs, f, c, heads,
 
 
 @pytest.mark.parametrize('b,f,hw,c,include_ffn', [
-    (2, 16, 37, 320, True), (2, 16, 13, 640, False), (1, 8, 9, 64, True)])
+    (2, 16, 37, 320, True), (2, 16, 13, 640, False), (1, 8, 9, 64, True),
+    (2, 20, 7, 320, True), (3, 24, 5, 640, False)])
 def test_fused_temporal_frame_major_kernel_matches_plain(cuda, b, f, hw, c,
                                                          include_ffn):
     g, x, pe, flat = _fused_args(c, 8, f, (b, f, hw, c), include_ffn, 1,
@@ -594,6 +595,51 @@ def test_fused_temporal_frame_major_kernel_matches_plain(cuda, b, f, hw, c,
                                           tft.rows_of(x).contiguous(), pe,
                                           flat, 8, f, include_ffn=include_ffn)
     assert torch.equal(tft.unrows(rows, b, f, hw), out)
+
+
+@pytest.mark.parametrize('locs,f,c,heads,include_ffn', [
+    (1, 16, 320, 8, True), (1, 16, 640, 8, False), (5, 16, 320, 8, True),
+    (3, 16, 640, 8, False), (1, 24, 128, 4, True), (7, 20, 320, 8, True),
+    (9, 8, 640, 8, True), (6, 16, 192, 8, True), (5, 16, 448, 7, False)])
+def test_fused_temporal_kernel_row_tile_edges(cuda, locs, f, c, heads,
+                                              include_ffn):
+    """The kernel's row sets hold 64 // F whole locations (two row sets
+    a block at C <= 320, one above): n_loc = 1, and
+    location counts that fill neither a row set nor a block, at widths of
+    both forms (odd head counts among them); and two calls give the same
+    bits."""
+    g, x, pe, flat = _fused_args(c, heads, f, (locs * f, c), include_ffn, 6,
+                                 cuda)
+    out = tft.fused_temporal_transformer(g, x, pe, flat, heads, f,
+                                         include_ffn=include_ffn)
+    again = tft.fused_temporal_transformer(g, x, pe, flat, heads, f,
+                                           include_ffn=include_ffn)
+    assert torch.equal(out, again)
+    ref = tft.fused_temporal_plain(g.float(), x.float(), pe.float(),
+                                   _f32(flat), heads, f, 1, include_ffn)
+    assert (out.float() - ref).abs().max().item() < 5e-2
+
+
+@pytest.mark.parametrize('hw,c,include_ffn', [(4096, 320, True),
+                                              (1024, 640, False)])
+def test_fused_temporal_level_shapes_both_layouts(cuda, hw, c, include_ffn):
+    """U-Net levels 0 and 1 (CFG batch 2 x 16 frames): the frame-major
+    layout gives the bits of the (location, frame) layout, two calls give
+    the same bits, and both agree with the plain version."""
+    b, f = 2, 16
+    g, x, pe, flat = _fused_args(c, 8, f, (b, f, hw, c), include_ffn, 7,
+                                 cuda)
+    out = tft.fused_temporal_transformer_bfhw(g, x, pe, flat, 8, f,
+                                              include_ffn=include_ffn)
+    assert torch.equal(out, tft.fused_temporal_transformer_bfhw(
+        g, x, pe, flat, 8, f, include_ffn=include_ffn))
+    g2, x2 = tft.rows_of(g).contiguous(), tft.rows_of(x).contiguous()
+    rows = tft.fused_temporal_transformer(g2, x2, pe, flat, 8, f,
+                                          include_ffn=include_ffn)
+    assert torch.equal(tft.unrows(rows, b, f, hw), out)
+    ref = tft.fused_temporal_plain(g2.float(), x2.float(), pe.float(),
+                                   _f32(flat), 8, f, 1, include_ffn)
+    assert (rows.float() - ref).abs().max().item() < 5e-2
 
 
 @pytest.mark.parametrize('bfhw', [False, True])

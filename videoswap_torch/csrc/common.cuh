@@ -38,53 +38,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return r;
 }
 
-__device__ __forceinline__ uint32_t pack_u16(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-// 32-bit load of two adjacent bf16 (shared or global memory, 4-byte aligned)
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// read-only-cache 32-bit load from global memory
-__device__ __forceinline__ uint32_t ldg32(const bf16* p) {
-  return __ldg(reinterpret_cast<const unsigned int*>(p));
-}
-
-// A fragment (16x16) of rows [r, r + 16), columns [c, c + 16) of a
-// row-major shared tile with leading dimension LD
-__device__ __forceinline__ void frag_a(uint32_t a[4], const bf16* tile,
-                                       int LD, int r, int c) {
-  const int lane = threadIdx.x & 31;
-  const bf16* p = tile + (r + (lane >> 2)) * LD + c + 2 * (lane & 3);
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * LD);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * LD + 8);
-}
-
-// B fragment (16x8) with B[k][n] = tile[n0 + n][k0 + k]: the tile holds B
-// transposed (keys against head dim for Q.K^T)
-__device__ __forceinline__ void frag_bt(uint32_t b[2], const bf16* tile,
-                                        int LD, int n0, int k0) {
-  const int lane = threadIdx.x & 31;
-  const bf16* p = tile + (n0 + (lane >> 2)) * LD + k0 + 2 * (lane & 3);
-  b[0] = ld32(p);
-  b[1] = ld32(p + 8);
-}
-
-// B fragment (16x8) with B[k][n] = tile[k0 + k][n0 + n]: the tile holds B
-// as it is (keys against head dim for P.V)
-__device__ __forceinline__ void frag_b(uint32_t b[2], const bf16* tile,
-                                       int LD, int k0, int n0) {
-  const int lane = threadIdx.x & 31;
-  const bf16* p = tile + (k0 + 2 * (lane & 3)) * LD + n0 + (lane >> 2);
-  b[0] = pack_u16(p[0], p[LD]);
-  b[1] = pack_u16(p[8 * LD], p[9 * LD]);
-}
-
 // A fragment (16x16) from two fp32 C fragments (16x8 each, columns
 // [0, 8) and [8, 16)): the C and A layouts line up, so a product's result
 // feeds the next product without a shared-memory round trip

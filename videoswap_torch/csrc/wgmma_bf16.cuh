@@ -3,13 +3,14 @@
 // wgmma_ss<N>: D(64 x N) (+)= A(64 x 16) B(16 x N), both operands read from
 //   shared memory through descriptors, both K-major (A row-major, B stored
 //   N rows of K). Used for S = Q.K^T, the backward's S and dP, and the
-//   GEGLU feed-forward's products.
+//   GEGLU feed-forward's and the fused temporal transformer's products.
 // wgmma_rs<N>: the same with A taken from registers (four 32-bit registers a
 //   thread, the mma.m16n8k16 A-fragment layout for the warp's 16 rows) and
 //   B MN-major (stored K rows of N, the "transposed" flag set). Used for
 //   O += P.V with P converted in registers from the S accumulator.
 // wgmma_rs_k<N>: the register form with B K-major (stored N rows of K, as
-//   wgmma_ss's B). Used for the GEGLU feed-forward's out += G.W2^T, where
+//   wgmma_ss's B). Used for the GEGLU feed-forward's out += G.W2^T (in
+//   csrc/geglu_ffn.cu and the fused temporal transformer's FFN tail), where
 //   W2's rows are the output columns.
 //
 // scale_d = 0 overwrites D, 1 accumulates into it. Each accumulator register
@@ -101,6 +102,59 @@ __device__ __forceinline__ void wgmma_rs_k(float* d, uint32_t* a, uint64_t db,
 #define VS_WGMMA_RS(N, R) VS_WGMMA_RS_(wgmma_rs, "1", N, R)
 #define VS_WGMMA_RS_K(N, R) VS_WGMMA_RS_(wgmma_rs_k, "0", N, R)
 
+// The same products with the 64-byte-swizzle descriptors (`desc_sw64`,
+// rows of 64 bytes, 8-row groups 512 bytes apart) built inside the asm from
+// a shared address and an immediate offset: Sw64<N>::ss<OA, OB>(d, a, b)
+// takes A at a + OA and B at b + OB, Sw64<N>::rs_k<OB>(d, a_regs, b) B at
+// b + OB. A caller that issues many products from one base then holds one
+// register, not a 64-bit descriptor for each product, which ptxas would
+// otherwise compute ahead of the first issue (the fused temporal kernel at
+// C = 320 spills beside its 160 accumulators without this). The immediates
+// are operands IA and IB, after the accumulators.
+template <int N>
+struct Sw64;
+
+#define VS_SW64_DESC(REG, BASE, OFF)                                  \
+  "add.u32 " REG ", " BASE ", " OFF ";\n"                             \
+  "and.b32 " REG ", " REG ", 0x3FFFF;\n"                              \
+  "shr.u32 " REG ", " REG ", 4;\n"                                    \
+  "or.b32 " REG ", " REG ", 0x10000;\n"
+
+#define VS_WGMMA_SW64(N, R, IA, IB)                                            \
+  template <>                                                                  \
+  struct Sw64<N> {                                                             \
+    template <int OA, int OB>                                                  \
+    __device__ __forceinline__ static void ss(float* d, uint32_t a,            \
+                                              uint32_t b) {                    \
+      uint32_t scale_d = 1, unused0 = 0, unused1 = 0, unused2 = 0;             \
+      asm volatile("{\n.reg .b32 la, lb, hi;\n.reg .b64 da, db;\n"          \
+                   ".reg .pred p;\n" VS_SW64_DESC("la", "%0", "%" #IA)        \
+                   VS_SW64_DESC("lb", "%1", "%" #IB)                           \
+                   "mov.b32 hi, 0x80000020;\nmov.b64 da, {la, hi};\n"         \
+                   "mov.b64 db, {lb, hi};\nsetp.ne.b32 p, %2, 0;\n"           \
+                   "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {" \
+                   VS_ACC##R(VS_S4, VS_S4_) "}, da, db, p, 1, 1, 0, 0;\n}\n"   \
+                   : "+r"(a), "+r"(b), "+r"(scale_d), "+r"(unused0),           \
+                     "+r"(unused1), "+r"(unused2) VS_ACC##R(VS_F4_, VS_F4_)     \
+                   : "n"(OA), "n"(OB));                                        \
+    }                                                                          \
+    template <int OB>                                                          \
+    __device__ __forceinline__ static void rs_k(float* d, uint32_t* a,         \
+                                                uint32_t b) {                  \
+      uint32_t scale_d = 1;                                                    \
+      asm volatile("{\n.reg .b32 lb, hi;\n.reg .b64 db;\n.reg .pred p;\n"   \
+                   VS_SW64_DESC("lb", "%4", "%" #IA)                           \
+                   "mov.b32 hi, 0x80000020;\nmov.b64 db, {lb, hi};\n"         \
+                   "setp.ne.b32 p, %5, 0;\n"                                   \
+                   "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {" \
+                   VS_ACC##R(VS_S4, VS_S4_) "}, {%0, %1, %2, %3}, db, p, 1, 1, " \
+                   "0;\n}\n"                                                  \
+                   : "+r"(a[0]), "+r"(a[1]), "+r"(a[2]), "+r"(a[3]), "+r"(b),  \
+                     "+r"(scale_d) VS_ACC##R(VS_F4_, VS_F4_)                   \
+                   : "n"(OB));                                                 \
+    }                                                                          \
+  };
+
 // (N, N / 2)
 VS_WGMMA_SS(32, 16)
 VS_WGMMA_SS(64, 32)
@@ -131,7 +185,18 @@ VS_WGMMA_RS_K(64, 32)
 VS_WGMMA_RS_K(96, 48)
 VS_WGMMA_RS_K(128, 64)
 VS_WGMMA_RS_K(160, 80)
+// (N, N / 2, N / 2 + 6, N / 2 + 7): the operand numbers of the immediates
+VS_WGMMA_SW64(32, 16, 22, 23)
+VS_WGMMA_SW64(64, 32, 38, 39)
+VS_WGMMA_SW64(80, 40, 46, 47)
+VS_WGMMA_SW64(96, 48, 54, 55)
+VS_WGMMA_SW64(112, 56, 62, 63)
+VS_WGMMA_SW64(128, 64, 70, 71)
+VS_WGMMA_SW64(144, 72, 78, 79)
+VS_WGMMA_SW64(160, 80, 86, 87)
 
+#undef VS_WGMMA_SW64
+#undef VS_SW64_DESC
 #undef VS_WGMMA_RS_K
 #undef VS_WGMMA_RS
 #undef VS_WGMMA_RS_
