@@ -21,14 +21,20 @@ Phases (all by default):
                units' rate); GEGLU by its width's route (the fused kernel
                at C <= 640; above it the split route, its gate pass also
                checked entry by entry and timed alone), beside the two
-               cuBLAS products alone; one gradient check each of the GEGLU
+               cuBLAS products alone; temporal attention also at tiling
+               edges (location counts that are not a multiple of a work
+               item's, F = 1, 7, 17, 32), two calls bitwise equal at every
+               shape; one gradient check each of the GEGLU
                and temporal-attention autograd Functions; the hash-grid
                table-gradient kernel (fp32) against its plain version at
                the atlas levels' table sizes and 240000 rows,
                with index_add_ as the library call, two calls (and both
                forms of its scatter) on the same inputs bitwise equal, NaN
                and infinite rows leaving their entries as the plain
-               version does, and
+               version does; one main step's 16 levels in one call, each
+               level bit-equal to hash_table_grad_fixed on it alone, timed
+               beside the 16 one-level calls and 16 index_add_ calls, with
+               its launch count; and
                the hash encoding's gradients on the card against the CPU;
                the fused
                temporal-transformer kernel in both layouts at U-Net levels 0
@@ -104,7 +110,8 @@ Phases (all by default):
                on the card, UV pretraining of both mappings, ATLAS_STEPS
                iterations of main step + inverse step at batch 10000 (the
                losses must be finite and fall, the hash kernel must launch
-               16 times a main step), the reconstruction PSNR of 4 frames
+               once a main step: all 16 levels in one launch), the
+               reconstruction PSNR of 4 frames
                and one propagated point drag.
 
 Launch counts are set to 0 just before the unrouted, sample, train, blend
@@ -513,10 +520,12 @@ def bf16_ulps(out, ref) -> float:
 
 def _compare(name, shape_desc, kernel, plain_bf16, plain_fp32, report,
              work, library=None, iters=10, relative=False, ulps=False,
-             exps=None, **extra):
+             exps=None, ahead=False, **extra):
     """Kernel against its plain version; with `relative` the limit holds
     the error over the largest |plain| entry, with `ulps` the error against
-    the bf16 plain version in bf16 ulps of each entry (bf16_ulps)."""
+    the bf16 plain version in bf16 ulps of each entry (bf16_ulps). With
+    `ahead` the kernel's time is the device's alone (cuda_time_ms), and its
+    time launched one after another is kept too (`paced_ms`)."""
     import torch
     out = kernel()
     torch.cuda.synchronize()
@@ -525,15 +534,19 @@ def _compare(name, shape_desc, kernel, plain_bf16, plain_fp32, report,
     crit = err / float(ref.float().abs().max()) if relative else err
     if ulps:
         crit = bf16_ulps(out, plain_bf16())
-    ms = cuda_time_ms(kernel, iters)
+    ms = cuda_time_ms(kernel, iters, ahead=ahead)
+    if ahead:
+        extra['paced_ms'] = cuda_time_ms(kernel, iters)
     plain_ms = cuda_time_ms(plain_bf16, max(2, iters // 3), warmup=1)
     ok = crit <= TOL[name] and bool(torch.isfinite(out).all())
     log(f'# kernel {name} {shape_desc}: max_abs_err {err:.3e}'
         + (f', /max|plain| {crit:.3e}' if relative else '')
         + (f', bf16 ulps of the bf16 plain version {crit:g}' if ulps
            else '')
-        + f' (tol {TOL[name]:g}) kernel {ms:.3f} ms plain(bf16) '
-        f'{plain_ms:.3f} ms {"ok" if ok else "FAIL"}')
+        + f' (tol {TOL[name]:g}) kernel {ms:.4f} ms'
+        + (f' (device, queued ahead; {extra["paced_ms"]:.4f} ms launched one '
+           'after another)' if ahead else '')
+        + f' plain(bf16) {plain_ms:.3f} ms {"ok" if ok else "FAIL"}')
     _record(report, name, shape_desc, err, ms, plain_ms, work, library, exps,
             **extra)
     if relative or ulps:
@@ -694,18 +707,40 @@ def phase_kernels(report):
         'the two cuBLAS products alone (F.linear(x, w1, b1), '
         'F.linear(g, w2, b2))')
 
-    # temporal attention: L locations x F=16 frames, 8 heads
-    for el, c in ((8192, 320), (2048, 640), (512, 1280), (128, 1280)):
-        q, k, v = (_rand(gen, (el * FRAMES, c)) for _ in range(3))
-        view = (lambda t: t.view(el, FRAMES, 8, c // 8))
-        _compare('temporal_attention', f'L={el} F={FRAMES} C={c}',
-                 lambda: ta.temporal_attention(q, k, v, 8, FRAMES),
-                 lambda: ta.temporal_attention_plain(q, k, v, 8, FRAMES),
-                 lambda: ta.temporal_attention_plain(*f32((q, k, v)), 8,
-                                                     FRAMES), report,
-                 (4 * el * FRAMES * FRAMES * c, 2 * 4 * el * FRAMES * c),
+    # temporal attention: L locations x F=16 frames, 8 heads, at the U-Net
+    # levels' shapes (the swap launches it at C = 1280: 2 x 16 x 16 and
+    # 2 x 8 x 8 locations), then at tiling edges: location counts that are
+    # not a multiple of a work item's (ta.plan's lg, which the log line
+    # prints), F around the 16-row tiles. Two calls on the same inputs must
+    # give the same bits. The kernel and SDPA are timed on the device alone
+    # (queued ahead): at the small shapes a call launched after another is
+    # paced by the host
+    same = True
+    for el, f, c in ((8192, FRAMES, 320), (2048, FRAMES, 640),
+                     (512, FRAMES, 1280), (128, FRAMES, 1280),
+                     (333, 1, 1280), (101, 7, 640), (77, 17, 320),
+                     (45, 32, 1280)):
+        q, k, v = (_rand(gen, (el * f, c)) for _ in range(3))
+        view = (lambda t: t.view(el, f, 8, c // 8))
+        hc, lg = ta.plan(f, c, 8)
+        _compare('temporal_attention', f'L={el} F={f} C={c}',
+                 lambda: ta.temporal_attention(q, k, v, 8, f),
+                 lambda: ta.temporal_attention_plain(q, k, v, 8, f),
+                 lambda: ta.temporal_attention_plain(*f32((q, k, v)), 8, f),
+                 report, (4 * el * f * f * c, 2 * 4 * el * f * c),
                  lambda: cuda_time_ms(
-                     lambda: _sdpa(view(q), view(k), view(v)), 10))
+                     lambda: _sdpa(view(q), view(k), view(v)), 10,
+                     ahead=True),
+                 ahead=True)
+        twice = [ta.temporal_attention(q, k, v, 8, f) for _ in range(2)]
+        same = same and torch.equal(*twice)
+        log(f'# kernel temporal_attention L={el} F={f} C={c}: items of '
+            f'{lg} locations x {hc} heads, two calls bitwise equal '
+            f'{torch.equal(*twice)}')
+    report['kernels']['temporal_attention']['bitwise_repeatable'] = same
+    if not same:
+        raise PhaseError('temporal_attention: two calls on the same inputs '
+                         'differ')
 
     # fused temporal transformer: the CFG batch of 2 x 16 frames at level 0
     # (C = 320, with the FFN) and level 1 (C = 640, the attention half)
@@ -982,31 +1017,86 @@ def _hash_kernels(report, gen):
                              f'the largest |plain| entry, calls bitwise '
                              f'equal {same}')
 
-    # one main step's 16 calls, as HashEncode's backward makes them
+    # one main step's backward at the geometry of random UVs: all 16
+    # levels in one call, as HashEncode's backward makes it, against 16
+    # one-level calls (a call a level, as the backward made them before the
+    # all-levels kernel) and 16 index_add_ calls (the library column), each
+    # with the 64 MiB table zeroing
     res = _level_resolutions(16, 16, 1.38)
     uv = torch.rand((6 * 10000, 2), generator=gen, device='cuda') * 1.4 - 0.7
     idx, u, v, _ = _level_geometry(uv, res, 2 ** 19)
-    idx = idx.to(torch.int32)
+    idx = idx.to(torch.int32).reshape(16, -1)
     vals = ((u * v)[..., None] * torch.randn(
-        (16, 1, 60000, 2), generator=gen, device='cuda')).contiguous()
+        (16, 1, 60000, 2), generator=gen, device='cuda')).reshape(
+        16, -1, 2).contiguous()
+    used = [min((r + 1) ** 2, 2 ** 19) for r in res]
     d_table = torch.zeros((16, 2 ** 19, 2), device='cuda')
+    before = hg.launches
+    out = hg.hash_table_grad_levels(idx, vals, used, d_table.clone())
+    torch.cuda.synchronize()
+    step_launches = hg.launches - before
+    ref = hg.hash_table_grad_levels_plain(idx, vals, used,
+                                          torch.zeros_like(d_table))
+    err = float((out - ref).abs().max())
+    rel = err / float(ref.abs().max())
+    bits = all(torch.equal(out[lv, :n].view(torch.int32),
+                           hg.hash_table_grad_fixed(idx[lv], vals[lv], n)
+                           .view(torch.int32))
+               and not out[lv, n:].any() for lv, n in enumerate(used))
+    same = torch.equal(out.view(torch.int32), hg.hash_table_grad_levels(
+        idx, vals, used, d_table.clone()).view(torch.int32))
+    keep = [(idx[lv] >= 0) & (idx[lv] < n) for lv, n in enumerate(used)]
+    il = [idx[lv][k].long() for lv, k in enumerate(keep)]
+    vl = [vals[lv][k] for lv, k in enumerate(keep)]
 
-    def step_calls():
+    def levels_call():
         d_table.zero_()
-        for lv in range(16):
-            hg.hash_table_grad(idx[lv].reshape(-1), vals[lv].reshape(-1, 2),
-                               2 ** 19, out=d_table[lv])
-    step_ms = cuda_time_ms(step_calls, 10, ahead=True)
-    step_paced_ms = cuda_time_ms(step_calls, 10)
-    work = [_hash_work(rows, min((r + 1) ** 2, 2 ** 19)) for r in res]
-    b_ms, _ = bound_ms(sum(w[0] for w in work), sum(w[1] for w in work),
-                       PEAK_FP32_FLOPS)
+        hg.hash_table_grad_levels(idx, vals, used, d_table)
+
+    def level_calls():
+        d_table.zero_()
+        for lv, n in enumerate(used):
+            hg.hash_table_grad(idx[lv], vals[lv], n, out=d_table[lv, :n])
+
+    def index_adds():
+        d_table.zero_()
+        for lv, n in enumerate(used):
+            d_table[lv, :n].index_add_(0, il[lv], vl[lv])
+    step_ms = cuda_time_ms(levels_call, 10, ahead=True)
+    step_paced_ms = cuda_time_ms(levels_call, 10)
+    calls_ms = cuda_time_ms(level_calls, 10, ahead=True)
+    calls_paced_ms = cuda_time_ms(level_calls, 10)
+    adds_ms = cuda_time_ms(index_adds, 10, ahead=True)
+    zero_ms = cuda_time_ms(d_table.zero_, 10, ahead=True)
+    plain_ms = cuda_time_ms(lambda: hg.hash_table_grad_levels_plain(
+        idx, vals, used, d_table.zero_()), 3)
+    work = [_hash_work(idx.shape[1], n) for n in used]
+    work = (sum(w[0] for w in work), sum(w[1] for w in work),
+            PEAK_FP32_FLOPS)
+    ok = bits and same and rel <= HASH_TOL and step_launches <= 3
     log(f'# kernel hash_table_grad one main step (16 levels, random UVs in '
-        f'[-0.7, 0.7]): {step_ms:.4f} ms on the device with the 64 MiB '
-        f'table zeroing ({step_paced_ms:.4f} ms launched one after another), '
-        f'bound {b_ms:.4f} ms (bytes)')
-    report['kernels']['hash_table_grad'].update(step_ms=step_ms,
-                                                step_bound_ms=b_ms)
+        f'[-0.7, 0.7], R={idx.shape[1]}): one call {step_ms:.4f} ms on the '
+        f'device with the 64 MiB table zeroing ({step_paced_ms:.4f} ms '
+        f'launched one after another), {step_launches} launch(es); the 16 '
+        f'one-level calls {calls_ms:.4f} ms ({calls_paced_ms:.4f} ms); 16 '
+        f'index_add_ calls {adds_ms:.4f} ms; the zeroing alone '
+        f'{zero_ms:.4f} ms; plain (16 masks + index_add_) {plain_ms:.4f} ms; '
+        f'max_abs_err/max|plain| {rel:.3e} (tol {HASH_TOL:.0e}); every level '
+        f'bit-equal to hash_table_grad_fixed {bits}, two calls bitwise equal '
+        f'{same} {"ok" if ok else "FAIL"}')
+    _record(report, 'hash_table_grad', f'one main step, 16 levels R='
+            f'{idx.shape[1]} F=2 (one call)', err, step_ms, plain_ms, work,
+            lambda: adds_ms, launches_a_call=step_launches,
+            one_level_calls_ms=calls_ms, zeroing_ms=zero_ms)
+    b_ms, _ = bound_ms(*work)
+    report['kernels']['hash_table_grad'].update(
+        step_ms=step_ms, step_bound_ms=b_ms, step_library_ms=adds_ms,
+        step_one_level_calls_ms=calls_ms, step_launches=step_launches)
+    if not ok:
+        raise PhaseError(f'hash_table_grad levels call: error {rel:.3e}, '
+                         f'levels bit-equal {bits}, repeatable {same}, '
+                         f'{step_launches} launches')
+    del d_table, out, ref
 
     # a diverging step: rows that are NaN or infinite leave their entries
     # NaN or infinite as the plain version leaves them, in both forms, and
@@ -2121,20 +2211,23 @@ def phase_atlas(report, state):
         f' of {ATLAS_FRAMES} frames visible, track finite '
         f'{bool(np.isfinite(tracks).all())}')
     log(f'# atlas kernel launches ({ATLAS_STEPS} main steps): '
-        f'{json.dumps(counts)}')
+        f'{json.dumps(counts)}; hash_table_grad '
+        f'{counts["hash_table_grad"] / ATLAS_STEPS:g} a main step')
     report['launches']['atlas'] = counts
     report['atlas'] = dict(main_ms=main_ms, inverse_ms=inv_ms,
                            iters_50k_s=per_50k, peak_gib=peak, psnr_4=psnr,
+                           hash_launches_a_main_step=counts['hash_table_grad']
+                           / ATLAS_STEPS,
                            loss_first20=first, loss_last20=last,
                            pretrain=pre)
     if not (np.isfinite(totals).all() and np.isfinite(inv_losses).all()):
         raise PhaseError('atlas losses not finite')
     if not last < first:
         raise PhaseError(f'atlas loss did not fall: {first} -> {last}')
-    if counts['hash_table_grad'] != 16 * ATLAS_STEPS:
+    if counts['hash_table_grad'] != ATLAS_STEPS:
         raise PhaseError(f'hash_table_grad launched '
                          f'{counts["hash_table_grad"]} times in '
-                         f'{ATLAS_STEPS} main steps, not 16 a step')
+                         f'{ATLAS_STEPS} main steps, not once a step')
     if not (math.isfinite(psnr) and np.isfinite(tracks).all()):
         raise PhaseError(f'atlas PSNR {psnr} or propagated track not finite')
 
@@ -2215,7 +2308,9 @@ def main() -> None:
                 'library_ms', 'shape')},
             **{key: k[key] for key in ('max_err_over_max_plain',
                                        'max_bf16_ulps', 'step_ms',
-                                       'step_bound_ms', 'library_is',
+                                       'step_bound_ms', 'step_library_ms',
+                                       'step_one_level_calls_ms',
+                                       'step_launches', 'library_is',
                                        'flash_ms', 'chain_ms', 'wrapper_ms',
                                        'bitwise_repeatable', 'shapes')
                if key in k}})

@@ -25,6 +25,11 @@ check of chip_smoke.py's kernels phase. The faults:
                       which the gate pass's limit in bf16 ulps of each entry
                       must catch;
 - temporal_last_head: the last of the 8 heads writes zeros;
+- temporal_last_location: the temporal-attention kernel's output rows of
+                      the last location of each of its work items' location
+                      groups (`plan`'s lg whole locations, from location 0)
+                      are zero: the likeliest slip of the kernel's location
+                      tiling (a location dropped at the end of an item);
 - flash_last_key_tile: the last 64-key tile is skipped wherever Sk > 64;
 - flash_bwd_dkv_last_q_tile: the dK/dV kernel skips its last 64-query tile
                       wherever Sq > 64;
@@ -32,13 +37,17 @@ check of chip_smoke.py's kernels phase. The faults:
                       wherever Sk > 64;
 - adapter_bf16_weights: the trainer keeps the adapter's weights and AdamW
                       state in bf16, as the models are, instead of fp32;
-- hash_last_corner:   the hash-grid table-gradient kernel skips the rows
+- hash_last_corner:   the hash-grid table-gradient kernel drops the rows
                       of the fourth cell corner (the last quarter of each
                       level's corner-major 4 x points rows);
-- hash_last_block:    the same kernel skips only its last 256-row block
-                      (the fourth corner of the last 64 points): a fault
-                      below what atlas_small can see, which the kernel
-                      limit must catch alone;
+- hash_last_block:    the same kernel drops only the rows of each level's
+                      last 256-row block (the fourth corner of the last 64
+                      points): a fault below what atlas_small can see,
+                      which the kernel limit must catch alone;
+- hash_last_level:    the same kernel drops every row of the last level of
+                      a call with several levels (the all-levels call of
+                      the hash encoding's backward): a slip of its
+                      per-level work units;
 - fused_last_head:    the fused temporal-transformer kernel's last of 8
                       heads adds nothing (its out-projection columns
                       zeroed), in both attention blocks, at C = 320 and 640;
@@ -80,11 +89,11 @@ forward fault fails at least one of them, every backward fault fails the
 train_small gradient limit (its loss, a forward quantity, is untouched),
 every kernel fault fails the kernels-phase limit, the adapter fault fails
 train_small's update limits (the AdamW step's change of the weights against
-the CPU's, and the share of weights it moves), the hash-corner fault
-fails atlas_small's hash-table gradient limit (the atlas's forward and its
-other gradients are untouched), both p2p faults fail blend_small's limit
-or its exact-match check, and the unrouted kernels' faults fail the
-unrouted limits.
+the CPU's, and the share of weights it moves), the hash-corner and
+hash-level faults fail atlas_small's hash-table gradient limit (the atlas's
+forward and its other gradients are untouched), both p2p faults fail
+blend_small's limit or its exact-match check, and the unrouted kernels'
+faults fail the unrouted limits.
 """
 
 from __future__ import annotations
@@ -138,6 +147,23 @@ def _temporal_last_head():
         return out
     return mock.patch('videoswap_torch.ops.attention.temporal_attention',
                       faulted)
+
+
+def _temporal_last_location():
+    import torch
+
+    from videoswap_torch.ops import temporal_attention as ta
+    kernel = ta.temporal_attention_kernel
+
+    def faulted(q, k, v, heads, frames):
+        out = kernel(q, k, v, heads, frames)
+        n = out.shape[0] // frames
+        _, lg = ta.plan(frames, out.shape[1], heads)
+        loc = torch.arange(n, device=out.device)
+        last = (loc % lg == lg - 1) | (loc == n - 1)
+        out.view(n, frames, -1)[last] = 0
+        return out
+    return mock.patch.object(ta, 'temporal_attention_kernel', faulted)
 
 
 def _flash_last_key_tile():
@@ -245,14 +271,17 @@ def _fused_last_location():
         yield
 
 
-def _hash_skip(kept):
+def _hash_drop(rows):
+    """Drop rows (index -1) in every launch of the hash kernel; `rows(idx)`
+    names them in idx (L, R)."""
     from videoswap_torch.ops import hash_table_grad as hg
-    launch = hg._launch
+    launch = hg._launch_levels
 
-    def faulted(idx, val, out, mode='auto'):
-        keep = kept(idx.shape[0])
-        return launch(idx[:keep], val[:keep], out, mode)
-    return mock.patch.object(hg, '_launch', faulted)
+    def faulted(idx, val, used, out, mode='auto'):
+        idx = idx.clone()
+        idx[rows(idx)] = -1
+        return launch(idx, val, used, out, mode)
+    return mock.patch.object(hg, '_launch_levels', faulted)
 
 
 def _edit_cross_skipped():
@@ -321,13 +350,19 @@ FAULTS = {
     'geglu_last_eighth': lambda tr: _geglu_skip(lambda inner: inner // 8),
     'geglu_gate_small_flushed': lambda tr: _geglu_gate_small_flushed(),
     'temporal_last_head': lambda tr: _temporal_last_head(),
+    'temporal_last_location': lambda tr: _temporal_last_location(),
     'flash_last_key_tile': lambda tr: _flash_last_key_tile(),
     'flash_bwd_dkv_last_q_tile': lambda tr: _flash_bwd_dkv_last_q_tile(),
     'flash_bwd_dq_last_k_tile': lambda tr: _flash_bwd_dq_last_k_tile(),
     'adapter_bf16_weights': _adapter_bf16_weights,
-    'hash_last_corner': lambda tr: _hash_skip(lambda r: r * 3 // 4),
-    'hash_last_block': lambda tr: _hash_skip(
-        lambda r: max(0, (r - 1) // 256 * 256)),
+    'hash_last_corner': lambda tr: _hash_drop(
+        lambda idx: (slice(None), slice(idx.shape[1] * 3 // 4, None))),
+    'hash_last_block': lambda tr: _hash_drop(
+        lambda idx: (slice(None), slice((idx.shape[1] - 1) // 256 * 256,
+                                        None))),
+    'hash_last_level': lambda tr: _hash_drop(
+        lambda idx: slice(idx.shape[0] - 1, None) if idx.shape[0] > 1
+        else slice(0, 0)),
     'fused_last_head': lambda tr: _fused_fault('last_head'),
     'fused_skip_ffn': lambda tr: _fused_fault('skip_ffn'),
     'fused_last_location': lambda tr: _fused_last_location(),
@@ -337,7 +372,7 @@ FAULTS = {
     'conv_last_tap': lambda tr: _conv_last_tap(),
 }
 BACKWARD_FAULTS = ('flash_bwd_dkv_last_q_tile', 'flash_bwd_dq_last_k_tile')
-ATLAS_FAULTS = ('hash_last_corner',)
+ATLAS_FAULTS = ('hash_last_corner', 'hash_last_level')
 KERNEL_ONLY_FAULTS = ('hash_last_block', 'geglu_gate_small_flushed',
                       'spatial_last_key_tile', 'conv_last_tap')
 UNROUTED_FAULTS = ('spatial_last_key_tile', 'conv_last_tap')
@@ -379,11 +414,28 @@ def kernel_error(fault: str) -> float:
                                     bias)
         return float((out.float() - ref).abs().max() / ref.abs().max())
     if fault.startswith('hash'):
-        # level 0 of a main step, relative to the largest |plain| entry
-        idx, val = cs._hash_rows(gen, 240000, 289)
-        ref = hg.hash_table_grad_plain(idx, val, 289)
-        out = hg.hash_table_grad(idx, val, 289)
-        return float((out - ref).abs().max() / ref.abs().max())
+        # a main step's 16 levels in one call (as the hash encoding's
+        # backward makes it) against the plain version level by level: the
+        # largest error over levels, each relative to its level's largest
+        # |plain| entry (chip_smoke.py's limit at one level)
+        from videoswap_torch.atlas.imlp import (_level_geometry,
+                                                _level_resolutions)
+        res = _level_resolutions(16, 16, 1.38)
+        uv = torch.rand((60000, 2), generator=gen, device='cuda') * 1.4 - 0.7
+        idx, u, v, _ = _level_geometry(uv, res, 2 ** 19)
+        idx = idx.to(torch.int32).reshape(16, -1)
+        val = ((u * v)[..., None] * torch.randn(
+            (16, 1, 60000, 2), generator=gen, device='cuda')).reshape(
+            16, -1, 2).contiguous()
+        used = [min((r + 1) ** 2, 2 ** 19) for r in res]
+        out = hg.hash_table_grad_levels(
+            idx, val, used, torch.zeros((16, 2 ** 19, 2), device='cuda'))
+        errs = []
+        for lv, n in enumerate(used):
+            ref = hg.hash_table_grad_plain(idx[lv], val[lv], n)
+            errs.append(float((out[lv, :n] - ref).abs().max()
+                              / ref.abs().max()))
+        return max(errs)
     if fault.startswith('fused'):
         from videoswap_torch.models import motion_module as mm
         from videoswap_torch.ops import fused_temporal as ft
@@ -423,7 +475,8 @@ def kernel_error(fault: str) -> float:
         return max(float((g.float() - r).abs().max() / r.abs().max())
                    for g, r in zip(grads, ref))
     elif fault.startswith('temporal'):
-        q, k, v = (cs._rand(gen, (512 * cs.FRAMES, 320)) for _ in range(3))
+        # the swap's level-2 shape (C = 1280, 2 x 16 x 16 locations)
+        q, k, v = (cs._rand(gen, (512 * cs.FRAMES, 1280)) for _ in range(3))
         out = attention.temporal_attention(q, k, v, 8, cs.FRAMES)
         ref = ta.temporal_attention_plain(*f32((q, k, v)), 8, cs.FRAMES)
     else:

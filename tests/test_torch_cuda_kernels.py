@@ -122,6 +122,81 @@ def test_temporal_kernel_matches_plain(cuda, el, f, h, c):
     assert (out.float() - ref).abs().max().item() < 1e-2
 
 
+def _temporal_case(cuda, el, f, h, c, seed=0):
+    """The kernel against the fp32 plain version, twice (the same bits)."""
+    q, k, v = (_randn((el * f, c), seed + s).to(cuda).bfloat16()
+               for s in range(3))
+    out = tta.temporal_attention(q, k, v, h, f)
+    again = tta.temporal_attention(q, k, v, h, f)
+    ref = tta.temporal_attention_plain(q.float(), k.float(), v.float(), h, f)
+    assert torch.equal(out, again)
+    assert (out.float() - ref).abs().max().item() < 1e-2
+
+
+def _temporal_smem_bytes(f, d, hc, lg):
+    """Shared memory the temporal kernel takes for one stage of an item (q,
+    k and v: frames padded to a multiple of 16, rows to 16 bytes past a
+    multiple of 128), its mbarriers and 16 warps' 16 x 72 staging tiles."""
+    rows = 16 if f <= 16 else 32
+    stage = 3 * lg * rows * (-(-hc * d * 2 // 128) * 128 + 16)
+    return 128 + 16 * 16 * 72 * 2 + stage
+
+
+@pytest.mark.parametrize('d', [8, 16, 40, 80, 160, 512])
+@pytest.mark.parametrize('heads', [1, 4, 8])
+def test_temporal_plan_fits_the_kernel_at_every_frame_count(cuda, d, heads):
+    """Every F <= 32 and every head dim the kernel takes: hc divides the
+    heads, an item fits one block's shared memory (227 KB) and, unless it is
+    one location of one head, its q, k and v take at most 64 KB and it has
+    at most 16 (location, head, query tile) tasks."""
+    for f in range(1, tta.MAX_FRAMES + 1):
+        hc, lg = tta.plan(f, heads * d, heads)
+        assert heads % hc == 0 and lg >= 1
+        assert _temporal_smem_bytes(f, d, hc, lg) <= 227 * 1024
+        if hc > 1 or lg > 1:
+            assert _temporal_smem_bytes(f, d, hc, lg) - 128 \
+                - 16 * 16 * 72 * 2 <= 64 * 1024
+            assert lg * hc * (1 if f <= 16 else 2) <= 16
+
+
+@pytest.mark.parametrize('c,hc', [(320, 8), (640, 4), (1280, 2)])
+def test_temporal_plan_groups_two_locations_at_the_unet_widths(cuda, c, hc):
+    """At the U-Net's 16 frames and 8 heads an item is two whole locations
+    (about 62 KB of q, k and v), so a location group is more than one
+    location (scripts/fault_control.py's temporal_last_location plant zeroes
+    the last location of each)."""
+    assert tta.plan(16, c, 8) == (hc, 2)
+
+
+# the kernel's work items hold plan()'s lg whole locations: location counts
+# that are not a multiple of lg, and F at and around the 16-row tiles
+@pytest.mark.parametrize('el,f,h,c', [(333, 1, 8, 1280), (101, 7, 8, 640),
+                                      (77, 17, 8, 320), (45, 32, 8, 1280),
+                                      (129, 16, 8, 1280), (3, 5, 4, 64),
+                                      (1, 32, 1, 8)])
+def test_temporal_kernel_tiling_edges(cuda, el, f, h, c):
+    hc, lg = tta.plan(f, c, h)
+    assert el % lg or el < lg or lg == 1
+    _temporal_case(cuda, el, f, h, c)
+
+
+@pytest.mark.parametrize('d', [8, 16, 40, 80, 160, 512])
+@pytest.mark.parametrize('f', [2, 16, 24])
+def test_temporal_kernel_takes_every_head_dim(cuda, d, f):
+    heads = 8 if d <= 160 else 1
+    _temporal_case(cuda, 11, f, heads, heads * d, seed=d + f)
+
+
+def test_temporal_kernel_level_shapes_are_repeatable(cuda):
+    """The swap's C = 1280 shapes (2 x 16 x 16 and 2 x 8 x 8 locations):
+    two calls give the same bits, and the launch counter counts one a
+    call."""
+    for el in (512, 128):
+        before = tta.launches
+        _temporal_case(cuda, el, 16, 8, 1280, seed=el)
+        assert tta.launches == before + 2
+
+
 @pytest.mark.parametrize('sq,sk,d', [(300, 77, 40), (257, 257, 80),
                                      (64, 64, 160), (1, 5, 8), (130, 77, 128)])
 def test_flash_kernel_matches_plain(cuda, sq, sk, d):
@@ -215,6 +290,13 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     r = torch.zeros(33 * 4, 64, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError):                          # F > 32
         tta.temporal_attention(r, r, r, 4, 33)
+    r = torch.zeros(16 * 4, 48, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                          # d = 12
+        tta.temporal_attention(r, r, r, 4, 16)
+    r = torch.zeros(16 * 4 * 64 + 8, device=cuda, dtype=torch.bfloat16)
+    r = r[4:-4].view(16 * 4, 64)                             # 8-byte offset
+    with pytest.raises(ValueError):
+        tta.temporal_attention(r, r, r, 4, 16)
 
 
 def _close(out, ref, tol=1e-2):
@@ -460,7 +542,8 @@ def test_hash_table_grad_kernel_keeps_what_is_not_finite(cuda, entries):
     """NaN and infinite rows leave their entries NaN or infinite as the
     plain version leaves them, in both forms of the scatter where the shared
     one fits, with the other entries bit-equal to `hash_table_grad_fixed`;
-    the next call on finite rows is unharmed (the kept scratch is zero)."""
+    the next call on finite rows is unharmed (each call zeroes its own
+    buffer)."""
     rows = 240000
     rs = np.random.RandomState(entries + 5)
     idx = torch.from_numpy(rs.randint(-1, entries, rows).astype(np.int32))
@@ -516,9 +599,110 @@ def test_hash_encode_gradients_on_the_card_match_the_cpu(cuda):
                       *torch.autograd.grad(out, (xs, ts), cot.to(dev))))
     before = thg.launches
     hash_encode(x.to(cuda), table.to(cuda).requires_grad_()).sum().backward()
-    assert thg.launches == before + 6                      # one a level
+    assert thg.launches == before + 1              # one for all six levels
     for g, r in zip(*grads):
         assert _close(g.cpu(), r, 1e-5)
+
+
+def _atlas_levels(cuda, points=60000, seed=0):
+    """The atlas's 16-level geometry (atlas_swan: base 16, scale 1.38,
+    T = 2^19, F = 2) at random UVs in [-0.7, 0.7]: idx (16, 4N) int32, val
+    (16, 4N, 2) fp32 and each level's used entries."""
+    from videoswap_torch.atlas.imlp import _level_geometry, _level_resolutions
+    res = _level_resolutions(16, 16, 1.38)
+    rs = np.random.RandomState(seed)
+    uv = torch.from_numpy(rs.uniform(-0.7, 0.7, (points, 2))
+                          .astype(np.float32)).to(cuda)
+    idx, u, v, _ = _level_geometry(uv, res, 2 ** 19)
+    g = _randn((16, 1, points, 2), seed + 1).to(cuda)
+    val = ((u * v)[..., None] * g).reshape(16, -1, 2).contiguous()
+    used = [min((r + 1) ** 2, 2 ** 19) for r in res]
+    return idx.to(torch.int32).reshape(16, -1).contiguous(), val, used
+
+
+def _levels_bits_match_fixed(out, idx, val, used):
+    """Each level of out: hash_table_grad_fixed on that level alone, bit for
+    bit (NaN and infinite entries where the plain version has them), and 0
+    past its used entries."""
+    for lv, n in enumerate(used):
+        fixed = thg.hash_table_grad_fixed(idx[lv], val[lv], n)
+        plain = thg.hash_table_grad_plain(idx[lv], val[lv], n)
+        for f in (torch.isnan, torch.isposinf, torch.isneginf):
+            assert torch.equal(f(out[lv, :n]), f(plain)), lv
+        finite = torch.isfinite(plain)
+        assert torch.equal(out[lv, :n][finite].view(torch.int32),
+                           fixed[finite].view(torch.int32)), lv
+        assert not out[lv, n:].any(), lv
+
+
+@pytest.mark.parametrize('mode', ['auto', 'global'])
+def test_hash_levels_kernel_is_bit_equal_per_level(cuda, mode):
+    """All 16 levels of an atlas step in one launch: each level's table is
+    `hash_table_grad_fixed` on that level alone, bit for bit, in either
+    form of the scatter, and a second call gives the same bits."""
+    idx, val, used = _atlas_levels(cuda)
+    before = thg.launches
+    out = thg._launch_levels(idx, val, used,
+                             torch.zeros((16, 2 ** 19, 2), device=cuda), mode)
+    assert thg.launches == before + 1
+    _levels_bits_match_fixed(out, idx, val, used)
+    again = thg.hash_table_grad_levels(
+        idx, val, used, torch.zeros((16, 2 ** 19, 2), device=cuda))
+    assert torch.equal(out.view(torch.int32), again.view(torch.int32))
+
+
+def test_hash_levels_kernel_keeps_what_is_not_finite(cuda):
+    """NaN and infinite rows in two levels leave their entries as the plain
+    version leaves them; every other entry of every level is bit-equal to
+    `hash_table_grad_fixed` on its level (the bad values take no part in a
+    level's scale)."""
+    idx, val, used = _atlas_levels(cuda, 20000, seed=3)
+    for lv in (0, 13):
+        idx[lv, :6] = torch.tensor([5, 5, 6, 7, 7, 8], dtype=torch.int32)
+        val[lv, :6, 0] = torch.tensor([float('inf'), -float('inf'),
+                                       float('nan'), float('inf'),
+                                       float('inf'), -float('inf')])
+    out = thg.hash_table_grad_levels(
+        idx, val, used, torch.zeros((16, 2 ** 19, 2), device=cuda))
+    assert int((~torch.isfinite(out)).sum()) == 8
+    _levels_bits_match_fixed(out, idx, val, used)
+
+
+def test_hash_levels_kernel_drops_a_level_and_accumulates(cuda):
+    """A level whose rows are all dropped adds nothing; accumulating into a
+    table that is not zero adds to it; a second call, handed the block the
+    first call's buffer left dirty by the caching allocator, gives the same
+    bits (the kernel zeroes its max words and int64 tables itself)."""
+    idx, val, used = _atlas_levels(cuda, 5000, seed=5)
+    idx[7] = -1
+    base = _randn((16, 2 ** 19, 2), 6).to(cuda)
+    out = thg.hash_table_grad_levels(idx, val, used, base.clone())
+    assert torch.equal(out[7], base[7])
+    ref = thg.hash_table_grad_levels(idx.cpu(), val.cpu(), used,
+                                     base.cpu().clone())
+    assert _close(out.cpu(), ref, 1e-5)
+    again = thg.hash_table_grad_levels(idx, val, used, base.clone())
+    assert torch.equal(out.view(torch.int32), again.view(torch.int32))
+
+
+def test_hash_levels_kernel_refuses_what_it_does_not_take(cuda):
+    idx = torch.zeros(2, 8, dtype=torch.int32, device=cuda)
+    val = torch.zeros(2, 8, 2, device=cuda)
+    out = torch.zeros(2, 16, 2, device=cuda)
+    with pytest.raises(ValueError):                         # used > T
+        thg.hash_table_grad_levels(idx, val, [16, 17], out)
+    with pytest.raises(ValueError):                         # one used short
+        thg.hash_table_grad_levels(idx, val, [16], out)
+    with pytest.raises(ValueError):
+        thg.hash_table_grad_levels(idx, val, [16, 16], out[:1])
+    with pytest.raises(TypeError):
+        thg.hash_table_grad_levels(idx, val.double(), [16, 16], out)
+    many = thg.MAX_LEVELS + 1                       # one launch a call
+    with pytest.raises(ValueError):
+        thg.hash_table_grad_levels(
+            torch.zeros(many, 8, dtype=torch.int32, device=cuda),
+            torch.zeros(many, 8, 2, device=cuda), [16] * many,
+            torch.zeros(many, 16, 2, device=cuda))
 
 
 def test_build_atlas_nets_defaults_to_the_card(cuda):

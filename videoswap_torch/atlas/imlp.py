@@ -11,8 +11,9 @@ uint32 spatial hash). Layers are `hidden_{i}` Linears and the grid is the
 
 `HashEncode` is the encoding's autograd Function. Its forward is plain
 gathers; its backward computes d_table with the hand-written scatter kernel
-(`ops/hash_table_grad.py`) on the card and its plain version on the CPU, one
-call a level, and d_x as the analytic derivative of the bilinear weights.
+(`ops/hash_table_grad.py`) on the card and its plain version on the CPU,
+one call for all levels, and d_x as the analytic derivative of the bilinear
+weights.
 The geometry of all levels is computed at once, level by level in the same
 arithmetic as the JAX package, so that a step launches a few dozen
 elementwise kernels for the encoding and not a few hundred.
@@ -26,7 +27,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from ..ops.hash_table_grad import hash_table_grad
+from ..ops.hash_table_grad import hash_table_grad_levels
 
 HASH_PRIMES = (1, 2654435761, 805459861)
 _MASK32 = 0xFFFFFFFF
@@ -140,15 +141,14 @@ class HashEncode(torch.autograd.Function):
             # package. A dense level indexes only its first (res + 1)^2
             # entries, so the scatter sees that table (small ones fit the
             # kernel's shared-memory form)
-            vals = ((u * v)[..., None] * gl[:, None]).contiguous()
-            idx32 = idx.to(torch.int32)
+            vals = ((u * v)[..., None] * gl[:, None]).reshape(
+                n_levels, -1, nf).contiguous()
+            idx32 = idx.to(torch.int32).reshape(n_levels, -1)
             d_table = torch.zeros(table.shape, dtype=torch.float32,
                                   device=table.device)
-            for lv, r in enumerate(resolutions):
-                used = min((r + 1) ** 2, table_size)
-                hash_table_grad(idx32[lv].reshape(-1),
-                                vals[lv].reshape(-1, nf), used,
-                                out=d_table[lv, :used])
+            hash_table_grad_levels(
+                idx32, vals, [min((r + 1) ** 2, table_size)
+                              for r in resolutions], d_table)
             d_table = d_table.to(table.dtype)
         if ctx.needs_input_grad[0]:
             # w_c = u_c(fx) v_c(fy): dw_c/dfx = +-v_c, dw_c/dfy = +-u_c

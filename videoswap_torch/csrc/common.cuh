@@ -50,4 +50,41 @@ __device__ __forceinline__ void frag_a_from_c(uint32_t a[4],
   a[3] = pack_bf16(c1[2], c1[3]);
 }
 
+// The SMs of the current device and how many blocks of `kernel` (threads a
+// block, dynamic shared memory) an SM holds at once, for persistent and
+// cooperative grids; cached per (device, kernel, threads, smem), since the
+// queries cost more host time than a small kernel takes on the card
+inline cudaError_t resident_blocks(const void* kernel, int threads,
+                                   size_t smem, int* sms, int* per_sm) {
+  struct Entry {
+    const void* kernel;
+    int dev, threads;
+    size_t smem;
+    int sms, per_sm;
+  };
+  static Entry cache[32];
+  static int filled = 0, next = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  for (int i = 0; i < filled; ++i) {
+    const Entry& e = cache[i];
+    if (e.kernel == kernel && e.dev == dev && e.threads == threads &&
+        e.smem == smem) {
+      *sms = e.sms;
+      *per_sm = e.per_sm;
+      return cudaSuccess;
+    }
+  }
+  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel,
+                                                        threads, smem);
+  if (err != cudaSuccess) return err;
+  cache[next] = Entry{kernel, dev, threads, smem, *sms, *per_sm};
+  next = (next + 1) % 32;
+  filled = filled < 32 ? filled + 1 : 32;
+  return cudaSuccess;
+}
+
 }  // namespace vs

@@ -30,24 +30,29 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
-# C entry point -> argument types; every entry point returns a cudaError_t
+# C entry point -> argument types; every entry point returns a cudaError_t,
+# but those in _RESTYPES
 _SIGNATURES = {
     'vs_geglu_ffn': [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     'vs_geglu_gate': [_P, _P, _I, _I, _P],
     'vs_temporal_attention': [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    'vs_temporal_attention_plan': [_I, _I, _I, ctypes.POINTER(_I)],
     'vs_flash_attention_fwd': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _STRIDES, _P],
     'vs_flash_attention_bwd_dq': [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                   _I, _STRIDES, _P],
     'vs_flash_attention_bwd_dkv': [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                    _I, _I, _I, _STRIDES, _P],
-    'vs_hash_table_grad': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    'vs_hash_table_grad_levels': [_P, _P, _P, _P, ctypes.POINTER(_I), _I, _I,
+                                  ctypes.c_longlong, _I, _I, _P],
+    'vs_hash_table_grad_table_words': [ctypes.POINTER(_I), _I, _I],
     'vs_fused_temporal': [ctypes.POINTER(_P), _I, _I, _I, _I, _I, _I,
                           ctypes.c_longlong, _I, ctypes.c_float, _P],
     'vs_spatial_attention': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _STRIDES,
                              _P],
     'vs_gn_silu_conv': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
+_RESTYPES = {'vs_hash_table_grad_table_words': ctypes.c_longlong}
 
 
 class KernelBuildError(RuntimeError):
@@ -123,7 +128,7 @@ def library() -> ctypes.CDLL:
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = _RESTYPES.get(name, ctypes.c_int)
     return lib
 
 

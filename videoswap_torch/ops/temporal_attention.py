@@ -4,7 +4,11 @@ plain PyTorch version.
 `temporal_attention(q2, k2, v2, heads, f)` takes (L*F, C) rows ordered
 (location, frame) and runs multi-head self-attention over the F frames of
 each location. A CUDA tensor launches `csrc/temporal_attention.cu` (bf16,
-F <= 32) or raises; a CPU tensor takes `temporal_attention_plain`.
+F <= 32, a head dim that is a multiple of 8, 16-byte aligned rows) or
+raises; a CPU tensor takes `temporal_attention_plain`. The kernel cuts the
+work into items of `lg` whole locations by `hc` heads, about 32 KB of q, k
+and v a location, which one block copies into shared memory while it
+computes the item before; `plan` asks the kernel's library for (hc, lg).
 
 `temporal_attention` is differentiable. Its backward,
 `temporal_attention_bwd_plain`, recomputes the (tiny-F) attention in fp32
@@ -14,6 +18,8 @@ plain XLA.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import _build
@@ -22,6 +28,17 @@ from . import _build
 launches = 0
 
 MAX_FRAMES = 32
+
+
+def plan(f: int, c: int, heads: int) -> tuple[int, int]:
+    """(hc, lg): the heads and whole locations of one of the kernel's work
+    items at F = f, C = c (csrc/temporal_attention.cu `plan_item`). Needs
+    the built library, so the card."""
+    hc_lg = (ctypes.c_int * 2)()
+    _build.check(_build.library().vs_temporal_attention_plan(f, c, heads,
+                                                             hc_lg),
+                 'vs_temporal_attention_plan')
+    return hc_lg[0], hc_lg[1]
 
 
 def temporal_attention_plain(q2, k2, v2, heads: int, f: int):
@@ -62,17 +79,21 @@ def temporal_attention_kernel(q2, k2, v2, heads: int, f: int):
         raise ValueError('temporal_attention: q, k, v shapes differ')
     if not all(t.is_contiguous() for t in (q2, k2, v2)):
         raise ValueError('temporal_attention kernel takes contiguous tensors')
-    if not 1 <= f <= MAX_FRAMES or n % f or c % heads:
+    if not 1 <= f <= MAX_FRAMES or n % f or c % heads or (c // heads) % 8:
         raise ValueError(f'temporal_attention kernel: F={f} (<= {MAX_FRAMES})'
-                         f', rows={n}, C={c}, heads={heads}')
+                         f', rows={n}, C={c}, heads={heads} (a head dim that '
+                         'is a multiple of 8)')
+    ptrs = q2.data_ptr(), k2.data_ptr(), v2.data_ptr()
+    if (ptrs[0] | ptrs[1] | ptrs[2]) % 16:
+        raise ValueError('temporal_attention kernel takes 16-byte aligned '
+                         'tensors')
     out = torch.empty_like(q2)
     if n == 0:
         return out
     lib = _build.library()
     stream = torch.cuda.current_stream(q2.device).cuda_stream
-    status = lib.vs_temporal_attention(q2.data_ptr(), k2.data_ptr(),
-                                       v2.data_ptr(), out.data_ptr(), n // f,
-                                       f, c, heads, stream)
+    status = lib.vs_temporal_attention(*ptrs, out.data_ptr(), n // f, f, c,
+                                       heads, stream)
     _build.check(status, 'vs_temporal_attention')
     launches += 1
     return out
