@@ -68,9 +68,14 @@ check of chip_smoke.py's kernels phase. The faults:
 - spatial_last_key_tile: the spatial self-attention kernel skips its last
                       64-key tile wherever S > 64;
 - conv_last_tap:      the fused GroupNorm-SiLU-conv kernel skips its last
-                      tap, (ky, kx) = (2, 2) (its weight rows zeroed).
+                      tap, (ky, kx) = (2, 2) (its packed weights zeroed);
+- conv_last_pixel_tile: the same kernel's output pixels of the last tile
+                      of each image's column segments (`plan`: blocks of
+                      256 virtual rows, the last one partly full) are
+                      zero: the likeliest slip of the kernel's tiling (the
+                      rows past the last whole tile dropped).
 
-The last two are faults of the unrouted kernels, which no model path runs:
+The last three are faults of the unrouted kernels, which no model path runs:
 the unrouted limits catch them, beside the kernel limit.
 
 The two p2p faults are faults of the blended path with no kernel:
@@ -329,8 +334,26 @@ def _conv_last_tap():
 
     def faulted(x, scale, shift, w_packed, bias, out):
         w_packed = w_packed.clone()
-        w_packed[8 * x.shape[-1]:] = 0          # tap (2, 2): the last Cin rows
+        w_packed[:, 2, 2] = 0                   # (Cout, ky, kx, Cin)
         return launch(x, scale, shift, w_packed, bias, out)
+    return mock.patch.object(gc, '_launch', faulted)
+
+
+def _conv_last_pixel_tile():
+    import torch
+
+    from videoswap_torch.ops import gn_silu_conv as gc
+    launch = gc._launch
+
+    def faulted(x, scale, shift, w_packed, bias, out):
+        launch(x, scale, shift, w_packed, bias, out)
+        h, w = x.shape[1:3]
+        tw, pw, segments, tiles = gc.plan(h, w)
+        v = torch.arange((tiles - 1) * gc.ROWS, h * pw, device=out.device)
+        y, xv = v // pw, v % pw
+        for s in range(segments):
+            keep = (xv < tw) & (s * tw + xv < w)
+            out[:, y[keep], s * tw + xv[keep]] = 0
     return mock.patch.object(gc, '_launch', faulted)
 
 
@@ -370,12 +393,15 @@ FAULTS = {
     'blend_latents_skipped': lambda tr: _blend_latents_skipped(),
     'spatial_last_key_tile': lambda tr: _spatial_last_key_tile(),
     'conv_last_tap': lambda tr: _conv_last_tap(),
+    'conv_last_pixel_tile': lambda tr: _conv_last_pixel_tile(),
 }
 BACKWARD_FAULTS = ('flash_bwd_dkv_last_q_tile', 'flash_bwd_dq_last_k_tile')
 ATLAS_FAULTS = ('hash_last_corner', 'hash_last_level')
 KERNEL_ONLY_FAULTS = ('hash_last_block', 'geglu_gate_small_flushed',
-                      'spatial_last_key_tile', 'conv_last_tap')
-UNROUTED_FAULTS = ('spatial_last_key_tile', 'conv_last_tap')
+                      'spatial_last_key_tile', 'conv_last_tap',
+                      'conv_last_pixel_tile')
+UNROUTED_FAULTS = ('spatial_last_key_tile', 'conv_last_tap',
+                   'conv_last_pixel_tile')
 TRAINER_FAULTS = ('adapter_bf16_weights',)
 BLEND_FAULTS = ('edit_cross_skipped', 'blend_latents_skipped')
 

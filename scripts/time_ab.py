@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Temporal attention, the hash backward and the atlas iteration of one
-checkout, timed for comparing checkouts.
+"""Temporal attention, the hash backward, the atlas iteration and the fused
+GroupNorm-SiLU-conv3x3 of one checkout, timed for comparing checkouts.
 
     python3 scripts/time_ab.py [--root DIR] [--iters N] [--parent DIR]
+                               [--parts temporal,hash,atlas,conv]
 
 Imports `videoswap_torch` from the checkout at DIR (default: this one),
 e.g. a parent commit unpacked with `git archive`, so that one script times
@@ -31,6 +32,16 @@ On one card:
   pretraining iterations a frame of each mapping and 10 warm-up
   iterations: the median main and inverse step over ATLAS_ITERS
   iterations, CUDA events (chip_smoke.py's metric).
+
+- the fused GroupNorm-SiLU-conv3x3 kernel (`gn_silu_conv_kernel`, its
+  weight packing included) at the JAX benchmark's two shapes, 32 images
+  of 64x64, 320 -> 320 and 32x32, 640 -> 640, and at the U-Net's level-1
+  resnet input, 32x32, 320 -> 640 (bf16, random inputs from a seed):
+  CUDA events over 20 calls, beside cuDNN's conv2d alone on the activated
+  input and the group_norm + silu + conv2d chain, timed in the same
+  process (the stand-ins chip_smoke.py times).
+
+`--parts` picks which of the four run (all by default).
 
 With --parent DIR it times, in this one process and after the above, the
 atlas iteration in turns with the hash encoding's backward scattering as
@@ -139,6 +150,39 @@ def hash_backward(label: str, iters: int) -> None:
           flush=True)
 
 
+def conv(label: str) -> None:
+    import torch
+    import torch.nn.functional as F
+    from videoswap_torch.ops import gn_silu_conv as gc
+    gen = torch.Generator(device='cuda').manual_seed(SEED)
+    n = 32
+    for side, cin, cout in ((64, 320, 320), (32, 640, 640), (32, 320, 640)):
+        x = torch.randn((n, side, side, cin), generator=gen,
+                        device='cuda').bfloat16()
+        gamma = torch.rand(cin, generator=gen, device='cuda') + 0.5
+        beta = torch.randn(cin, generator=gen, device='cuda') * 0.1
+        weight = (torch.randn((cout, cin, 3, 3), generator=gen, device='cuda')
+                  * (9 * cin) ** -0.5).bfloat16()
+        bias = torch.randn(cout, generator=gen, device='cuda') * 0.01
+        scale, shift = gc.gn_scale_shift(*gc.gn_stats(x, 32), gamma, beta)
+        a = F.silu(x.float() * scale[:, None, None] + shift[:, None, None]) \
+            .bfloat16().permute(0, 3, 1, 2)
+        x_cl = x.permute(0, 3, 1, 2)
+        w_cl = weight.contiguous(memory_format=torch.channels_last)
+        g16, b16, bias16 = (t.bfloat16() for t in (gamma, beta, bias))
+        with torch.no_grad():
+            kernel = device_ms(lambda: gc.gn_silu_conv_kernel(
+                x, scale, shift, weight, bias), 20, ahead=False)
+            cudnn = device_ms(lambda: F.conv2d(a, w_cl, bias16, padding=1),
+                              20, ahead=False)
+            chain = device_ms(lambda: F.conv2d(F.silu(F.group_norm(
+                x_cl, 32, g16, b16)), w_cl, bias16, padding=1), 20,
+                ahead=False)
+        print(f'{label} gn_silu_conv N={n} H=W={side} {cin}->{cout}: kernel '
+              f'{kernel:.4f} ms; cuDNN conv2d alone {cudnn:.4f} ms; '
+              f'group_norm + silu + conv2d {chain:.4f} ms', flush=True)
+
+
 def main_step_ms(trainer, gen, it0: int, iters: int) -> float:
     """The median main step (CUDA events) of `iters` atlas iterations."""
     import torch
@@ -242,7 +286,9 @@ def main() -> None:
                                               .parents[1]))
     parser.add_argument('--iters', type=int, default=200)
     parser.add_argument('--parent')
+    parser.add_argument('--parts', default='temporal,hash,atlas,conv')
     args = parser.parse_args()
+    parts = set(args.parts.split(','))
     sys.path.insert(0, str(Path(args.root).resolve()))
     import torch
     if not torch.cuda.is_available():
@@ -254,8 +300,14 @@ def main() -> None:
                          text=True).stdout.strip()
     print(f'# nvidia-smi: {smi}; root {args.root}', flush=True)
     label = f'# [{args.root}]'
-    temporal(label)
-    hash_backward(label, args.iters)
+    if 'temporal' in parts:
+        temporal(label)
+    if 'hash' in parts:
+        hash_backward(label, args.iters)
+    if 'conv' in parts:
+        conv(label)
+    if 'atlas' not in parts:
+        return
     spec = importlib.util.spec_from_file_location(
         'chip_smoke', Path(__file__).resolve().parents[1] / 'chip_smoke.py')
     cs = importlib.util.module_from_spec(spec)

@@ -911,11 +911,17 @@ def _conv_args(n, h, w, cin, cout, seed, device):
 @pytest.mark.parametrize('n,h,w,cin,cout', [
     (2, 16, 8, 64, 64), (1, 64, 64, 320, 320), (2, 32, 32, 640, 640),
     (1, 32, 32, 320, 640), (3, 7, 5, 32, 8), (2, 12, 48, 48, 24),
-    (1, 8, 136, 16, 72)])
+    (1, 8, 136, 16, 72), (1, 16, 16, 64, 480), (2, 33, 100, 96, 200),
+    (1, 5, 70, 320, 24), (2, 5, 20, 32, 320), (2, 12, 30, 48, 320)])
 def test_gn_silu_conv_kernel_matches_plain(cuda, n, h, w, cin, cout):
     """The U-Net's level-0 and level-1 shapes and a Cin != Cout resnet;
-    images narrower than a tile, sizes no tile divides, Cout not a
-    multiple of the 64-channel block."""
+    images narrower than a 64-column segment, widths cut into two (100,
+    70) or three (136) segments, every last tile of 256 rows partly full;
+    Cout past the last whole 160-channel block (8 ... 200) or three
+    blocks (480); Cin short of a 64-channel chunk (16 ... 48, and 96).
+    Pairs of channel blocks share their activation (a cluster of two):
+    at 320 and 640 and in one tile of 110 rows (5 x 20) or a second tile
+    of 128 (12 x 30), as at level 0."""
     args = _conv_args(n, h, w, cin, cout, n * h + w, cuda)
     before = tgc.launches
     out = tgc.gn_silu_conv_kernel(*args)
@@ -933,6 +939,25 @@ def test_gn_silu_conv_zero_pads_after_the_activation(cuda):
     shift[:, :8] = 2.0
     out = tgc.gn_silu_conv_kernel(x, scale, shift, weight, bias)
     assert _close(out, tgc.gn_silu_conv_plain(x, scale, shift, weight, bias))
+
+
+@pytest.mark.parametrize('n,h,w,cin,cout', [
+    (1, 64, 64, 320, 320), (2, 33, 100, 96, 200)])
+def test_gn_silu_conv_is_bitwise_repeatable(cuda, n, h, w, cin, cout):
+    """No atomics and a fixed order of products: two calls give the same
+    bits."""
+    args = _conv_args(n, h, w, cin, cout, 11, cuda)
+    first = tgc.gn_silu_conv_kernel(*args)
+    assert torch.equal(first.view(torch.int16),
+                       tgc.gn_silu_conv_kernel(*args).view(torch.int16))
+
+
+def test_gn_silu_conv_plan_is_the_kernels(cuda):
+    """ops/gn_silu_conv.py `plan` (the CPU tests' tiling and the fault
+    plants') is the one the built kernel launches."""
+    for h, w in ((64, 64), (32, 32), (7, 5), (33, 100), (8, 136),
+                 (1, 1), (300, 65), (5, 1000)):
+        assert tgc.library_plan(h, w) == tgc.plan(h, w), (h, w)
 
 
 def test_unrouted_kernels_refuse_what_they_do_not_take(cuda):
@@ -956,3 +981,7 @@ def test_unrouted_kernels_refuse_what_they_do_not_take(cuda):
                                 weight[:, :40], bias)
     with pytest.raises(ValueError):                          # 1x1 weight
         tgc.gn_silu_conv_kernel(x, scale, shift, weight[:, :, :1, :1], bias)
+    many = x[:, :1, :1].expand(65536, 1, 1, 64)              # 65536 images
+    with pytest.raises(ValueError):
+        tgc.gn_silu_conv_kernel(many, scale.expand(65536, 64),
+                                shift.expand(65536, 64), weight, bias)

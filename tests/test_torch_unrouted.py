@@ -13,7 +13,8 @@
   some gamma = 0, where the TPU kernel's padding trick breaks, against
   `xla_gn_silu_conv` only; the JAX HWIO kernel carried to OIHW by the
   converter; the port's ResnetBlock3D against the plain version fed the
-  video's statistics.
+  video's statistics; the CUDA kernel's arithmetic on its tiling (`plan`,
+  `pack_weight`) against the plain version in fp32.
 
 The same numpy inputs go to both sides. Tolerances: fp32 attention 1e-5
 (exp and sums in another order, outputs O(1)); bf16 outputs are held to
@@ -220,6 +221,51 @@ def test_conv_weights_carried_across(bench):
     out = tgc.gn_silu_conv_plain(torch.from_numpy(x), torch.ones(n, c),
                                  torch.zeros(n, c), weight, sd['conv1.bias'])
     np.testing.assert_allclose(out.numpy(), _np(ref), atol=TOL_F32)
+
+
+@pytest.mark.parametrize('n,h,w,cin,cout', [
+    (2, 7, 5, 16, 8), (1, 20, 30, 32, 24), (1, 9, 136, 48, 16)])
+def test_conv_packed_weight_on_the_kernel_tiling(n, h, w, cin, cout):
+    """In fp32: the kernel's arithmetic on its own tiling equals
+    gn_silu_conv_plain. For each column segment of `plan`, the activation,
+    zero-padded after the SiLU, is flattened at pitch pw; virtual row v
+    takes tap (dy, dx) from position v + dy pw + dx, and its nine taps' Cin
+    channels, in that order, meet `pack_weight`'s (Cout, 9 Cin) rows. The
+    tiles' rows that are pixels cover the image: one segment, several
+    tiles with a partly full last one, and three segments of 46 columns."""
+    rs = np.random.RandomState(n * h + w)
+    x = torch.from_numpy(rs.randn(n, h, w, cin).astype(np.float32))
+    scale = torch.from_numpy((rs.rand(n, cin) + 0.5).astype(np.float32))
+    shift = torch.from_numpy((rs.randn(n, cin) * 0.3).astype(np.float32))
+    weight = torch.from_numpy((rs.randn(cout, cin, 3, 3)
+                               / np.sqrt(9 * cin)).astype(np.float32))
+    weight = weight.bfloat16().float()             # the kernel's weights
+    bias = torch.from_numpy((rs.randn(cout) * 0.1).astype(np.float32))
+    ref = tgc.gn_silu_conv_plain(x, scale, shift, weight, bias)
+    a = torch.nn.functional.silu(x * scale[:, None, None]
+                                 + shift[:, None, None]).bfloat16().float()
+    wk = tgc.pack_weight(weight).float().reshape(cout, 9 * cin)
+    tw, pw, segments, tiles = tgc.plan(h, w)
+    assert tw <= tgc.SEGMENT_MAX and (segments - 1) * tw < w <= segments * tw
+    rows = tiles * tgc.ROWS
+    assert (tiles - 1) * tgc.ROWS < h * pw <= rows
+    v = torch.arange(rows)
+    taps = torch.tensor([dy * pw + dx for dy in range(3) for dx in range(3)])
+    out = torch.full_like(ref, float('nan'))
+    for s in range(segments):
+        x0 = s * tw
+        lo, hi = max(x0 - 1, 0), min(x0 + tw + 1, w)
+        img = torch.zeros(n, h + 2, pw, cin)
+        img[:, 1:h + 1, lo - x0 + 1:hi - x0 + 1] = a[:, :, lo:hi]
+        halo = torch.zeros(n, rows + 2 * pw + 2, cin)
+        halo[:, :(h + 2) * pw] = img.reshape(n, -1, cin)
+        k = halo[:, v[:, None] + taps[None, :]].reshape(n, rows, 9 * cin)
+        res = k @ wk.T + bias
+        y, xv = v // pw, v % pw
+        keep = (y < h) & (xv < tw) & (x0 + xv < w)
+        out[:, y[keep], x0 + xv[keep]] = res[:, keep]
+    assert not torch.isnan(out).any()
+    torch.testing.assert_close(out, ref, atol=TOL_F32, rtol=0)
 
 
 def test_resnet_block_first_half_is_the_plain_conv_with_video_statistics():

@@ -155,6 +155,48 @@ struct Sw64;
     }                                                                          \
   };
 
+// The product of a no-swizzle K-major A and a 128-byte-swizzle K-major B,
+// both descriptors built inside the asm as Sw64's are:
+// Halo<N>::ss<OA, OB, LBO>(d, a, b) takes A at a + OA and B at b + OB. A's
+// core matrices are 8 rows of 16 bytes, the rows 16 bytes apart and the
+// 8-row groups 128 bytes apart (SBO), the two 8-column halves of a k16 step
+// LBO bytes apart: 64 consecutive rows at any 16-byte offset of a column
+// plane, so that a window shifted by whole rows is one descriptor (the
+// fused conv's taps over its staged halo, csrc/gn_silu_conv.cu). B is
+// stored N rows of 128 bytes, 8-row groups 1024 bytes apart. The
+// immediates are operands IA, IB and IL (LBO in A's descriptor), after the
+// accumulators.
+template <int N>
+struct Halo;
+
+#define VS_WGMMA_HALO(N, R, IA, IB, IL)                                        \
+  template <>                                                                  \
+  struct Halo<N> {                                                             \
+    template <int OA, int OB, int LBO>                                         \
+    __device__ __forceinline__ static void ss(float* d, uint32_t a,            \
+                                              uint32_t b) {                    \
+      uint32_t scale_d = 1, unused0 = 0, unused1 = 0, unused2 = 0;             \
+      asm volatile("{\n.reg .b32 la, lb, ha, hb;\n.reg .b64 da, db;\n"        \
+                   ".reg .pred p;\n"                                          \
+                   "add.u32 la, %0, %" #IA ";\n"                              \
+                   "and.b32 la, la, 0x3FFFF;\n"                               \
+                   "shr.u32 la, la, 4;\n"                                     \
+                   "or.b32 la, la, %" #IL ";\n"                               \
+                   "add.u32 lb, %1, %" #IB ";\n"                              \
+                   "and.b32 lb, lb, 0x3FFFF;\n"                               \
+                   "shr.u32 lb, lb, 4;\n"                                     \
+                   "or.b32 lb, lb, 0x10000;\n"                                \
+                   "mov.b32 ha, 0x8;\nmov.b32 hb, 0x40000040;\n"              \
+                   "mov.b64 da, {la, ha};\nmov.b64 db, {lb, hb};\n"           \
+                   "setp.ne.b32 p, %2, 0;\n"                                  \
+                   "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {" \
+                   VS_ACC##R(VS_S4, VS_S4_) "}, da, db, p, 1, 1, 0, 0;\n}\n"   \
+                   : "+r"(a), "+r"(b), "+r"(scale_d), "+r"(unused0),           \
+                     "+r"(unused1), "+r"(unused2) VS_ACC##R(VS_F4_, VS_F4_)     \
+                   : "n"(OA), "n"(OB), "n"((LBO >> 4) << 16));                 \
+    }                                                                          \
+  };
+
 // (N, N / 2)
 VS_WGMMA_SS(32, 16)
 VS_WGMMA_SS(64, 32)
@@ -194,7 +236,10 @@ VS_WGMMA_SW64(112, 56, 62, 63)
 VS_WGMMA_SW64(128, 64, 70, 71)
 VS_WGMMA_SW64(144, 72, 78, 79)
 VS_WGMMA_SW64(160, 80, 86, 87)
+// (N, N / 2, N / 2 + 6, N / 2 + 7, N / 2 + 8)
+VS_WGMMA_HALO(160, 80, 86, 87, 88)
 
+#undef VS_WGMMA_HALO
 #undef VS_WGMMA_SW64
 #undef VS_SW64_DESC
 #undef VS_WGMMA_RS_K

@@ -51,6 +51,7 @@ _SIGNATURES = {
     'vs_spatial_attention': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _STRIDES,
                              _P],
     'vs_gn_silu_conv': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    'vs_gn_silu_conv_plan': [_I, _I, ctypes.POINTER(_I)],
 }
 _RESTYPES = {'vs_hash_table_grad_table_words': ctypes.c_longlong}
 

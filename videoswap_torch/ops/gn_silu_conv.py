@@ -20,6 +20,15 @@ kernel does, and the zero padding is applied after the activation. (The JAX
 kernel pads x with the value whose affine image is 0, which fails for a
 channel with gamma = 0; the port follows the JAX package's XLA version.)
 
+The kernel (csrc/gn_silu_conv.cu) reads the weight packed by
+`pack_weight` (Cout, 3, 3, Cin) and tiles each image by `plan`: column
+segments flattened at a pitch of their width + 2, blocks of ROWS such
+virtual rows, the taps shifted windows of one staged halo. Both are plain
+Python here, so that the CPU tests hold the arithmetic on that tiling to
+the plain version (tests/test_torch_unrouted.py) and the card's tests the
+library's plan to this one. At most 65535 images and 65535 tiles an image
+a call; more raise.
+
 `fused_gn_silu_conv(x, gamma, beta, weight, bias)` is the per-image wrapper
 with the JAX signature: statistics over each image's (H, W). The U-Net's
 `ResnetBlock3D` takes them over a video's (F, H, W) instead: give
@@ -28,6 +37,8 @@ Forward only: the JAX function has no VJP.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 import torch.nn.functional as F
@@ -67,11 +78,38 @@ def gn_silu_conv_plain(x, scale, shift, weight, bias):
 
 
 def pack_weight(weight):
-    """OIHW (Cout, Cin, 3, 3) -> the kernel's (9 * Cin, Cout) bf16, row
-    (ky * 3 + kx) * Cin + ci."""
-    cout, cin = weight.shape[:2]
-    return weight.permute(2, 3, 1, 0).reshape(9 * cin, cout) \
-        .to(torch.bfloat16).contiguous()
+    """OIHW (Cout, Cin, 3, 3) -> the kernel's (Cout, 3, 3, Cin) bf16: each
+    output channel's K = 9 * Cin row, (ky * 3 + kx) * Cin + ci, contiguous
+    (the K-major B operand its weight tiles are read from)."""
+    return weight.to(torch.bfloat16).permute(0, 2, 3, 1).contiguous()
+
+
+# the kernel's tiling (csrc/gn_silu_conv.cu `plan`): blocks of ROWS
+# virtual output rows, column segments of at most SEGMENT_MAX columns
+ROWS = 256
+SEGMENT_MAX = 64
+GRID_MAX = 65535
+
+
+def plan(h: int, w: int) -> tuple[int, int, int, int]:
+    """(tw, pw, segments, tiles) of an h x w image: `segments` column
+    segments of tw columns (the last may hold fewer), each a flattened
+    zero-padded image of pitch pw = tw + 2 in which output pixel (y, x) is
+    virtual row y * pw + x, and `tiles` blocks of ROWS virtual rows a
+    segment (the last one partly full). Tap (dy, dx) of virtual row v reads
+    the padded position v + dy * pw + dx."""
+    segments = -(-w // SEGMENT_MAX)
+    tw = -(-w // segments)
+    return tw, tw + 2, segments, -(-h * (tw + 2) // ROWS)
+
+
+def library_plan(h: int, w: int) -> tuple[int, int, int, int]:
+    """`plan` as the built library computes it (the card's tests hold the
+    two equal). Needs the built library, so the card."""
+    out = (ctypes.c_int * 4)()
+    _build.check(_build.library().vs_gn_silu_conv_plan(h, w, out),
+                 'vs_gn_silu_conv_plan')
+    return tuple(out)
 
 
 def _launch(x, scale, shift, w_packed, bias, out):
@@ -114,6 +152,11 @@ def gn_silu_conv_kernel(x, scale, shift, weight, bias):
     out = torch.empty((n, h, w, cout), dtype=torch.bfloat16, device=x.device)
     if out.numel() == 0:
         return out
+    _, _, segments, tiles = plan(h, w)
+    if n > GRID_MAX or segments * tiles > GRID_MAX:
+        raise ValueError(f'gn_silu_conv kernel: at most {GRID_MAX} images '
+                         f'and {GRID_MAX} tiles an image, not {n} images of '
+                         f'{segments * tiles} tiles ({h} x {w})')
     _launch(x, scale, shift, pack_weight(weight),
             bias.float().contiguous(), out)
     return out
