@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (videoswap_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases build,kernels,unrouted,unet,small,sample,train_small,train,blend_small,blend,atlas_small,atlas]
+    python3 chip_smoke.py [--phases build,kernels,unrouted,unet,small,dpm_small,sample,train_small,train,blend_small,blend,recipe,atlas_small,atlas]
 
 Phases (all by default):
 
@@ -40,7 +40,12 @@ Phases (all by default):
                temporal-transformer kernel in both layouts at U-Net levels 0
                (C = 320, with the FFN) and 1 (C = 640, the attention half),
                timed beside the layer-wise module it replaces, and its
-               autograd Function's gradients;
+               autograd Function's gradients; then the recipe path's
+               forward kernels again at the 1009 recipe's 448x768 shapes
+               (recipe_shape_kernels: 56x96 latents, batch 1 and 2, GEGLU
+               and the flash forward at every level, the fused temporal
+               transformer at levels 0-1, temporal attention at 2-3), at
+               the same limits;
 - unrouted:    the fifth slice's path, the port's counterpart of the JAX
                package's two never-routed kernels and of the scripts that
                run them (scripts/bench_spatial_attn.py,
@@ -66,6 +71,10 @@ Phases (all by default):
                plain path on the CPU in fp32, same weights and inputs;
 - small:       `sample` at 256x256, 2 frames, 2 DDIM steps: GPU bf16 latents
                against the CPU fp32 pipeline;
+- dpm_small:   the same with `sampler='dpmpp_2m'` and DPM_STEPS steps, at
+               the same limit; and the DPM-Solver++(2M) step on the card
+               (fp32) against its float64 restatement (dpm_step_reference)
+               at second-order steps of 5- and 20-step schedules;
 - sample:      the first slice's path, `VideoSwapPipeline.sample` at full
                width: 16 frames, 512x512, CFG 7.5, point adapter with 10
                points, 4 DDIM steps, VAE decode; the launch count of every
@@ -102,6 +111,22 @@ Phases (all by default):
                steps; seconds a step of the inversion and of the edit, the
                merge and restore, peak memory and launches; the frames must
                be finite and the fused kernel must launch;
+- recipe:      the swap CLI's path (`videoswap_torch.test`)
+               on two shipped test configs (RECIPES: the 1009 blend recipe
+               at 448x768 and the 2001 DPM++ recipe at 512x512), their file
+               paths rewritten into a synthetic experiment tree in a
+               temporary directory (write_experiment_tree, write_clip: the
+               pipeline's full-width weights in fp16 under the published
+               file and key names, a generated CLIP vocabulary, an adapter
+               .pth, ED-LoRA files, 64 PNG frames at 512x512, TAP.pth files)
+               and each cut listed on a '#' line of the rewritten file; then
+               `validation` called directly on the CLI's models: every
+               tensor loaded as written with 0 missing and 0 unused keys,
+               the CLI's frames equal to the direct call's (RECIPE_REL_TOL;
+               bit-equality printed), the `_vispoint` frames changed only in
+               the discs of the visible, selected points, metrics.json and
+               the frame files written, every forward kernel launched; the
+               stage times, each swap's steps and VAE decode, peak memory;
 - atlas_small: the atlas_swan nets at full width (2^19 hash table) on an
                8-frame 128x96 synthetic clip, batch 10000: one main step and
                one inverse step on the same params and draws, GPU against
@@ -116,10 +141,12 @@ Phases (all by default):
                reconstruction PSNR of 4 frames
                and one propagated point drag.
 
-Launch counts are set to 0 just before the unrouted, sample, train, blend
-and atlas paths and read just after each. scripts/fault_control.py shows
+Launch counts are set to 0 just before the unrouted, sample, train, blend,
+recipe and atlas paths and read just after each (a recipe's run: the CLI,
+before the direct `validation`). scripts/fault_control.py shows
 that the unet, small, train_small, blend_small, atlas_small and unrouted
-limits fail a kernel with a planted fault;
+limits fail a kernel with a planted fault, and dpm_small's and the recipe
+phase's checks a fault on the recipe's path;
 scripts/profile_step.py breaks one full-width U-Net step, training step or
 atlas iteration down by device time.
 
@@ -141,12 +168,13 @@ import re
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ('build', 'kernels', 'unrouted', 'unet', 'small', 'sample',
-          'train_small', 'train', 'blend_small', 'blend', 'atlas_small',
-          'atlas')
+PHASES = ('build', 'kernels', 'unrouted', 'unet', 'small', 'dpm_small',
+          'sample', 'train_small', 'train', 'blend_small', 'blend', 'recipe',
+          'atlas_small', 'atlas')
 SEED = 0
 FRAMES, SIZE, POINTS = 16, 512, 10
 STEPS = 4          # DDIM steps of the full-width sample (a smoke run's time)
@@ -157,7 +185,8 @@ TRAIN_LR = 1e-5
 # the blended path: DDIM steps (the fewest that open the latent-blend window,
 # 0.2 N < step < 0.8 N), the synthetic ED-LoRA file's rank, and
 # options/train_videoswap/human/1009_final_ss1010_manwalking_T07_Iter50's
-# dataset prompt and val block (the card's machine has no YAML reader): the
+# dataset prompt and val block, written out (the recipe phase reads the
+# shipped files themselves through the port's YAML reader): the
 # man_to_hermione swap, alpha 0.7, with the block's negative prompt,
 # adapter guidance and t2i window
 BLEND_STEPS = 5
@@ -181,6 +210,77 @@ BLEND_LORA_ALPHA = 0.7
 # steps against <= 6e-4 by chance at the others, and 0 with the blend
 # skipped, scripts/fault_control.py)
 BLEND_CHECK_TH = 0.99
+# dpm_small: DPM-Solver++(2M) steps of the 256x256 sample (steps 1 to 3 take
+# the second-order update: the first is first order, and the last when there
+# are fewer than 15); its latents are held to the CPU's at SAMPLE_REL_TOL.
+# The step itself, on the card in fp32 against its float64 restatement
+# (dpm_step_reference), relative L2: fp32 rounding of x, x0 and the lambda
+# differences, ~1e-7; a step that skips the second-order correction is off
+# by ~1e-2 (scripts/fault_control.py)
+DPM_STEPS = 5
+DPM_STEP_TOL = 1e-5
+# the recipe phase: shipped swap configs run through the CLI
+# (videoswap_torch.test) on a synthetic experiment tree (write_experiment_tree,
+# write_clip): their file paths point into the tree, and each cut is listed
+# on a '#' line of the rewritten config. The CLI's frames against
+# `validation` called directly on its models, relative L2 of the uint8
+# frames: the same kernels on the same inputs in the same process
+RECIPE_FRAMES = 64             # the clip's frames (total_frames of both)
+RECIPE_REL_TOL = 1e-3
+TAP_NAMES = ('head', 'neck', 'body', 'tail', 'left_front_leg',
+             'right_front_leg', 'left_back_leg', 'right_back_leg',
+             'left_ear', 'right_ear')
+_SYNTHETIC = ('the paths point at a synthetic tree: random weights from a '
+              'seed under the published file and key names, 64 frames of a '
+              'synthetic 512x512 clip, a TAP.pth of 10 random tracks')
+RECIPES = {
+    '1009': {
+        'path': 'options/test_videoswap/human/'
+                '1009_final_ss1010_manwalking_T07_Iter50/'
+                '1009_final_ss1010_manwalking_T07_Iter50.yml',
+        'swap': 'man_to_hermione', 'lora': 'edlora_hermione.pth',
+        'alpha': BLEND_LORA_ALPHA, 'concepts': BLEND_CONCEPTS,
+        'tap': 'TAP_1009.pth', 'frame_hw': (448, 768),
+        'values': {'val.editing_config.num_inference_steps': 5,
+                   'val.save_type': 'frame'},
+        'cuts': ['cut: num_inference_steps 50 -> 5 (the fewest that open '
+                 'the latent-blend window)',
+                 'cut: one editing prompt of five (man_to_hermione)',
+                 'cut: save_type video -> frame (PNG frames)', _SYNTHETIC]},
+    '2001': {
+        'path': 'options/test_videoswap/animal/2001_catheadturn_T05_Iter100/'
+                '2001_catheadturn_dpmpp20.yml',
+        'swap': 'kitten_to_catA', 'lora': 'edlora_catA.pth', 'alpha': 1.0,
+        'concepts': ('<catA1>', '<catA2>'), 'tap': 'TAP_2001.pth',
+        'frame_hw': (512, 512),
+        'values': {'val.save_type': 'frame',
+                   'val.editing_config.editing_prompts.kitten_to_catA.'
+                   'select_point': '[head, tail]'},
+        'cuts': ['cut: one editing prompt of two (kitten_to_catA)',
+                 'cut: save_type video -> frame (PNG frames)',
+                 'not a cut: select_point [head, tail] on kitten_to_catA, '
+                 'so that the point overlay\'s selection runs (the shipped '
+                 '3004 and 3009 configs select points so)', _SYNTHETIC]},
+}
+
+# the 1009 recipe's geometry (448x768 frames, 56x96 latents): the U-Net
+# levels' token counts 5376, 1344, 336 and 84, of which only level 0's is a
+# multiple of the attention kernels' 128-row query blocks (the benchmark
+# shapes' 4096, 1024 and 256 all are, and 64 is one consumer's block); the
+# U-Net runs them at batch 1 (the inversion, and the CFG prefix it runs once)
+# and 2 (the CFG batch). The kernels phase holds the recipe path's forward
+# kernels against their plain versions at these shapes too
+# (recipe_shape_kernels), at the limits of TOL
+RECIPE_BATCHES = (1, 2)
+
+
+def recipe_levels() -> list:
+    """(latent height, width, C) of the four U-Net levels at the 1009
+    recipe's frame size."""
+    h8, w8 = (s // 8 for s in RECIPES['1009']['frame_hw'])
+    return [(h8 >> i, w8 >> i, c)
+            for i, c in enumerate((320, 640, 1280, 1280))]
+
 
 # kernel -> (module, launch counter, source, TPU kernel it replaces)
 KERNELS = {
@@ -328,9 +428,8 @@ PEAK_FLOPS, PEAK_FP32_FLOPS, PEAK_BYTES = 989e12, 67e12, 3.35e12
 # throughput); an attention forward takes one exponential a logit
 EXP_PER_CLOCK_SM = 16
 
-# options/train_atlas/atlas_swan.yml, its `models` and `train` blocks (the
-# card's machine has no YAML reader) and its clip size (`datasets`: res_x,
-# res_y, max_frames)
+# options/train_atlas/atlas_swan.yml, its `models` and `train` blocks and
+# its clip size (`datasets`: res_x, res_y, max_frames), written out
 ATLAS_MODELS = {
     'FG_UV_Mapping': {'input_dim': 3, 'output_dim': 2, 'hidden_dim': 256,
                       'pe_type': 'none', 'pe_dim': 4, 'mlp_type': 'origin',
@@ -395,6 +494,55 @@ ATLAS_LOSS_TOL = 1e-6
 ATLAS_GRAD_TOL = 5e-4
 ATLAS_HASH_GRAD_TOL = 1.5e-3
 ATLAS_UPDATE_TOL = 0.06
+
+
+def clip_vocab(texts, size: int = 49408, merges: int = 2000):
+    """A CLIP tokenizer's vocab.json and merges.txt contents, generated: the
+    256 byte characters alone and with the word-end mark '</w>', then up
+    to `merges` merges learnt from `texts` (the most frequent adjacent
+    pair first, ties by order), filler entries up to `size` - 2, and the
+    start and end tokens last, as CLIP-L/14's are (49406, 49407)."""
+    import collections
+    from videoswap_torch.utils.tokenizer import (_CLIP_PAT, _basic_clean,
+                                                 _bytes_to_unicode)
+    byte = _bytes_to_unicode()
+    base = list(byte.values())
+    vocab = {t: i for i, t in enumerate(base + [c + '</w>' for c in base])}
+    words = collections.Counter()
+    for text in texts:
+        for w in _CLIP_PAT.findall(_basic_clean(text)):
+            w = ''.join(byte[b] for b in w.encode('utf-8'))
+            words[tuple(w[:-1]) + (w[-1] + '</w>',)] += 1
+    rules = []
+    while len(rules) < merges:
+        pairs = collections.Counter()
+        for w, n in words.items():
+            for p in zip(w, w[1:]):
+                pairs[p] += n
+        if not pairs:
+            break
+        best = max(sorted(pairs), key=pairs.__getitem__)
+        rules.append(best)
+        vocab.setdefault(best[0] + best[1], len(vocab))
+        merged = collections.Counter()
+        for w, n in words.items():
+            out, i = [], 0
+            while i < len(w):
+                if i + 1 < len(w) and (w[i], w[i + 1]) == best:
+                    out.append(w[i] + w[i + 1])
+                    i += 2
+                else:
+                    out.append(w[i])
+                    i += 1
+            merged[tuple(out)] += n
+        words = merged
+    i = 0
+    while len(vocab) < size - 2:
+        vocab.setdefault(f'<filler{i}>', len(vocab))
+        i += 1
+    vocab['<|startoftext|>'] = size - 2
+    vocab['<|endoftext|>'] = size - 1
+    return vocab, '#version: 0.2\n' + ''.join(f'{a} {b}\n' for a, b in rules)
 
 
 class PhaseError(RuntimeError):
@@ -677,53 +825,133 @@ def _grad_check(name, fn, plain, args, dout):
         raise PhaseError(f'{name} gradient: error {max(errs):.3e}')
 
 
+def _geglu_case(report, gen, n, c, tag=''):
+    """GEGLU at N rows and width C by its width's route (the fused kernel
+    at C <= 640, above it the split route, whose gate pass is checked and
+    timed alone too). No single PyTorch call computes the FFN: the two
+    cuBLAS products alone on inputs of the same shapes stand in the library
+    column."""
+    import torch.nn.functional as F
+    from videoswap_torch.ops import geglu_ffn as gf
+    f32 = (lambda ts: [t.float() for t in ts])
+    args = [_rand(gen, (n, c)), _rand(gen, (8 * c, c), c ** -0.5),
+            _rand(gen, (8 * c,), 0.1), _rand(gen, (c, 4 * c),
+                                             (4 * c) ** -0.5),
+            _rand(gen, (c,), 0.1)]
+    g_in = _rand(gen, (n, 4 * c))
+    route = 'fused' if gf.takes_fused_route(c) else 'split'
+    _compare('geglu_ffn', f'N={n} C={c} ({route}){tag}',
+             lambda: gf.geglu_ffn(*args),
+             lambda: gf.geglu_ffn_plain(*args),
+             lambda: gf.geglu_ffn_plain(*f32(args)), report,
+             (24 * n * c * c, 2 * (2 * n * c + 12 * c * c + 9 * c)),
+             lambda: cuda_time_ms(lambda: (
+                 F.linear(args[0], args[1], args[2]),
+                 F.linear(g_in, args[3], args[4])), 10), route=route)
+    if route == 'fused':
+        # the split route at this width, for the choice of route (the
+        # JAX package's gate fixes it at MAX_KERNEL_WIDTH)
+        ms = cuda_time_ms(lambda: gf.geglu_ffn_split(*args), 10)
+        report['kernels']['geglu_ffn']['shapes'][-1]['split_route_ms'] = ms
+        log(f'# kernel geglu_ffn N={n} C={c}{tag}: the split route here '
+            f'{ms:.4f} ms')
+    if route == 'split':
+        h = F.linear(args[0], args[1], args[2])
+        # ~31 fp32 operations an output (gelu_fast's Horner erf)
+        _compare('geglu_gate', f'N={n} 8C={8 * c}{tag}',
+                 lambda: gf.geglu_gate(h),
+                 lambda: gf.geglu_gate_plain(h),
+                 lambda: gf.geglu_gate_plain(h.float()), report,
+                 (31 * 4 * n * c, 2 * 12 * n * c, PEAK_FP32_FLOPS),
+                 ulps=True)
+
+
+def _temporal_case(report, gen, el, f, c, tag='') -> bool:
+    """Temporal attention over L locations x F frames, 8 heads; whether two
+    calls on the same inputs give the same bits. The kernel and SDPA are
+    timed on the device alone (queued ahead): at the small shapes a call
+    launched after another is paced by the host."""
+    import torch
+    from videoswap_torch.ops import temporal_attention as ta
+    f32 = (lambda ts: [t.float() for t in ts])
+    q, k, v = (_rand(gen, (el * f, c)) for _ in range(3))
+    view = (lambda t: t.view(el, f, 8, c // 8))
+    hc, lg = ta.plan(f, c, 8)
+    _compare('temporal_attention', f'L={el} F={f} C={c}{tag}',
+             lambda: ta.temporal_attention(q, k, v, 8, f),
+             lambda: ta.temporal_attention_plain(q, k, v, 8, f),
+             lambda: ta.temporal_attention_plain(*f32((q, k, v)), 8, f),
+             report, (4 * el * f * f * c, 2 * 4 * el * f * c),
+             lambda: cuda_time_ms(
+                 lambda: _sdpa(view(q), view(k), view(v)), 10,
+                 ahead=True),
+             ahead=True)
+    twice = [ta.temporal_attention(q, k, v, 8, f) for _ in range(2)]
+    same = torch.equal(*twice)
+    log(f'# kernel temporal_attention L={el} F={f} C={c}{tag}: items of '
+        f'{lg} locations x {hc} heads, two calls bitwise equal {same}')
+    return same
+
+
+def _flash_case(report, gen, b, h, s, sk, d, tag=''):
+    """The flash forward at one shape, and the logsumexp the backward
+    needs (on the first batch entry)."""
+    from videoswap_torch.ops import flash_attention as fa
+    f32 = (lambda ts: [t.float() for t in ts])
+    q = _rand(gen, (b, s, h, d))
+    k, v = (_rand(gen, (b, sk, h, d)) for _ in range(2))
+    chunk = max(1, (1 << 28) // (h * s * sk))   # <= 1 GiB of logits
+    _compare('flash_attention_fwd', f'B={b} H={h} Sq={s} Sk={sk} d={d}{tag}',
+             lambda: fa.flash_attention_fwd(q, k, v)[0],
+             lambda: fa.flash_attention_plain(q, k, v, chunk)[0],
+             lambda: fa.flash_attention_plain(
+                 *f32((q, k, v)), max(1, chunk // 2))[0], report,
+             (4 * b * h * s * sk * d,
+              2 * (2 * b * s * h * d + 2 * b * sk * h * d) + 4 * b * h * s),
+             lambda: cuda_time_ms(lambda: _sdpa(q, k, v), 5),
+             iters=5, exps=b * h * s * sk)
+    _, lse = fa.flash_attention_fwd(q[:1], k[:1], v[:1])
+    _, lse_ref = fa.flash_attention_plain(*f32((q[:1], k[:1], v[:1])))
+    lerr = float((lse - lse_ref).abs().max())
+    if lerr > 1e-2:
+        raise PhaseError(f'flash lse {s}x{sk}{tag} max_abs_err {lerr:.3e}')
+
+
+def recipe_shape_kernels(report, gen) -> None:
+    """The recipe path's forward kernels against their plain versions at
+    the 1009 recipe's shapes (recipe_levels, RECIPE_BATCHES x 16 frames, 8
+    heads), at the limits of the benchmark shapes: GEGLU at every level,
+    the fused temporal transformer (both layouts) at levels 0-1, temporal
+    attention at levels 2-3, the flash forward at every level, self and
+    cross (Sk = 77). Raises PhaseError at the first that disagrees."""
+    tag = ' (recipe)'
+    same = True
+    for b in RECIPE_BATCHES:
+        for lvl, (h8, w8, c) in enumerate(recipe_levels()):
+            hw = h8 * w8
+            _geglu_case(report, gen, b * FRAMES * hw, c, tag)
+            if lvl < 2:
+                _fused_temporal(report, gen, h8, w8, c, b, tag)
+            else:
+                same = _temporal_case(report, gen, b * hw, FRAMES, c,
+                                      tag) and same
+            for sk in (hw, 77):
+                _flash_case(report, gen, b * FRAMES, 8, hw, sk, c // 8, tag)
+    if not same:
+        raise PhaseError('temporal_attention (recipe shapes): two calls on '
+                         'the same inputs differ')
+
+
 def phase_kernels(report):
     import torch
-    import torch.nn.functional as F
     from videoswap_torch.ops import flash_attention as fa
     from videoswap_torch.ops import geglu_ffn as gf
     from videoswap_torch.ops import temporal_attention as ta
     gen = torch.Generator(device='cuda').manual_seed(SEED)
-    f32 = (lambda ts: [t.float() for t in ts])
 
-    # GEGLU FFN: rows = CFG batch 2 x 16 frames x H*W, per U-Net level; the
-    # fused kernel at C <= 640, above it the split route (two cuBLAS
-    # products around the gate pass, which is checked and timed alone too).
-    # No single PyTorch call computes the FFN: the two cuBLAS products
-    # alone on inputs of the same shapes stand in the library column
+    # GEGLU FFN: rows = CFG batch 2 x 16 frames x H*W, per U-Net level
     for n, c in ((131072, 320), (32768, 640), (8192, 1280), (2048, 1280)):
-        args = [_rand(gen, (n, c)), _rand(gen, (8 * c, c), c ** -0.5),
-                _rand(gen, (8 * c,), 0.1), _rand(gen, (c, 4 * c),
-                                                 (4 * c) ** -0.5),
-                _rand(gen, (c,), 0.1)]
-        g_in = _rand(gen, (n, 4 * c))
-        route = 'fused' if gf.takes_fused_route(c) else 'split'
-        _compare('geglu_ffn', f'N={n} C={c} ({route})',
-                 lambda: gf.geglu_ffn(*args),
-                 lambda: gf.geglu_ffn_plain(*args),
-                 lambda: gf.geglu_ffn_plain(*f32(args)), report,
-                 (24 * n * c * c, 2 * (2 * n * c + 12 * c * c + 9 * c)),
-                 lambda: cuda_time_ms(lambda: (
-                     F.linear(args[0], args[1], args[2]),
-                     F.linear(g_in, args[3], args[4])), 10), route=route)
-        if route == 'fused':
-            # the split route at this width, for the choice of route (the
-            # JAX package's gate fixes it at MAX_KERNEL_WIDTH)
-            ms = cuda_time_ms(lambda: gf.geglu_ffn_split(*args), 10)
-            report['kernels']['geglu_ffn']['shapes'][-1]['split_route_ms'] = ms
-            log(f'# kernel geglu_ffn N={n} C={c}: the split route here '
-                f'{ms:.4f} ms')
-        if route == 'split':
-            h = F.linear(args[0], args[1], args[2])
-            # ~31 fp32 operations an output (gelu_fast's Horner erf)
-            _compare('geglu_gate', f'N={n} 8C={8 * c}',
-                     lambda: gf.geglu_gate(h),
-                     lambda: gf.geglu_gate_plain(h),
-                     lambda: gf.geglu_gate_plain(h.float()), report,
-                     (31 * 4 * n * c, 2 * 12 * n * c, PEAK_FP32_FLOPS),
-                     ulps=True)
-            del h
-        del args, g_in
+        _geglu_case(report, gen, n, c)
     report['kernels']['geglu_ffn']['library_is'] = (
         'the two cuBLAS products alone (F.linear(x, w1, b1), '
         'F.linear(g, w2, b2))')
@@ -733,31 +961,13 @@ def phase_kernels(report):
     # 2 x 8 x 8 locations), then at tiling edges: location counts that are
     # not a multiple of a work item's (ta.plan's lg, which the log line
     # prints), F around the 16-row tiles. Two calls on the same inputs must
-    # give the same bits. The kernel and SDPA are timed on the device alone
-    # (queued ahead): at the small shapes a call launched after another is
-    # paced by the host
+    # give the same bits
     same = True
     for el, f, c in ((8192, FRAMES, 320), (2048, FRAMES, 640),
                      (512, FRAMES, 1280), (128, FRAMES, 1280),
                      (333, 1, 1280), (101, 7, 640), (77, 17, 320),
                      (45, 32, 1280)):
-        q, k, v = (_rand(gen, (el * f, c)) for _ in range(3))
-        view = (lambda t: t.view(el, f, 8, c // 8))
-        hc, lg = ta.plan(f, c, 8)
-        _compare('temporal_attention', f'L={el} F={f} C={c}',
-                 lambda: ta.temporal_attention(q, k, v, 8, f),
-                 lambda: ta.temporal_attention_plain(q, k, v, 8, f),
-                 lambda: ta.temporal_attention_plain(*f32((q, k, v)), 8, f),
-                 report, (4 * el * f * f * c, 2 * 4 * el * f * c),
-                 lambda: cuda_time_ms(
-                     lambda: _sdpa(view(q), view(k), view(v)), 10,
-                     ahead=True),
-                 ahead=True)
-        twice = [ta.temporal_attention(q, k, v, 8, f) for _ in range(2)]
-        same = same and torch.equal(*twice)
-        log(f'# kernel temporal_attention L={el} F={f} C={c}: items of '
-            f'{lg} locations x {hc} heads, two calls bitwise equal '
-            f'{torch.equal(*twice)}')
+        same = _temporal_case(report, gen, el, f, c) and same
     report['kernels']['temporal_attention']['bitwise_repeatable'] = same
     if not same:
         raise PhaseError('temporal_attention: two calls on the same inputs '
@@ -766,33 +976,12 @@ def phase_kernels(report):
     # fused temporal transformer: the CFG batch of 2 x 16 frames at level 0
     # (C = 320, with the FFN) and level 1 (C = 640, the attention half)
     for side, c in ((64, 320), (32, 640)):
-        _fused_temporal(report, gen, side, c)
+        _fused_temporal(report, gen, side, side, c)
 
     # flash forward: B = 2 CFG x 16 frames, 8 heads; self and cross (Sk=77)
-    b, h = 2 * FRAMES, 8
     for s, d in ((4096, 40), (1024, 80), (256, 160), (64, 160)):
         for sk in (s, 77):
-            q = _rand(gen, (b, s, h, d))
-            k, v = (_rand(gen, (b, sk, h, d)) for _ in range(2))
-            chunk = max(1, (1 << 28) // (h * s * sk))   # <= 1 GiB of logits
-            _compare('flash_attention_fwd', f'B={b} H={h} Sq={s} Sk={sk} '
-                     f'd={d}',
-                     lambda: fa.flash_attention_fwd(q, k, v)[0],
-                     lambda: fa.flash_attention_plain(q, k, v, chunk)[0],
-                     lambda: fa.flash_attention_plain(
-                         *f32((q, k, v)), max(1, chunk // 2))[0], report,
-                     (4 * b * h * s * sk * d,
-                      2 * (2 * b * s * h * d + 2 * b * sk * h * d)
-                      + 4 * b * h * s),
-                     lambda: cuda_time_ms(lambda: _sdpa(q, k, v), 5),
-                     iters=5, exps=b * h * s * sk)
-            # the logsumexp the backward needs
-            _, lse = fa.flash_attention_fwd(q[:1], k[:1], v[:1])
-            _, lse_ref = fa.flash_attention_plain(*f32((q[:1], k[:1],
-                                                        v[:1])))
-            lerr = float((lse - lse_ref).abs().max())
-            if lerr > 1e-2:
-                raise PhaseError(f'flash lse max_abs_err {lerr:.3e}')
+            _flash_case(report, gen, 2 * FRAMES, 8, s, sk, d)
 
     # flash backward: the training step's B = 16 frames, 8 heads
     for s, d in ((4096, 40), (1024, 80), (256, 160), (64, 160)):
@@ -846,6 +1035,7 @@ def phase_kernels(report):
             f'ms, temporal_attention (L={hw} F={FRAMES}) {ms_t:.3f} ms')
 
     _hash_kernels(report, gen)
+    recipe_shape_kernels(report, gen)
 
 
 def _fused_inputs(gen, b, hw, c, include_ffn):
@@ -870,9 +1060,10 @@ def _fused_inputs(gen, b, hw, c, include_ffn):
     return g, x, pe, ft.flat_params(mod, include_ffn), mod
 
 
-def _fused_temporal(report, gen, side, c):
+def _fused_temporal(report, gen, h8, w8, c, b=2, tag=''):
     """The fused kernel against its plain version in both layouts at one
-    U-Net level (C <= 320 with the FFN, else the attention half), timed
+    U-Net level of h8 x w8 latents, batch `b` (C <= 320 with the FFN, else
+    the attention half), timed
     beside the layer-wise module it replaces (no single PyTorch call
     computes this function: the layer-wise time stands in the library
     column, marked so). At C = 640 the layer-wise time is of the attention
@@ -880,8 +1071,8 @@ def _fused_temporal(report, gen, side, c):
     whole layer-wise module's."""
     import torch
     from videoswap_torch.ops import fused_temporal as ft
-    b, f, heads = 2, FRAMES, 8
-    hw = side * side
+    f, heads = FRAMES, 8
+    hw = h8 * w8
     inc = c <= 320
     g4, x4, pe, flat, mod = _fused_inputs(gen, b, hw, c, inc)
     g2, x2 = ft.rows_of(g4).contiguous(), ft.rows_of(x4).contiguous()
@@ -890,7 +1081,7 @@ def _fused_temporal(report, gen, side, c):
     flops = rows * ((44 if inc else 18) * c * c + 8 * f * c)
     nbytes = (2 * rows * c * (3 if inc else 2) + 2 * n_mat * c * c
               + 4 * c * (14 if inc else 8))
-    x5, g5 = (t.reshape(b, f, side, side, c) for t in (x4, g4))
+    x5, g5 = (t.reshape(b, f, h8, w8, c) for t in (x4, g4))
     blk = mod.transformer_blocks[0]
 
     def layerwise_attention_half():
@@ -911,8 +1102,9 @@ def _fused_temporal(report, gen, side, c):
             route = cuda_time_ms(lambda: ft.ffn_tail(
                 ft.fused_temporal_transformer(g2, x2, pe, flat, heads, f,
                                               include_ffn=False), x2, mod), 5)
-            log(f'# fused_temporal C={c}: kernel + ffn_tail {route:.3f} ms, '
-                f'the whole layer-wise module {full:.3f} ms')
+            log(f'# fused_temporal rows={rows} C={c}{tag}: kernel + '
+                f'ffn_tail {route:.3f} ms, the whole layer-wise module '
+                f'{full:.3f} ms')
     # a model of the kernel's L2 traffic, not a measurement: each block
     # (64-row sets of 64 // F whole locations, two a block at C <= 320)
     # reads all the weights it uses
@@ -920,8 +1112,9 @@ def _fused_temporal(report, gen, side, c):
     sets = -(-b * hw // (64 // f))       # over the B x HW locations
     blocks = -(-sets // per_block)
     l2_gb = blocks * 2 * n_mat * c * c / 1e9
-    log(f'# fused_temporal C={c}: model: {blocks} blocks of '
-        f'{64 * per_block} rows would read {l2_gb:.2f} GB of weights from L2')
+    log(f'# fused_temporal rows={rows} C={c}{tag}: model: {blocks} blocks '
+        f'of {64 * per_block} rows would read {l2_gb:.2f} GB of weights from '
+        'L2')
     with torch.no_grad():
         one = ft.fused_temporal_transformer(g2, x2, pe, flat, heads, f,
                                             include_ffn=inc)
@@ -931,13 +1124,15 @@ def _fused_temporal(report, gen, side, c):
                                                 include_ffn=inc)
     same = torch.equal(one, two) and torch.equal(ft.unrows(one, b, f, hw),
                                                  fm)
-    log(f'# fused_temporal C={c}: two calls and the two layouts give the '
-        f'same bits: {same}')
+    log(f'# fused_temporal rows={rows} C={c}{tag}: two calls and the two '
+        f'layouts give the same bits: {same}')
     if not same:
-        raise PhaseError(f'fused_temporal C={c}: calls or layouts differ')
+        raise PhaseError(f'fused_temporal rows={rows} C={c}{tag}: calls or '
+                         'layouts differ')
     del one, two, fm
     f32 = [p.float() for p in flat]
-    desc = f'rows={rows} F={f} C={c}' + ('' if inc else ' attention half')
+    desc = (f'rows={rows} F={f} C={c}' + ('' if inc else ' attention half')
+            + tag)
     _compare('fused_temporal', desc,
              lambda: ft.fused_temporal_transformer(g2, x2, pe, flat, heads, f,
                                                    include_ffn=inc),
@@ -948,7 +1143,7 @@ def _fused_temporal(report, gen, side, c):
                                              inc),
              report, (flops, nbytes), lambda: lib_ms, iters=5,
              relative=True)
-    _compare('fused_temporal_bfhw', f'B={b} F={f} HW={hw} C={c}',
+    _compare('fused_temporal_bfhw', f'B={b} F={f} HW={hw} C={c}{tag}',
              lambda: ft.fused_temporal_transformer_bfhw(
                  g4, x4, pe, flat, heads, f, include_ffn=inc),
              lambda: ft.fused_temporal_plain_bfhw(g4, x4, pe, flat, heads, f,
@@ -1394,7 +1589,7 @@ def build_pipeline(device, dtype):
     from SEED), frozen, as a sampling pipeline."""
     from videoswap_torch.builders import build_models
     from videoswap_torch.pipelines import VideoSwapPipeline
-    built = build_models(device=device, dtype=dtype, seed=SEED)
+    built = build_models({}, device=device, dtype=dtype, seed=SEED)
     for name in ('unet', 'vae', 'text_encoder', 'adapter'):
         built[name].requires_grad_(False)
     return VideoSwapPipeline(**built)
@@ -1444,9 +1639,10 @@ def unet_forward(unet, frames=2):
                     [put(r) for r in res], cfg_prefix_dedup=True)
 
 
-def small_sample(pipe):
-    """The small phase's `sample`: 256x256, 2 frames, 2 DDIM steps, CFG and
-    adapter; initial latents from SEED + 2 rounded to bf16."""
+def small_sample(pipe, sampler='ddim', steps=2):
+    """The small phase's `sample`: 256x256, 2 frames, 2 DDIM steps (or
+    `steps` of `sampler`), CFG and adapter; initial latents from SEED + 2
+    rounded to bf16."""
     import numpy as np
     import torch
     size, frames = 256, 2
@@ -1457,10 +1653,10 @@ def small_sample(pipe):
         return pipe.sample(
             latents=torch.from_numpy(lat0).to(torch.bfloat16).to(dt),
             prompt='a white dog on a wooden floor', video_length=frames,
-            height=size, width=size, num_inference_steps=2,
+            height=size, width=size, num_inference_steps=steps,
             guidance_scale=7.5, negative_prompt='low quality',
             conditions=conditions(frames, size), t2i_guidance_scale=0.5,
-            t2i_end=0.5, output_type='latent')
+            t2i_end=0.5, output_type='latent', sampler=sampler)
 
 
 def phase_unet(report, state):
@@ -1780,9 +1976,9 @@ def blend_video(frames, size, seed):
     return torch.from_numpy(np.clip(out, -1, 1)).bfloat16().float().numpy()
 
 
-def edlora_file(pipe, path, seed=SEED):
-    """A synthetic ED-LoRA checkpoint for the pipeline's models: the two
-    concepts' 16 layer embeddings, and a rank-LORA_RANK LoRA (down ~
+def edlora_file(pipe, path, seed=SEED, concepts=BLEND_CONCEPTS):
+    """A synthetic ED-LoRA checkpoint for the pipeline's models: the
+    concepts' 16 layer embeddings each, and a rank-LORA_RANK LoRA (down ~
     N(0, 1/in), up ~ N(0, 0.02^2)) on every eligible U-Net and text-encoder
     weight."""
     import torch
@@ -1806,7 +2002,7 @@ def edlora_file(pipe, path, seed=SEED):
     hid = pipe.text_encoder.cfg.hidden_size
     sd = {'new_concept_embedding': {
         c: torch.randn((16, hid), generator=gen) * 0.02
-        for c in BLEND_CONCEPTS},
+        for c in concepts},
         'unet': loras(pipe.unet, _UNET_LORA),
         'text_encoder': loras(pipe.text_encoder, _TEXT_LORA, clip_key_map)}
     torch.save({'params': sd}, path)
@@ -1996,6 +2192,452 @@ def phase_blend(report, state):
     missing = [n for n in FORWARD_KERNELS if counts[n] <= 0]
     if missing:
         raise PhaseError(f'kernels not launched on the blend path: {missing}')
+
+
+# ----------------------------------------------------------------- recipes
+def dpm_step_reference(alphas_cumprod, t, delta, x, eps, prev_x0, i, n):
+    """One DPM-Solver++(2M) step restated in float64 numpy (the scheduler's
+    module docstring's formulas), an epsilon-predicting model: (x_t,
+    x0_s)."""
+    import numpy as np
+
+    def alpha(tt):
+        return 1.0 if tt < 0 else float(alphas_cumprod[min(tt, 999)])
+
+    def als(a):
+        al, sg = np.sqrt(a), max(np.sqrt(1.0 - a), 1e-4)
+        return al, sg, np.log(al / sg)
+
+    a_cur = alpha(t)
+    x0 = (x - np.sqrt(1.0 - a_cur) * eps) / np.sqrt(a_cur)
+    _, sg_c, lam_c = als(a_cur)
+    al_n, sg_n, lam_n = als(alpha(t - delta))
+    _, _, lam_p = als(alpha(t + delta))
+    h = lam_n - lam_c
+    d = x0
+    if not (i == 0 or (n < 15 and i == n - 1)):
+        r = (lam_c - lam_p) / h
+        d = (1 + 1 / (2 * r)) * x0 - (1 / (2 * r)) * prev_x0
+    return (sg_n / sg_c) * x - al_n * np.expm1(-h) * d, x0
+
+
+def dpm_step_errors(sched) -> dict:
+    """The DPM++ step on the card (fp32, the sampler's own call) against
+    its float64 restatement, relative L2, at second-order steps of 5- and
+    20-step schedules (and 20's last, second order there)."""
+    import numpy as np
+    import torch
+    from videoswap_torch.schedulers import dpm
+    rs = np.random.RandomState(SEED + 8)
+    ac = sched.alphas_cumprod.double().numpy()
+    errs = {}
+    for n, i in ((DPM_STEPS, 1), (DPM_STEPS, DPM_STEPS - 2), (20, 1),
+                 (20, 10), (20, 19)):
+        t = int(dpm.dpm_timesteps(1000, n)[i])
+        x, eps, prev = (rs.randn(1, 2, 32, 32, 4) for _ in range(3))
+        put = (lambda a: torch.from_numpy(a).float().cuda())
+        out, x0 = dpm.dpm_pp_2m_step(sched, put(eps), t, put(x), put(prev),
+                                     i, n)
+        ref, ref_x0 = dpm_step_reference(ac, t, 1000 // n, x, eps, prev, i,
+                                         n)
+        errs[f'{n} steps, step {i}'] = max(
+            float(np.linalg.norm(out.double().cpu().numpy() - ref)
+                  / np.linalg.norm(ref)),
+            float(np.linalg.norm(x0.double().cpu().numpy() - ref_x0)
+                  / np.linalg.norm(ref_x0)))
+    return errs
+
+
+def dpm_small_errors(pipe, cpu=None, ref=None) -> dict:
+    """dpm_small's readings: the latents of `sample(sampler='dpmpp_2m')`,
+    GPU against the CPU pipeline `cpu` (or its latents `ref`), and the step
+    on the card against float64."""
+    import torch
+    out = small_sample(pipe, 'dpmpp_2m', DPM_STEPS)
+    if ref is None:
+        ref = small_sample(cpu, 'dpmpp_2m', DPM_STEPS)
+    return {'latents': rel_err(out, ref),
+            'finite': bool(torch.isfinite(out).all()),
+            'step': dpm_step_errors(pipe.sched)}
+
+
+def dpm_small_fails(errs) -> list:
+    fails = []
+    if not errs['finite'] or errs['latents'] > SAMPLE_REL_TOL:
+        fails.append('latents')
+    if max(errs['step'].values()) > DPM_STEP_TOL:
+        fails.append('step')
+    return fails
+
+
+def phase_dpm_small(report, state):
+    errs = dpm_small_errors(state['pipe'], state['cpu'])
+    fails = dpm_small_fails(errs)
+    log(f'# dpm_small 256x256 2 frames {DPM_STEPS} DPM++(2M) steps: GPU bf16 '
+        f'vs CPU fp32 latents rel L2 err {errs["latents"]:.3e} (tol '
+        f'{SAMPLE_REL_TOL:.0e}); the step on the card (fp32) vs float64, '
+        f'rel L2: {json.dumps({k: float(f"{v:.3e}") for k, v in errs["step"].items()})} '
+        f'(tol {DPM_STEP_TOL:.0e}) {"FAIL " + str(fails) if fails else "ok"}')
+    report['dpm_small'] = errs
+    if fails:
+        raise PhaseError(f'dpm_small: {fails} off: {errs}')
+
+
+def rewrite_yaml(text: str, values: dict, keep: dict) -> str:
+    """A config's text with the value of each dotted key of `values` set
+    (the `key: value` line at that nesting; a trailing comment goes with
+    the old value), and in each mapping `keep` names (dotted) only the
+    entry it keeps, the others' lines dropped."""
+    out, stack, drop_indent = [], [], None
+    for line in text.splitlines():
+        body = line.lstrip(' ')
+        indent = len(line) - len(body)
+        if drop_indent is not None:
+            if not body or body.startswith('#') or indent > drop_indent:
+                continue
+            drop_indent = None
+        m = re.match(r'([^:#\-{\[][^:#]*):(\s|$)', body)
+        if not m:
+            out.append(line)
+            continue
+        key = m.group(1).strip()
+        while stack and stack[-1][0] >= indent:
+            stack.pop()
+        parent = '.'.join(k for _, k in stack)
+        if parent in keep and key != keep[parent]:
+            drop_indent = indent
+            continue
+        stack.append((indent, key))
+        path = '.'.join(k for _, k in stack)
+        if path in values:
+            line = f'{" " * indent}{key}: {values[path]}'
+        out.append(line)
+    return '\n'.join(out) + '\n'
+
+
+def recipe_texts() -> list:
+    """The RECIPES' prompts, negative prompts and replacements: the corpus
+    of the generated tokenizer's merges."""
+    from videoswap_torch.utils.config import load_config
+    texts = []
+    for recipe in RECIPES.values():
+        opt = load_config(str(ROOT / recipe['path']))
+        cfg = opt['val']['editing_config']
+        texts += [opt['datasets']['prompt'], cfg.get('negative_prompt', '')]
+        texts += [s['replace'] for s in cfg['editing_prompts'].values()]
+    return texts
+
+
+def write_experiment_tree(models: dict, root: Path, concepts: dict,
+                          dtype=None) -> dict:
+    """`models` (unet, vae, text_encoder, adapter) written under `root` as
+    the shipped recipes' files are: `pretrained/` a diffusers SD-1.5
+    directory (`unet/diffusion_pytorch_model.bin` without the motion
+    modules, with its `config.json`; `vae/...` with the attention under the
+    deprecated query/key/value/proj_attn names; `text_encoder/
+    pytorch_model.bin` under transformers' names with the position-id
+    buffer old exports carry; `tokenizer/` a generated vocabulary, see
+    clip_vocab), the motion modules alone in `mm_sd_v14.ckpt` with their
+    sinusoidal `pos_encoder.pe` tables as AnimateDiff stores them, the
+    adapter's fp32 state dict in `adapter.pth`, and one synthetic ED-LoRA
+    file a swap (`concepts`: {file name: concept names}), weights in
+    `dtype` (fp16 as published). Returns {model: {the model's key: the
+    tensor written}}."""
+    import torch
+    from videoswap_torch.models.converters import clip_key_map
+    dtype = dtype or torch.float16
+    pre = root / 'pretrained'
+    for sub in ('unet', 'vae', 'text_encoder', 'tokenizer'):
+        (pre / sub).mkdir(parents=True, exist_ok=True)
+
+    def cast(module, dt):
+        return {k: v.detach().to('cpu', dt)
+                for k, v in module.state_dict().items()}
+
+    written = {name: cast(models[name], dtype)
+               for name in ('unet', 'vae', 'text_encoder')}
+    written['adapter'] = cast(models['adapter'], torch.float32)
+    unet = models['unet']
+    motion = {k: v for k, v in written['unet'].items()
+              if '.motion_modules.' in k}
+    for name, buf in unet.named_buffers():
+        if '.motion_modules.' in name and name.endswith('.pe'):
+            for j in (0, 1):
+                motion[f'{name[:-3]}.attention_blocks.{j}.pos_encoder.pe'] = \
+                    buf[None].detach().to('cpu', dtype)
+    torch.save({k: v for k, v in written['unet'].items() if k not in motion},
+               pre / 'unet' / 'diffusion_pytorch_model.bin')
+    torch.save(motion, root / 'mm_sd_v14.ckpt')
+    cfg = unet.cfg
+    (pre / 'unet' / 'config.json').write_text(json.dumps({
+        'block_out_channels': list(cfg.block_out_channels),
+        'layers_per_block': cfg.layers_per_block,
+        'attention_head_dim': cfg.attention_head_dim,
+        'cross_attention_dim': cfg.cross_attention_dim,
+        'norm_num_groups': cfg.norm_num_groups}))
+    legacy = {'.to_q.': '.query.', '.to_k.': '.key.', '.to_v.': '.value.',
+              '.to_out.0.': '.proj_attn.'}
+
+    def vae_key(k):
+        for new, old in legacy.items():
+            if 'attentions' in k and new in k:
+                return k.replace(new, old)
+        return k
+    torch.save({vae_key(k): v for k, v in written['vae'].items()},
+               pre / 'vae' / 'diffusion_pytorch_model.bin')
+    text = {clip_key_map(k): v for k, v in written['text_encoder'].items()}
+    text['text_model.embeddings.position_ids'] = torch.arange(77)[None]
+    torch.save(text, pre / 'text_encoder' / 'pytorch_model.bin')
+    vocab, merges = clip_vocab(recipe_texts())
+    (pre / 'tokenizer' / 'vocab.json').write_text(json.dumps(vocab))
+    (pre / 'tokenizer' / 'merges.txt').write_text(merges)
+    (pre / 'tokenizer' / 'tokenizer_config.json').write_text(
+        json.dumps({'model_max_length': 77}))
+    torch.save(written['adapter'], root / 'adapter.pth')
+    for name, names in concepts.items():
+        edlora_file(types.SimpleNamespace(**models), root / name,
+                    concepts=names)
+    return written
+
+
+def write_clip(root: Path, frames: int, size: int, taps: dict,
+               points: int = POINTS, emb: int = 1280) -> None:
+    """blend_video's synthetic clip as `frames` PNG frames at size x size
+    under `root/frames/`, and a TAP.pth for each entry of `taps` ({file
+    name: (height, width) of the recipe's transformed frames}): `points`
+    random tracks in those pixels (the last point hidden, x = -1, in every
+    other frame), `emb`-wide embeddings, a name for each point."""
+    import numpy as np
+    import torch
+    from videoswap_torch.utils.png import write_png
+    video = blend_video(frames, size, SEED + 9)[0]
+    u8 = np.clip(np.round((video + 1.0) * 127.5), 0, 255).astype(np.uint8)
+    (root / 'frames').mkdir(parents=True, exist_ok=True)
+    for i, f in enumerate(u8):
+        write_png(str(root / 'frames' / f'{i:05d}.png'), f)
+    rs = np.random.RandomState(SEED + 10)
+    for name, (h, w) in taps.items():
+        tracks = rs.rand(frames, points, 2) * [w, h]
+        tracks[::2, -1] = -1.0
+        torch.save({'pred_tracks': torch.from_numpy(tracks).float(),
+                    'point_embedding': torch.from_numpy(
+                        rs.randn(points, emb)).float(),
+                    'point_name2id': {n: i for i, n in
+                                      enumerate(TAP_NAMES[:points])}},
+                   root / name)
+
+
+def load_errors(models: dict, written: dict, load_report: dict) -> dict:
+    """For each model the recipe loaded: its missing and unused keys (the
+    loader's report) and the number of its tensors that differ from the
+    tensor written, cast to the model's dtype (a key not written or not
+    loaded counts)."""
+    import torch
+    out = {}
+    for name, sd in written.items():
+        own = models[name].state_dict()
+        missing, unused = load_report.get(name, (list(own), []))
+        differ = sum(k not in own or not torch.equal(
+            own[k].cpu(), v.to(own[k].dtype)) for k, v in sd.items())
+        differ += sum(k not in sd for k in own)
+        out[name] = {'missing': len(missing), 'unused': len(unused),
+                     'differ': differ, 'tensors': len(own)}
+    return out
+
+
+def load_fails(errs) -> list:
+    return [n for n, e in errs.items()
+            if e['missing'] or e['unused'] or e['differ']]
+
+
+def vispoint_errors(plain, vis, conditions, radius=5) -> dict:
+    """Where a swap's `_vispoint` frames differ from its frames: pixels
+    outside every disc of radius + 2 around a visible, selected point
+    (`outside`: PIL's raster of a radius-5 disc lies within 6.5 px of the
+    point), changed pixels not the overlay's green (`not_green`), and
+    visible, selected points whose own pixel is not green
+    (`centres_missed`); each must be 0."""
+    import numpy as np
+    tracks = np.asarray(conditions['pred_tracks'], np.float64)
+    sel = conditions.get('index_list')
+    sel = range(tracks.shape[1]) if sel is None else sel
+    f, h, w = plain.shape[:3]
+    yy, xx = np.mgrid[0:h, 0:w]
+    allowed = np.zeros((f, h, w), bool)
+    missed = 0
+    green = np.array([0, 255, 0], np.uint8)
+    for i in range(f):
+        for p in sel:
+            x, y = tracks[i, p]
+            if x < 0 or y < 0:
+                continue
+            allowed[i] |= (xx - x) ** 2 + (yy - y) ** 2 <= (radius + 2) ** 2
+            if int(y) < h and int(x) < w and \
+                    (vis[i, int(y), int(x)] != green).any():
+                missed += 1
+    changed = (vis != plain).any(-1)
+    return {'outside': int((changed & ~allowed).sum()),
+            'not_green': int((changed & (vis != green).any(-1)).sum()),
+            'centres_missed': missed, 'changed': int(changed.sum())}
+
+
+def vispoint_fails(errs) -> bool:
+    return bool(errs['outside'] or errs['not_green'] or errs['centres_missed']
+                or not errs['changed'])
+
+
+def recipe_config(root: Path, name: str, tree: Path) -> Path:
+    """RECIPES[name]'s shipped config rewritten into `tree`: its file paths
+    pointing at the tree's files, its cuts made (each listed on a '#' line
+    at its top)."""
+    recipe = RECIPES[name]
+    text = (root / recipe['path']).read_text()
+    swap = recipe['swap']
+    sw = f'val.editing_config.editing_prompts.{swap}'
+    values = {
+        'datasets.path': tree / 'frames',
+        'datasets.tap_path': tree / recipe['tap'],
+        'models.unet.inference_config_path':
+            root / 'options/model_cfg/inference.yml',
+        'models.unet.motion_module_path': tree / 'mm_sd_v14.ckpt',
+        'models.adapter.model_config_path':
+            root / 'options/model_cfg/point_adapter.yml',
+        'path.pretrained_model_path': tree / 'pretrained',
+        'path.pretrained_adapter_path': tree / 'adapter.pth',
+        f'{sw}.lora_path': f'{tree / recipe["lora"]}---{recipe["alpha"]}',
+        **{k: v for k, v in recipe['values'].items()}}
+    text = rewrite_yaml(text, {k: str(v) for k, v in values.items()},
+                        {'val.editing_config.editing_prompts': swap})
+    head = ''.join(f'# {c}\n' for c in recipe['cuts'])
+    out = tree / Path(recipe['path']).name
+    out.write_text(head + text)
+    return out
+
+
+def recipe_run(name: str, tree: Path, written: dict,
+               device: str = 'cuda') -> dict:
+    """One recipe through the CLI (`videoswap_torch.test.test`) on the
+    card (or `device`), then `validation` called directly on the CLI's
+    models with the same inputs: the readings of the phase's checks and
+    the stage times."""
+    import numpy as np
+    import torch
+    from videoswap_torch.test import test
+    from videoswap_torch.utils.config import load_config
+    recipe = RECIPES[name]
+    yml = recipe_config(ROOT, name, tree)
+    opt = load_config(str(yml))
+    swap = recipe['swap']
+    if list(opt['val']['editing_config']['editing_prompts']) != [swap]:
+        raise PhaseError(f'recipe {name}: the rewritten config keeps '
+                         f'{list(opt["val"]["editing_config"]["editing_prompts"])}')
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated() / 2 ** 30 if device == 'cuda' \
+        else 0.0
+    reset_launches()
+    out = test(str(tree), str(yml), device=device)
+    counts = read_launches()
+    pipe, ds = out['pipeline'], out['dataset']
+    models = {k: getattr(pipe, k) for k in written}
+    load = load_errors(models, written, out['load_report'])
+    del models
+    cfg = out['opt']['val']['editing_config']
+    t0 = time.perf_counter()
+    direct = pipe.validation(ds.get_frames(), ds.get_conditions(),
+                             ds.prompt, cfg, train_dataset=ds,
+                             output_type='uint8')
+    if device == 'cuda':
+        torch.cuda.synchronize()
+    t_direct = time.perf_counter() - t0
+    frames, ref = out['results'][swap], direct[swap]
+    err = float(np.linalg.norm(frames.astype(np.float64) - ref)
+                / np.linalg.norm(ref.astype(np.float64)))
+    cond = ds.get_conditions()
+    names = opt['val']['editing_config']['editing_prompts'][swap].get(
+        'select_point')
+    cond['index_list'] = (None if not names else
+                          [cond['point_name2id'][n] for n in names])
+    vis = vispoint_errors(frames, out['results'][swap + '_vispoint'], cond)
+    vis_dir = Path(out['opt']['path']['visualization'])
+    files = {'metrics.json': (vis_dir / 'metrics.json').is_file(),
+             **{f'{k}/frames_{k}': len(list(
+                 (vis_dir / k / f'frames_{k}').glob('*.png')))
+                == len(frames) for k in ('source', swap, swap + '_vispoint')}}
+    return {'load': load, 'rel_err': err,
+            'bit_equal': bool(np.array_equal(frames, ref)),
+            'vispoint': vis, 'files': files, 'launches': counts,
+            'timings': out['timings'], 'direct_s': t_direct,
+            'resident_gib': resident,
+            'shape': list(frames.shape), 'index_list': cond['index_list'],
+            'metrics': out['metrics']}
+
+
+def recipe_fails(r) -> list:
+    fails = [f'load {n}' for n in load_fails(r['load'])]
+    if r['rel_err'] > RECIPE_REL_TOL:
+        fails.append('frames vs direct validation')
+    if vispoint_fails(r['vispoint']):
+        fails.append('vispoint')
+    fails += [f'file {k}' for k, ok in r['files'].items() if not ok]
+    fails += [f'launches {k}' for k in FORWARD_KERNELS
+              if r['launches'][k] <= 0]
+    return fails
+
+
+def make_recipe_tree(pipe, tree: Path) -> dict:
+    """The experiment tree both recipes read, written from `pipe`'s models:
+    the models' files, 64 frames at 512x512 and a TAP.pth for each
+    recipe's frame size. Returns the written tensors."""
+    written = write_experiment_tree(
+        {k: getattr(pipe, k) for k in ('unet', 'vae', 'text_encoder',
+                                       'adapter')}, tree,
+        {r['lora']: r['concepts'] for r in RECIPES.values()})
+    write_clip(tree, RECIPE_FRAMES, SIZE,
+               {r['tap']: r['frame_hw'] for r in RECIPES.values()})
+    return written
+
+
+def phase_recipe(report, state):
+    import tempfile
+    import torch
+    pipe = state['pipe']
+    report['recipe'] = {}
+    with tempfile.TemporaryDirectory() as d:
+        tree = Path(d)
+        t0 = time.perf_counter()
+        written = make_recipe_tree(pipe, tree)
+        log(f'# recipe: experiment tree written in '
+            f'{time.perf_counter() - t0:.1f} s')
+        for name in RECIPES:
+            r = recipe_run(name, tree, written)
+            torch.cuda.empty_cache()
+            report['recipe'][name] = r
+            report['launches'][f'recipe_{name}'] = r['launches']
+            fails = recipe_fails(r)
+            tm = r['timings']
+            stages = {k: (round(v['s'], 3) if isinstance(v, dict)
+                          else round(v, 3)) for k, v in tm.items()}
+            swap = RECIPES[name]['swap']
+            log(f'# recipe {name} ({RECIPES[name]["path"]}; '
+                f'{"; ".join(RECIPES[name]["cuts"])}): frames '
+                f'{r["shape"]}, stages (s; the CLI run\'s peak GiB above the '
+                f'{r["resident_gib"]:.3f} GiB this script holds) '
+                f'{json.dumps(stages)}; '
+                f'{swap} steps (s) '
+                f'{" ".join(f"{v:.3f}" for v in tm[swap]["step_s"])}, VAE '
+                f'decode {tm[swap]["decode_s"]:.3f} s; inversion steps (s) '
+                f'{" ".join(f"{v:.3f}" for v in tm["inversion"]["step_s"])}; '
+                f'direct validation {r["direct_s"]:.2f} s')
+            log(f'# recipe {name} checks: load {json.dumps(r["load"])}; CLI '
+                f'frames vs direct validation rel L2 {r["rel_err"]:.3e} (tol '
+                f'{RECIPE_REL_TOL:.0e}), bit-equal {r["bit_equal"]}; '
+                f'vispoint (index_list {r["index_list"]}) '
+                f'{json.dumps(r["vispoint"])}; files {json.dumps(r["files"])}'
+                f'; metrics {json.dumps(r["metrics"])}; launches '
+                f'{json.dumps(r["launches"])} '
+                f'{"FAIL " + str(fails) if fails else "ok"}')
+            if fails:
+                raise PhaseError(f'recipe {name}: {fails}')
 
 
 # ------------------------------------------------------------------ atlas
@@ -2266,6 +2908,27 @@ def phase_atlas(report, state):
         raise PhaseError(f'atlas PSNR {psnr} or propagated track not finite')
 
 
+def env_line() -> str:
+    """The optional packages the port's writers and readers import where
+    they are used (PIL: gif and non-PNG frames; imageio: mp4), and those it
+    does without (yaml, transformers, regex): present with their version,
+    or missing."""
+    import importlib.metadata
+    import importlib.util
+    out = []
+    for module, dist in (('PIL', 'pillow'), ('imageio', 'imageio'),
+                         ('yaml', 'pyyaml'), ('transformers', 'transformers'),
+                         ('regex', 'regex')):
+        if importlib.util.find_spec(module) is None:
+            out.append(f'{module} missing')
+            continue
+        try:
+            out.append(f'{module} {importlib.metadata.version(dist)}')
+        except importlib.metadata.PackageNotFoundError:
+            out.append(f'{module} present')
+    return ', '.join(out)
+
+
 def card() -> str:
     out = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
@@ -2294,6 +2957,7 @@ def main() -> None:
     kind = torch.cuda.get_device_name(0)
     log(f'# device: {kind}; torch {torch.__version__} CUDA '
         f'{torch.version.cuda}; nvidia-smi: {power}')
+    log(f'# env: {env_line()}')
 
     report = {'kernels': {}, 'launches': {}}
     state = {}
@@ -2314,14 +2978,15 @@ def main() -> None:
             else:
                 if 'pipe' not in state:
                     state['pipe'] = build_pipeline('cuda', torch.bfloat16)
-                if phase in ('unet', 'small', 'train_small', 'blend_small') \
-                        and 'cpu' not in state:
+                if phase in ('unet', 'small', 'dpm_small', 'train_small',
+                             'blend_small') and 'cpu' not in state:
                     state['cpu'] = cpu_copy(state['pipe'])
                 {'unrouted': phase_unrouted, 'unet': phase_unet,
-                 'small': phase_small,
+                 'small': phase_small, 'dpm_small': phase_dpm_small,
                  'sample': phase_sample, 'train_small': phase_train_small,
                  'train': phase_train, 'blend_small': phase_blend_small,
-                 'blend': phase_blend}[phase](report, state)
+                 'blend': phase_blend, 'recipe': phase_recipe}[phase](
+                    report, state)
             log(f'# phase {phase}: {time.perf_counter() - t0:.1f} s')
     except PhaseError as e:
         die(str(e))

@@ -4,7 +4,8 @@
     python3 scripts/fault_control.py
 
 Plants one fault at a time, in a kernel's wrapper (a chunk of the kernel's
-work skipped), in the trainer or in the blended swap, and runs
+work skipped), in the trainer, in the blended swap or on the recipe's path
+(the DPM++ step, the loader, the point overlay), and runs
 chip_smoke.py's unet, small, train_small and blend_small comparisons (GPU
 bf16 kernels against the CPU fp32 plain path; blend_small in its recompute
 tier), its atlas_small comparison (GPU fp32 against CPU fp32) and its
@@ -73,9 +74,40 @@ check of chip_smoke.py's kernels phase. The faults:
                       of each image's column segments (`plan`: blocks of
                       256 virtual rows, the last one partly full) are
                       zero: the likeliest slip of the kernel's tiling (the
-                      rows past the last whole tile dropped).
+                      rows past the last whole tile dropped);
+- flash_partial_block_upper_rows: the flash forward's second consumer
+                      (query rows 64-127 of a 128-row block) writes nothing
+                      in a last block that is partly full with more than 64
+                      rows (Sq % 128 > 64). No 512x512 or 256x256 shape has
+                      such a block (4096, 1024 and 256 are whole blocks, 64
+                      and 16 one consumer's), so no model check of the
+                      square sizes can see it, and the recipe phase's own
+                      check compares the CLI with the same kernels; the
+                      1009 recipe's 336- and 84-token levels do: the
+                      kernels phase's check at the recipe's shapes
+                      (chip_smoke.recipe_shape_kernels) must catch it.
 
-The last three are faults of the unrouted kernels, which no model path runs:
+The recipe's faults, each run against the checks of chip_smoke.py's
+dpm_small and recipe phases (the 2001 DPM++ recipe through the CLI on a
+synthetic experiment tree written once; the CPU's dpm_small latents taken
+once):
+
+- dpm_first_order:    every DPM-Solver++ step of a tensor on the card takes
+                      the first-order update (the 2M correction skipped):
+                      dpm_small's latents against the CPU's, and its step
+                      check (the step on the card against its float64
+                      restatement), which sees it alone where the latents'
+                      limit may not;
+- loader_drops_motion_module: the loader drops AnimateDiff's motion-module
+                      file (its state is not merged into the U-Net's): the
+                      recipe's load check (0 missing keys, every tensor as
+                      written);
+- vispoint_ignores_index_list: the point overlay draws every point, not the
+                      swap's selection: the recipe's `_vispoint` check (the
+                      2001 run's swap selects two points).
+
+The last three of the kernel faults are faults of the unrouted kernels,
+which no model path runs:
 the unrouted limits catch them, beside the kernel limit.
 
 The two p2p faults are faults of the blended path with no kernel:
@@ -97,8 +129,11 @@ train_small's update limits (the AdamW step's change of the weights against
 the CPU's, and the share of weights it moves), the hash-corner and
 hash-level faults fail atlas_small's hash-table gradient limit (the atlas's
 forward and its other gradients are untouched), both p2p faults fail
-blend_small's limit or its exact-match check, and the unrouted kernels'
-faults fail the unrouted limits.
+blend_small's limit or its exact-match check, the unrouted kernels'
+faults fail the unrouted limits, the sound recipe run passes dpm_small's
+and the recipe's checks, and each recipe fault fails the check named for
+it above; the sound run passes the kernels phase's check at the recipe's
+shapes, and flash_partial_block_upper_rows fails it.
 """
 
 from __future__ import annotations
@@ -209,6 +244,32 @@ def _flash_bwd_dq_last_k_tile():
             k, v = k[:, :keep], v[:, :keep]
         return launch(q, k, v, dout, lse, delta, dq)
     return mock.patch.object(fa, '_launch_bwd_dq', faulted)
+
+
+def _flash_partial_block_upper_rows():
+    from videoswap_torch.ops import flash_attention as fa
+    kernel = fa.flash_attention_kernel
+
+    def faulted(q, k, v):
+        out, lse = kernel(q, k, v)
+        sq = q.shape[1]
+        if sq % 128 > 64:
+            out[:, sq // 128 * 128 + 64:] = 0
+        return out, lse
+    return mock.patch.object(fa, 'flash_attention_kernel', faulted)
+
+
+def recipe_shapes_error(fault: str) -> str:
+    """The kernels phase's check at the recipe's shapes with the fault
+    planted: its error message, or '' when it passes."""
+    import torch
+    gen = torch.Generator(device='cuda').manual_seed(cs.SEED)
+    with FAULTS[fault](None):
+        try:
+            cs.recipe_shape_kernels({'kernels': {}}, gen)
+        except cs.PhaseError as e:
+            return str(e)
+    return ''
 
 
 @contextlib.contextmanager
@@ -358,6 +419,75 @@ def _conv_last_pixel_tile():
 
 
 @contextlib.contextmanager
+def _dpm_first_order():
+    from videoswap_torch.pipelines import videoswap_pipeline as vp
+    from videoswap_torch.schedulers import dpm
+    step = dpm.dpm_pp_2m_step
+
+    def faulted(sched, model_output, t, sample, prev_x0, step_index, n):
+        if sample.is_cuda:
+            step_index = 0                      # D = x0: first order
+        return step(sched, model_output, t, sample, prev_x0, step_index, n)
+    with mock.patch.object(dpm, 'dpm_pp_2m_step', faulted), \
+            mock.patch.object(vp, 'dpm_pp_2m_step', faulted):
+        yield
+
+
+def _loader_drops_motion_module():
+    from videoswap_torch.models import converters
+    return mock.patch.object(converters, 'merge_motion_module',
+                             lambda unet_sd, motion_sd: dict(unet_sd))
+
+
+@contextlib.contextmanager
+def _vispoint_ignores_index_list():
+    from videoswap_torch.pipelines import videoswap_pipeline as vp
+    from videoswap_torch.utils import vis_util
+    draw = vis_util.overlay_points
+
+    def faulted(frames, tap_dict, *args, **kwargs):
+        return draw(frames, dict(tap_dict, index_list=None), *args, **kwargs)
+    with mock.patch.object(vis_util, 'overlay_points', faulted), \
+            mock.patch.object(vp, 'overlay_points', faulted):
+        yield
+
+
+# the recipe's faults -> context managers planting them
+RECIPE_FAULTS = {
+    'sound': contextlib.nullcontext,
+    'dpm_first_order': _dpm_first_order,
+    'loader_drops_motion_module': _loader_drops_motion_module,
+    'vispoint_ignores_index_list': _vispoint_ignores_index_list,
+}
+
+
+def recipe_rows(pipe, cpu) -> dict:
+    """Each recipe fault (and the sound run) against dpm_small's checks and
+    the 2001 recipe's; {fault: readings and the checks that failed}."""
+    import tempfile
+
+    import torch
+    ref = cs.small_sample(cpu, 'dpmpp_2m', cs.DPM_STEPS)
+    rows = {}
+    with tempfile.TemporaryDirectory() as d:
+        tree = Path(d)
+        written = cs.make_recipe_tree(pipe, tree)
+        for name, plant in RECIPE_FAULTS.items():
+            with plant():
+                dpm = cs.dpm_small_errors(pipe, ref=ref)
+                r = cs.recipe_run('2001', tree, written)
+            torch.cuda.empty_cache()
+            rows[name] = {'dpm_small': dpm,
+                          'dpm_small_fails': cs.dpm_small_fails(dpm),
+                          'recipe_load': r['load'],
+                          'recipe_rel_err': r['rel_err'],
+                          'recipe_vispoint': r['vispoint'],
+                          'recipe_fails': cs.recipe_fails(r)}
+            cs.log(f'# {name}: {json.dumps(rows[name])}')
+    return rows
+
+
+@contextlib.contextmanager
 def _adapter_bf16_weights(trainer):
     trainer.adapter.bfloat16()
     try:
@@ -394,6 +524,8 @@ FAULTS = {
     'spatial_last_key_tile': lambda tr: _spatial_last_key_tile(),
     'conv_last_tap': lambda tr: _conv_last_tap(),
     'conv_last_pixel_tile': lambda tr: _conv_last_pixel_tile(),
+    'flash_partial_block_upper_rows':
+        lambda tr: _flash_partial_block_upper_rows(),
 }
 BACKWARD_FAULTS = ('flash_bwd_dkv_last_q_tile', 'flash_bwd_dq_last_k_tile')
 ATLAS_FAULTS = ('hash_last_corner', 'hash_last_level')
@@ -403,6 +535,8 @@ KERNEL_ONLY_FAULTS = ('hash_last_block', 'geglu_gate_small_flushed',
 UNROUTED_FAULTS = ('spatial_last_key_tile', 'conv_last_tap',
                    'conv_last_pixel_tile')
 TRAINER_FAULTS = ('adapter_bf16_weights',)
+# faults that only the kernels phase's check at the recipe's shapes sees
+RECIPE_SHAPE_FAULTS = ('flash_partial_block_upper_rows',)
 BLEND_FAULTS = ('edit_cross_skipped', 'blend_latents_skipped')
 
 
@@ -578,10 +712,14 @@ def main() -> None:
         row['train_update_fails'] = (
             row['train_update_rel_err'] > cs.TRAIN_UPDATE_TOL
             or row['train_moved'] < cs.TRAIN_MOVED_MIN)
+        if name in ('sound',) + RECIPE_SHAPE_FAULTS:
+            row['recipe_shapes_error'] = recipe_shapes_error(name)
         rows[name] = row
         cs.log(f'# {name}: {json.dumps(row)}')
     lora_dir.cleanup()
+    recipe = recipe_rows(pipe, cpu)
     sound = rows.pop('sound')
+    recipe_sound = recipe.pop('sound')
     kernel_tol = {'hash': cs.HASH_TOL,
                   'geglu_gate': cs.TOL['geglu_gate'],
                   'geglu': cs.TOL['geglu_ffn'],
@@ -601,6 +739,9 @@ def main() -> None:
             caught[name] = bool(r['blend_small_fails']
                                 or r['blend_exact_fails'])
             continue
+        if name in RECIPE_SHAPE_FAULTS:
+            caught[name] = bool(r['recipe_shapes_error'])
+            continue
         tol = next(t for key, t in kernel_tol.items()
                    if name.startswith(key))
         if name in UNROUTED_FAULTS:
@@ -616,8 +757,17 @@ def main() -> None:
                      or r['blend_small_fails'] or r['blend_exact_fails']
                      or r['train_loss_fails'] or r['train_grad_fails'])
         caught[name] = bool(model and r['kernel_err'] > tol)
+    caught['dpm_first_order'] = bool(
+        recipe['dpm_first_order']['dpm_small_fails'])
+    caught['loader_drops_motion_module'] = any(
+        f.startswith('load unet')
+        for f in recipe['loader_drops_motion_module']['recipe_fails'])
+    caught['vispoint_ignores_index_list'] = 'vispoint' in recipe[
+        'vispoint_ignores_index_list']['recipe_fails']
     ok = not any(v for k, v in sound.items() if k.endswith('_fails')) \
-        and all(caught.values())
+        and not sound['recipe_shapes_error'] \
+        and not recipe_sound['dpm_small_fails'] \
+        and not recipe_sound['recipe_fails'] and all(caught.values())
     print(json.dumps({'ok': ok, 'unet_tol': cs.MODEL_REL_TOL,
                       'small_tol': cs.SAMPLE_REL_TOL,
                       'blend_small_tol': cs.BLEND_REL_TOL,
@@ -631,8 +781,11 @@ def main() -> None:
                                      'grad': cs.ATLAS_GRAD_TOL,
                                      'hash_grad': cs.ATLAS_HASH_GRAD_TOL,
                                      'update': cs.ATLAS_UPDATE_TOL},
-                      'sound': sound,
-                      'faults': rows, 'caught': caught}), flush=True)
+                      'dpm_step_tol': cs.DPM_STEP_TOL,
+                      'recipe_tol': cs.RECIPE_REL_TOL,
+                      'sound': sound, 'recipe_sound': recipe_sound,
+                      'faults': rows, 'recipe_faults': recipe,
+                      'caught': caught}), flush=True)
     sys.exit(0 if ok else 1)
 
 

@@ -39,7 +39,8 @@ On one card:
   resnet input, 32x32, 320 -> 640 (bf16, random inputs from a seed):
   CUDA events over 20 calls, beside cuDNN's conv2d alone on the activated
   input and the group_norm + silu + conv2d chain, timed in the same
-  process (the stand-ins chip_smoke.py times).
+  process (the stand-ins chip_smoke.py times), and the plain version
+  (`gn_silu_conv_plain` on the bf16 inputs, as chip_smoke.py times it).
 
 `--parts` picks which of the four run (all by default).
 
@@ -178,9 +179,12 @@ def conv(label: str) -> None:
             chain = device_ms(lambda: F.conv2d(F.silu(F.group_norm(
                 x_cl, 32, g16, b16)), w_cl, bias16, padding=1), 20,
                 ahead=False)
+            plain = device_ms(lambda: gc.gn_silu_conv_plain(
+                x, scale, shift, weight, bias), 5, ahead=False)
         print(f'{label} gn_silu_conv N={n} H=W={side} {cin}->{cout}: kernel '
               f'{kernel:.4f} ms; cuDNN conv2d alone {cudnn:.4f} ms; '
-              f'group_norm + silu + conv2d {chain:.4f} ms', flush=True)
+              f'group_norm + silu + conv2d {chain:.4f} ms; plain version '
+              f'{plain:.4f} ms', flush=True)
 
 
 def main_step_ms(trainer, gen, it0: int, iters: int) -> float:

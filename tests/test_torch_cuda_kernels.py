@@ -477,7 +477,7 @@ def test_backward_refuses_what_it_does_not_take(cuda):
 
 def test_build_models_defaults_to_the_card(cuda):
     from videoswap_torch.builders import build_models
-    built = build_models({
+    built = build_models({'models': {
         'unet': {'unet_cfg': dict(block_out_channels=(16, 32, 32, 32),
                                   attention_head_dim=4,
                                   cross_attention_dim=24, norm_num_groups=8,
@@ -487,7 +487,7 @@ def test_build_models_defaults_to_the_card(cuda):
                                  intermediate_size=32),
         'adapter': {'adapter_cfg': dict(embedding_channels=12,
                                         channels=(16, 32, 32, 32),
-                                        mid_dim=8)}})
+                                        mid_dim=8)}}})
     for name in ('unet', 'vae', 'text_encoder', 'adapter'):
         m = built[name]
         assert all(t.is_cuda for t in (*m.parameters(), *m.buffers())), name

@@ -204,9 +204,9 @@ def test_sample_refuses_what_is_not_ported(pipes):
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         tpipe.validation(video, None, 'a cat', {'visualize_attention': True,
                                                'editing_prompts': {}})
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
+    with pytest.raises(ValueError, match='unknown sampler'):
         tpipe.sample('a cat', F, 64, 64, num_inference_steps=1,
-                     sampler='dpmpp_2m')
+                     sampler='euler')
 
 
 def test_port_runs_with_jax_blocked():
@@ -245,10 +245,10 @@ def test_port_runs_with_jax_blocked():
         assert out.shape == (1, 2, 64, 64, 3), out.shape
         from videoswap_torch.builders import build_models
         from videoswap_torch.pipelines import VideoSwapTrainer
-        built = build_models(
-            {{'unet': {{'unet_cfg': {UNET_KW!r}}}, 'vae_cfg': {VAE_KW!r},
-             'text_encoder_cfg': {CLIP_KW!r},
-             'adapter': {{'adapter_cfg': {ADAPTER_KW!r}}}}}, device='cpu')
+        built = build_models({{'models': {{
+            'unet': {{'unet_cfg': {UNET_KW!r}}}, 'vae_cfg': {VAE_KW!r},
+            'text_encoder_cfg': {CLIP_KW!r},
+            'adapter': {{'adapter_cfg': {ADAPTER_KW!r}}}}}}}, device='cpu')
         trainer = VideoSwapTrainer(
             tune_cfg={{'drop_rate': 0.2, 'min_timestep': 0.5}}, **built)
         batch = {{'pixels': torch.rand(1, 2, 64, 64, 3) * 2 - 1,

@@ -211,7 +211,7 @@ def trainers():
                                 ('unet', 'vae', 'text_encoder')},
                         tune_cfg=dict(TUNE, remat=False),
                         optimizer_cfg={'lr': 1e-3}, **mods)
-    built = build_models(MODELS_OPT, device='cpu')
+    built = build_models({'models': MODELS_OPT}, device='cpu')
     for name in mods:
         built[name].load_state_dict(
             jax_params_to_state_dict(params[name]), strict=True)
@@ -329,7 +329,7 @@ def test_step_with_a_fixed_draw_lowers_the_loss():
     """The analogue of the JAX package's trainer test: the same generator
     state every step re-evaluates the same timestep, noise and dropout, so
     AdamW on the adapter must lower the loss on that sample."""
-    built = build_models(MODELS_OPT, device='cpu', seed=1)
+    built = build_models({'models': MODELS_OPT}, device='cpu', seed=1)
     tr = VideoSwapTrainer(tune_cfg=dict(TUNE), optimizer_cfg={'lr': 1e-3},
                           max_grad_norm=1.0, **built)
     frozen = [p.clone() for p in tr.unet.parameters()]
@@ -346,8 +346,8 @@ def test_step_with_a_fixed_draw_lowers_the_loss():
 def bf16_trained():
     """bf16 models on the CPU, as the card runs them, after one AdamW step
     at the slice's lr: (trainer, adapter weights before the step)."""
-    built = build_models(MODELS_OPT, device='cpu', dtype=torch.bfloat16,
-                         seed=2)
+    built = build_models({'models': MODELS_OPT}, device='cpu',
+                         dtype=torch.bfloat16, seed=2)
     before = [p.detach().float().clone() for p in built['adapter'].parameters()]
     tr = VideoSwapTrainer(tune_cfg=dict(TUNE), optimizer_cfg={'lr': 1e-5},
                           **built)

@@ -1,15 +1,31 @@
-"""Config -> models: the construction part of videoswap_tpu/builders.py
-`build_models`, for runs without checkpoint files.
+"""Config -> models (the port of videoswap_tpu/builders.py `build_models`
+and its helpers).
 
-`models_opt` takes the JAX package's `opt['models']` keys that size the
-models: `unet.unet_cfg` (UNet3DConfig fields), `vae_cfg` (AutoencoderKL
-keyword arguments), `text_encoder_cfg` (CLIPTextConfig fields) and
-`adapter.adapter_cfg` (AdapterConfig fields). Keys that name files
-(pretrained weights, inference or adapter config paths) are refused:
-loading checkpoints is not ported yet (ROADMAP.md).
+`build_models(opt, root_path)` reads an experiment config's `models` and
+`path` blocks:
 
-Weights are drawn from a seeded generator (utils/init.py) on the target
-device, model by model in the order U-Net, VAE, text encoder, adapter.
+- the U-Net's sizes from `models.unet.inference_config_path`
+  (`unet_additional_kwargs`), `path.pretrained_model_path`'s
+  `unet/config.json`, then `models.unet.unet_cfg` overrides
+  (`unet_config_from_opt`); the adapter's from
+  `models.adapter.model_config_path`, then `adapter_cfg`
+  (`adapter_config_from_opt`); the VAE's and the text encoder's from
+  `models.vae_cfg` and `models.text_encoder_cfg`; the noise schedule from
+  the inference config's `noise_scheduler_kwargs`;
+- weights drawn from a seeded generator on the target device (utils/init.py,
+  model by model in the order U-Net, VAE, text encoder, adapter), then
+  overlaid with the pretrained directory's `unet/diffusion_pytorch_model.bin`
+  (with `models.unet.motion_module_path` merged in), `vae/...` and
+  `text_encoder/pytorch_model.bin`, and `path.pretrained_adapter_path`'s
+  `.pth`, each a `load_state_dict` after key normalisation
+  (models/converters.py) whose missing and unused keys are logged and
+  put in the caller's `load_report` dict when one is given;
+- the tokenizer: CLIP's BPE from the pretrained directory's `tokenizer/`,
+  else the hash stand-in.
+
+As in the JAX package, a `pretrained_model_path` that is not a directory
+is logged and the weights stay random (runs without checkpoints); a file
+that a key names and that is missing raises.
 
 `build_atlas_nets` builds the layered-neural-atlas nets of an atlas
 config's `models` block the same way.
@@ -17,23 +33,30 @@ config's `models` block the same way.
 
 from __future__ import annotations
 
+import json
+import os
 from typing import Optional
 
 import torch
 
 from videoswap_torch.atlas.imlp import imlp_from_opt, init_imlp
 from videoswap_torch.models import (AdapterConfig, AnimateDiffUNet3DModel,
-                                    SparsePointAdapter, UNet3DConfig)
+                                    SparsePointAdapter, UNet3DConfig,
+                                    converters)
 from videoswap_torch.models.clip_text import CLIPTextConfig, CLIPTextModel
 from videoswap_torch.models.vae import AutoencoderKL
 from videoswap_torch.schedulers import make_schedule
+from videoswap_torch.utils.config import load_config, resolve_path
 from videoswap_torch.utils.init import init_weights
-from videoswap_torch.utils.tokenizer import HashTokenizer
+from videoswap_torch.utils.logger import get_logger
+from videoswap_torch.utils.tokenizer import load_tokenizer
 
-_FILE_KEYS = ('inference_config_path', 'motion_module_path',
-              'model_config_path', 'pretrained_model_path')
 ATLAS_NET_NAMES = ('FG_UV_Mapping', 'BG_UV_Mapping', 'F_Alpha', 'F_Atlas',
                    'FG_UV_Mapping_Inverse')
+# the config's `mixed_precision` -> the models' dtype (the U-Net kernels
+# take bf16; fp16 runs in bf16, as in the JAX package)
+MIXED_PRECISION = {'fp16': torch.bfloat16, 'bf16': torch.bfloat16,
+                   'no': torch.float32}
 
 
 def _tuples(kwargs: dict) -> dict:
@@ -41,38 +64,169 @@ def _tuples(kwargs: dict) -> dict:
             for k, v in kwargs.items()}
 
 
-def build_models(models_opt: Optional[dict] = None,
+def unet_config_from_opt(model_opt: dict, root_path: str,
+                         pretrained_path: Optional[str]) -> UNet3DConfig:
+    kwargs = {}
+    inf_cfg_path = model_opt.get('inference_config_path')
+    if inf_cfg_path:
+        inf_cfg = load_config(resolve_path(root_path, inf_cfg_path))
+        ak = inf_cfg.get('unet_additional_kwargs', {})
+        mk = ak.get('motion_module_kwargs', {})
+        kwargs.update(
+            use_motion_module=ak.get('use_motion_module', True),
+            motion_module_resolutions=tuple(
+                ak.get('motion_module_resolutions', (1, 2, 4, 8))),
+            motion_module_mid_block=ak.get('motion_module_mid_block', False),
+            motion_heads=mk.get('num_attention_heads', 8),
+            motion_num_transformer_block=mk.get('num_transformer_block', 1),
+            motion_max_len=mk.get('temporal_position_encoding_max_len', 24),
+        )
+        lv = mk.get('long_video_config') or {}
+        if lv.get('window'):
+            kwargs.update(motion_window=int(lv['window']),
+                          motion_window_stride=int(lv['stride'])
+                          if lv.get('stride') else None)
+    cfg_json = (os.path.join(pretrained_path, 'unet', 'config.json')
+                if pretrained_path else None)
+    if cfg_json and os.path.isfile(cfg_json):
+        with open(cfg_json) as f:
+            dcfg = json.load(f)
+        kwargs.update(
+            block_out_channels=tuple(dcfg['block_out_channels']),
+            layers_per_block=dcfg.get('layers_per_block', 2),
+            attention_head_dim=dcfg.get('attention_head_dim', 8),
+            cross_attention_dim=dcfg.get('cross_attention_dim', 768),
+            norm_num_groups=dcfg.get('norm_num_groups', 32),
+        )
+    kwargs.update(model_opt.get('unet_cfg', {}))
+    return UNet3DConfig(**_tuples(kwargs))
+
+
+def adapter_config_from_opt(model_opt: dict, root_path: str) -> AdapterConfig:
+    kwargs = {}
+    p = model_opt.get('model_config_path')
+    if p:
+        c = load_config(resolve_path(root_path, p))
+        kwargs.update(
+            embedding_channels=c.get('embedding_channels', 1280),
+            channels=tuple(c.get('channels', (320, 640, 1280, 1280))),
+            downsample_rate=tuple(c.get('downsample_rate', (8, 16, 32, 64))),
+            mid_dim=c.get('mid_dim', 128),
+        )
+    kwargs.update(model_opt.get('adapter_cfg', {}))
+    return AdapterConfig(**_tuples(kwargs))
+
+
+def schedule_from_opt(model_opt: dict, root_path: str):
+    """The noise schedule of the U-Net's inference config
+    (`noise_scheduler_kwargs`), else the default."""
+    p = model_opt.get('inference_config_path')
+    kwargs = (load_config(resolve_path(root_path, p)).get(
+        'noise_scheduler_kwargs', {}) if p else {})
+    return make_schedule(**kwargs)
+
+
+def _file(path: str, what: str) -> str:
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f'{what}: no file {path}')
+    return path
+
+
+def load_adapter_checkpoint(path: str, adapter: SparsePointAdapter):
+    """A trained adapter's reference `.pth` into `adapter`; returns
+    (missing, unused) keys."""
+    if not path.endswith('.pth'):
+        raise NotImplementedError(
+            f'{path}: only the reference .pth adapter checkpoints load in '
+            'the port (the JAX package\'s .msgpack needs flax)')
+    sd = converters.load_torch_file(_file(path, 'pretrained_adapter_path'))
+    return converters.load_normalized(adapter, sd)
+
+
+def _load_pretrained(models: dict, pre: Optional[str], unet_opt: dict,
+                     root_path: str) -> dict:
+    """Overlay the diffusers directory's weights (when `pre` is one) and
+    the motion module (when the config names one) on `models`; returns
+    {model: (missing, unused)} of each load."""
+    report = {}
+    unet_sd = {}
+    unet_bin = pre and os.path.join(pre, 'unet', 'diffusion_pytorch_model.bin')
+    if unet_bin and os.path.isfile(unet_bin):
+        unet_sd = converters.load_torch_file(unet_bin)
+    motion = unet_opt.get('motion_module_path')
+    if motion:
+        unet_sd = converters.merge_motion_module(
+            unet_sd, converters.load_torch_file(_file(
+                resolve_path(root_path, motion), 'motion_module_path')))
+    if unet_sd:
+        report['unet'] = converters.load_normalized(models['unet'], unet_sd)
+    if not pre:
+        return report
+    vae_bin = os.path.join(pre, 'vae', 'diffusion_pytorch_model.bin')
+    if os.path.isfile(vae_bin):
+        report['vae'] = converters.load_normalized(
+            models['vae'], converters.normalize_vae_keys(
+                converters.load_torch_file(vae_bin)))
+    for name in ('pytorch_model.bin', 'model.bin'):
+        text_bin = os.path.join(pre, 'text_encoder', name)
+        if os.path.isfile(text_bin):
+            report['text_encoder'] = converters.load_normalized(
+                models['text_encoder'], converters.load_torch_file(text_bin),
+                key_map=converters.clip_key_unmap)
+            break
+    return report
+
+
+def build_models(opt: dict, root_path: str = '.',
                  device: Optional[str | torch.device] = None,
-                 dtype: torch.dtype = torch.float32, seed: int = 0) -> dict:
-    """Build unet, vae, text_encoder, adapter, sched and tokenizer.
+                 dtype: torch.dtype = torch.float32, seed: int = 0,
+                 load_report: Optional[dict] = None) -> dict:
+    """Build unet, vae, text_encoder, adapter, sched and tokenizer from an
+    experiment config (`opt`: its `models` and `path` blocks; paths in it
+    are relative to `root_path`). A `load_report` dict given is filled with
+    {model: (missing keys, unused keys)} of each checkpoint loaded.
 
     device: None means 'cuda' (the port's kernels run there; pass 'cpu'
     for the plain versions). Models come back in eval mode, in `dtype`."""
-    opt = models_opt or {}
-    for name in ('unet', 'adapter'):
-        found = [k for k in _FILE_KEYS if k in opt.get(name, {})]
-        if found:
-            raise NotImplementedError(
-                f'models.{name}: {found} name files; loading configs and '
-                'checkpoints is not ported yet (ROADMAP.md)')
+    logger = get_logger()
+    models_opt = opt.get('models', {})
+    unet_opt = models_opt.get('unet', {})
+    pre = resolve_path(root_path, opt.get('path', {}).get(
+        'pretrained_model_path'))
+    if pre and not os.path.isdir(pre):
+        logger.warning(f'pretrained_model_path {pre} not found; the weights '
+                       'are random (a run without checkpoints)')
+        pre = None
     device = torch.device('cuda' if device is None else device)
     gen = torch.Generator(device=device).manual_seed(seed)
     with torch.device(device):
         models = {
-            'unet': AnimateDiffUNet3DModel(UNet3DConfig(**_tuples(
-                opt.get('unet', {}).get('unet_cfg', {})))),
-            'vae': AutoencoderKL(**_tuples(opt.get('vae_cfg', {}))),
+            'unet': AnimateDiffUNet3DModel(unet_config_from_opt(
+                unet_opt, root_path, pre)),
+            'vae': AutoencoderKL(**_tuples(models_opt.get('vae_cfg', {}))),
             'text_encoder': CLIPTextModel(CLIPTextConfig(
-                **opt.get('text_encoder_cfg', {}))),
-            'adapter': SparsePointAdapter(AdapterConfig(**_tuples(
-                opt.get('adapter', {}).get('adapter_cfg', {})))),
+                **models_opt.get('text_encoder_cfg', {}))),
+            'adapter': SparsePointAdapter(adapter_config_from_opt(
+                models_opt.get('adapter', {}), root_path)),
         }
     for m in models.values():
         init_weights(m, gen)
         # buffers made from numpy (the motion-module PE table) are built on
         # the CPU whatever the default device: move everything
         m.to(device=device, dtype=dtype).eval()
-    return dict(models, sched=make_schedule(), tokenizer=HashTokenizer())
+
+    report = _load_pretrained(models, pre, unet_opt, root_path)
+    adapter_ckpt = opt.get('path', {}).get('pretrained_adapter_path')
+    if adapter_ckpt:
+        report['adapter'] = load_adapter_checkpoint(
+            resolve_path(root_path, adapter_ckpt), models['adapter'])
+    for name, (missing, unused) in report.items():
+        logger.info(f'{name} load: {len(missing)} missing, {len(unused)} '
+                    'unused keys')
+    if load_report is not None:
+        load_report.update(report)
+    return dict(models, sched=schedule_from_opt(unet_opt, root_path),
+                tokenizer=load_tokenizer(pre))
 
 
 def build_atlas_nets(models_opt: dict,

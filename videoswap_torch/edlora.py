@@ -173,6 +173,17 @@ def restore_pipeline(pipeline, ctx: dict) -> None:
     pipeline.tokenizer.new_concept_cfg = ctx['tok_cfg']
 
 
+def apply_new_concept_cfg(pipeline, new_concept_cfg: dict) -> None:
+    """Persistent concepts from a `new_concept_cfg.json` (reference
+    test.py:82-86): the token names are registered, nothing else; their
+    embeddings must be in the text encoder's checkpoint or come with an
+    ED-LoRA file."""
+    pipeline.new_concept_cfg = new_concept_cfg
+    pipeline.tokenizer.new_concept_cfg = new_concept_cfg
+    for cfg in new_concept_cfg.values():
+        pipeline.tokenizer.add_tokens(cfg['concept_token_names'])
+
+
 @torch.no_grad()
 def encode_edlora_prompt(pipeline, prompts: list[str]) -> torch.Tensor:
     """(B, 16, 77, D) layer-wise embeddings: every prompt expands to its 16

@@ -13,8 +13,13 @@ carry the same attribute names) and their 3-D `hash_table` as it is.
 The input is a nested mapping of array-likes (numpy arrays, or anything
 `numpy.asarray` takes); this module imports nothing of JAX.
 
-`clip_key_map` and `load_torch_file` are the helpers of
-videoswap_tpu/models/converters.py that ED-LoRA loading needs.
+Checkpoint files (videoswap_tpu/models/converters.py's families: the
+diffusers SD-1.5 directory, AnimateDiff's `mm_sd_v14.ckpt`, the trained
+adapter's `.pth`, ED-LoRA files) carry the same diffusers and transformers
+keys, so loading one is a key normalisation (`merge_motion_module`,
+`normalize_vae_keys`, `clip_key_unmap`) and a `load_state_dict`
+(`load_normalized`), which reports the missing and unused keys as the JAX
+package's non-strict conversion logs them.
 """
 
 from __future__ import annotations
@@ -38,6 +43,14 @@ _SPECIAL_SUBS = {
 _LITERAL_NAMES = {'linear_1', 'linear_2'}    # trailing _digit is literal
 _ATLAS_LAYER = re.compile(r'hidden_\d+')      # the atlas IMLP's Dense layers
 _EMBED_LEAVES = ('token_embedding', 'position_embedding')
+# deprecated diffusers VAE AttentionBlock keys (pre-0.18 exports, e.g. the
+# chilloutmix dump) -> the modern Attention keys the port's VAE carries
+_VAE_LEGACY_ATTN = {'.query.': '.to_q.', '.key.': '.to_k.',
+                    '.value.': '.to_v.', '.proj_attn.': '.to_out.0.'}
+# keys a checkpoint may carry that no module loads: the motion modules'
+# sinusoidal tables (computed, not stored), CLIP's position-id buffer,
+# BatchNorm counters (the JAX package's conversion skips the same)
+_IGNORED_SUFFIXES = ('.pe', 'position_ids', 'num_batches_tracked')
 
 
 def flax_path_to_torch_key(path: tuple[str, ...]) -> str:
@@ -102,3 +115,57 @@ def load_torch_file(path: str) -> dict:
     if isinstance(sd, dict) and 'state_dict' in sd:
         sd = sd['state_dict']
     return sd
+
+
+def clip_key_unmap(key: str) -> str:
+    """The inverse of `clip_key_map`: a transformers text-encoder key
+    ('text_model.encoder.layers.0...') -> the port's ('layers.0...')."""
+    for prefix in ('text_model.embeddings.', 'text_model.encoder.',
+                   'text_model.'):
+        if key.startswith(prefix):
+            return key[len(prefix):]
+    return key
+
+
+def merge_motion_module(unet_sd: dict, motion_sd: dict) -> dict:
+    """The SD-1.5 U-Net's state dict with AnimateDiff's motion-module state
+    dict merged in (its keys name the 3-D U-Net's motion modules)."""
+    return {**unet_sd, **motion_sd}
+
+
+def normalize_vae_keys(sd: dict) -> dict:
+    """The deprecated VAE attention keys (query, key, value, proj_attn)
+    renamed to the modern ones; modern dicts pass through unchanged."""
+    out = {}
+    for k, v in sd.items():
+        if 'attentions' in k:
+            for old, new in _VAE_LEGACY_ATTN.items():
+                if old in k:
+                    k = k.replace(old, new)
+                    break
+        out[k] = v
+    return out
+
+
+def load_normalized(module: torch.nn.Module, sd: dict,
+                    key_map=None) -> tuple[list[str], list[str]]:
+    """Load a checkpoint's normalised state dict into `module` (each tensor
+    cast to the module's dtype on its device). `key_map` renames the
+    file's keys to the module's. Returns (missing, unused): the module's
+    keys the file lacks, which keep their values, and the file's keys the
+    module has no place for (the ignored suffixes apart). A shape that
+    differs raises."""
+    own = module.state_dict()
+    found, unused = {}, []
+    for k, v in sd.items():
+        key = key_map(k) if key_map else k
+        if key in own:
+            if tuple(v.shape) != tuple(own[key].shape):
+                raise ValueError(f'{k}: shape {tuple(v.shape)} in the file, '
+                                 f'{tuple(own[key].shape)} in the model')
+            found[key] = v
+        elif not key.endswith(_IGNORED_SUFFIXES):
+            unused.append(k)
+    missing = [k for k in own if k not in found]
+    module.load_state_dict(found, strict=False)
+    return missing, unused

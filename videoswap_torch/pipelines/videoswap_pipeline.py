@@ -38,9 +38,10 @@ from videoswap_torch.p2p.edit import (EditBundle, inversion_store_filter,
                                       want_recompute_self)
 from videoswap_torch.schedulers import (DiffusionSchedule, ddim_inverse_step,
                                         ddim_inverse_timesteps, ddim_step,
-                                        ddim_timesteps)
-from videoswap_torch.utils.image import preprocess_video
+                                        ddim_timesteps, dpm_pp_2m_step)
+from videoswap_torch.utils.image import video_geometry, video_pixels
 from videoswap_torch.utils.registry import PIPELINE_REGISTRY
+from videoswap_torch.utils.vis_util import overlay_points
 
 
 def make_target_prompt(source_prompt: str, swap_cfg: dict) -> str:
@@ -130,7 +131,8 @@ class VideoSwapPipeline:
                callback: Optional[Callable[[int, torch.Tensor, torch.Tensor],
                                            None]] = None):
         """DDIM-invert a source video (reference `invert`). video: PIL
-        frames, or a (1, F, H, W, 3) array or tensor in [-1, 1].
+        frames, uint8 frames (F, H, W, 3), or a (1, F, H, W, 3) array or
+        tensor in [-1, 1].
 
         Returns (inverted latents (1, F, h, w, 4), per_step) with per_step
         'latents' (N, 1, F, h, w, 4) after each step, 'z0' the encoded
@@ -139,11 +141,8 @@ class VideoSwapPipeline:
         S, T)} of the sites `store_ctrl` stores. `callback(i, t, latents)`
         runs after every step. No CFG (guidance 1), and the VAE
         posterior's mode: the inversion is deterministic."""
-        if isinstance(video, (np.ndarray, torch.Tensor)):
-            pixels = torch.as_tensor(video)
-        else:
-            pixels = torch.from_numpy(preprocess_video(video))
-        pixels = pixels.to(self.device, torch.float32)
+        pixels = torch.as_tensor(video_pixels(video)).to(self.device,
+                                                         torch.float32)
         text = self.encode_prompt([prompt])
         ts = ddim_inverse_timesteps(self.sched.num_train_timesteps,
                                     num_inference_steps)
@@ -212,11 +211,14 @@ class VideoSwapPipeline:
         (e.g. inverted latents); otherwise they are drawn from `generator`.
         `callback(i, t, latents)` runs after every step. output_type:
         'latent' (device tensor), 'np' (float video in [-1, 1], the uint8
-        quantisation undone) or 'pil' (list of frames)."""
-        if sampler != 'ddim':
-            raise NotImplementedError(
-                f'sampler {sampler!r} is not ported yet; only ddim (see '
-                'ROADMAP.md Queue 1 item 11)')
+        quantisation undone), 'uint8' (frames (F, H, W, 3)) or 'pil' (list
+        of frames). sampler: 'ddim' or
+        'dpmpp_2m' (DPM-Solver++(2M), schedulers/dpm.py, on the same
+        timestep grid)."""
+        if sampler not in ('ddim', 'dpmpp_2m'):
+            raise ValueError(f'unknown sampler {sampler!r}: ddim or '
+                             'dpmpp_2m')
+        use_dpm = sampler == 'dpmpp_2m'
         dev = self.device
         do_cfg = guidance_scale > 1.0
         text = self.encode_prompt([negative_prompt or '', prompt] if do_cfg
@@ -242,6 +244,7 @@ class VideoSwapPipeline:
         dedup = bool(do_cfg and lat.shape[0] == 1 and h8 * w8 >= 1024)
         ecfg = edit_bundle.cfg if edit_bundle is not None else None
         sums = dict(edit_bundle.init_sums) if ecfg is not None else {}
+        prev_x0 = torch.zeros_like(lat) if use_dpm else None
 
         for i, t in enumerate(ts):
             inp = lat if (not do_cfg or dedup) else torch.cat([lat, lat])
@@ -264,8 +267,13 @@ class VideoSwapPipeline:
                 eps = eps_u + guidance_scale * (eps_c - eps_u)
                 if guidance_rescale > 0.0:
                     eps = rescale_noise_cfg(eps, eps_c, guidance_rescale)
-            lat = ddim_step(self.sched, eps.to(lat.dtype), int(t), lat,
-                            num_inference_steps).to(lat.dtype)
+            if use_dpm:
+                lat, prev_x0 = dpm_pp_2m_step(
+                    self.sched, eps.to(lat.dtype), int(t), lat, prev_x0, i,
+                    num_inference_steps)
+            else:
+                lat = ddim_step(self.sched, eps.to(lat.dtype), int(t), lat,
+                                num_inference_steps).to(lat.dtype)
             if ecfg is not None and ecfg.blend_latents:
                 lat, sums = latent_blend_step(
                     ecfg, edit_bundle.static_state, lat, step['inv_latents'],
@@ -281,6 +289,8 @@ class VideoSwapPipeline:
                             ).to(torch.uint8).cpu().numpy()
         if output_type == 'np':
             return video.astype(np.float32) / 127.5 - 1.0
+        if output_type == 'uint8':
+            return video[0]
         from PIL import Image
         return [Image.fromarray(f) for f in video[0]]
 
@@ -320,32 +330,38 @@ class VideoSwapPipeline:
                                                 torch.Tensor], None]] = None):
         """The per-swap loop of the reference `validation`: the inversion
         (storing what the blends and edits read), then per swap a transient
-        ED-LoRA merge, the conditions, the target prompt, the controller,
-        seed-0 sampling and the weight restore. Returns {swap: frames}.
+        ED-LoRA merge, the conditions (the swap's `tap_path` through
+        `train_dataset.get_conditions`, `select_point` names to
+        `index_list`), the target prompt, the controller, seed-0 sampling
+        with the swap's or the config's `sampler`, and the weight restore.
+        Returns {swap: frames}, and with `visualize_point` also {swap +
+        '_vispoint': the frames with the selected points drawn}.
 
+        source_video: PIL frames, uint8 frames (F, H, W, 3) (a dataset's
+        `get_frames()`), or a (1, F, H, W, 3) video in [-1, 1].
         `output_type` is passed to `sample` (the one adaptation of the port:
         the JAX package always returns PIL frames; the default is the
         same). `callback(stage, i, t, latents)` runs after every step of
         the inversion (stage 'invert') and of each swap (stage = the
-        swap's key). Not ported yet (ROADMAP.md): `tap_path` conditions
-        from a dataset, `visualize_attention`, `visualize_point`."""
+        swap's key). `visualize_attention` (the attention-map dumps) is not
+        ported yet and raises."""
         cfg = editing_config
         use_inv = cfg.get('use_invertion_latents', True)
         use_blend = cfg.get('use_blend', False)
         steps = cfg.get('num_inference_steps', 50)
-        if cfg.get('visualize_attention') or cfg.get('visualize_point'):
+        if cfg.get('visualize_attention'):
             raise NotImplementedError(
-                'visualize_attention / visualize_point are not ported yet '
-                '(ROADMAP.md Queue 1 item 12)')
+                'visualize_attention is not ported yet: the attention-map '
+                'dumps (_dump_attention_maps, p2p/visualization.py, '
+                'sample(return_attn_sums=)) are ROADMAP.md Queue 1 item 2')
+        if cfg.get('visualize_point') and output_type != 'uint8':
+            raise ValueError("visualize_point draws on uint8 frames: "
+                             "output_type='uint8'")
         if use_blend and not use_inv:
             raise ValueError('use_blend needs the inversion '
                              '(use_invertion_latents)')
 
-        if isinstance(source_video, list):
-            width, height = source_video[0].size
-            video_length = len(source_video)
-        else:
-            video_length, height, width = source_video.shape[1:4]
+        video_length, height, width = video_geometry(source_video)
         width, height = width - width % 8, height - height % 8
 
         ddim_latents, per_step = None, None
@@ -369,15 +385,17 @@ class VideoSwapPipeline:
                                             restore_pipeline)
         results = {}
         for key, swap_cfg in cfg.get('editing_prompts', {}).items():
-            if swap_cfg.get('tap_path'):
-                raise NotImplementedError(
-                    'tap_path conditions are not ported yet (ROADMAP.md)')
             lora_ctx = None
             if swap_cfg.get('lora_path'):
                 path, alpha = swap_cfg['lora_path'].rsplit('---', 1)
                 lora_ctx = load_edlora_into_pipeline(self, path, float(alpha))
             try:
-                conditions = copy.deepcopy(source_conditions)
+                if source_conditions is not None and swap_cfg.get(
+                        'tap_path'):
+                    conditions = train_dataset.get_conditions(
+                        swap_cfg['tap_path'])
+                else:
+                    conditions = copy.deepcopy(source_conditions)
                 if conditions is not None and swap_cfg.get('select_point'):
                     conditions['index_list'] = [
                         conditions['point_name2id'][n]
@@ -430,7 +448,11 @@ class VideoSwapPipeline:
                                          cfg.get('sampler', 'ddim')),
                     callback=(None if callback is None
                               else functools.partial(callback, key)))
+                if conditions is not None and cfg.get('visualize_point'):
+                    results[key + '_vispoint'] = overlay_points(
+                        results[key], conditions)
             finally:
                 if lora_ctx is not None:
                     restore_pipeline(self, lora_ctx)
         return results
+

@@ -31,9 +31,15 @@ def make_schedule(
     beta_end: float = 0.012,
     set_alpha_to_one: bool = True,
     prediction_type: str = 'epsilon',
+    beta_schedule: str = 'linear',
 ) -> DiffusionSchedule:
+    """The schedule of a config's `noise_scheduler_kwargs` (diffusers'
+    names); linear betas, the shipped inference config's."""
     if prediction_type not in ('epsilon', 'v_prediction'):
         raise ValueError(f'unknown prediction_type: {prediction_type}')
+    if beta_schedule != 'linear':
+        raise ValueError(f'beta_schedule {beta_schedule!r}: only linear is '
+                         'ported')
     betas = np.linspace(beta_start, beta_end, num_train_timesteps,
                         dtype=np.float64)
     alphas_cumprod = np.cumprod(1.0 - betas)

@@ -53,3 +53,5 @@ class Registry:
 
 MODEL_REGISTRY = Registry('model')
 PIPELINE_REGISTRY = Registry('pipeline')
+DATASET_REGISTRY = Registry('dataset')
+TRANSFORM_REGISTRY = Registry('transform')
