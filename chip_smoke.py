@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (videoswap_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases build,kernels,unrouted,unet,small,dpm_small,sample,train_small,train,blend_small,blend,recipe,atlas_small,atlas]
+    python3 chip_smoke.py [--phases build,kernels,unrouted,unet,small,dpm_small,sample,train_small,train,blend_small,blend,recipe,train_recipe,atlas_small,atlas]
 
 Phases (all by default):
 
@@ -127,6 +127,24 @@ Phases (all by default):
                the discs of the visible, selected points, metrics.json and
                the frame files written, every forward kernel launched; the
                stage times, each swap's steps and VAE decode, peak memory;
+- train_recipe: the train CLI's path (`videoswap_torch.train`) on the
+               shipped 2001 training config (TRAIN_RECIPE: 16 frames,
+               512x512, fp16 as bf16, the kitten_to_catA ED-LoRA swap with
+               latent blending at val_freq) in the recipe phase's tree,
+               each cut on a '#' line: 2 steps, then --resume to 4 with the
+               validation at step 4; the resumed run must start at step 2
+               from the saved adapter and AdamW state bit for bit, the
+               losses be finite, the 4 steps move >= TRAIN_MOVED_MIN of
+               the adapter's weights, every training kernel launch and
+               visualization/iter_4/<swap> hold 16 frames;
+               models_4/adapter.pth must load strictly into a fresh
+               adapter as the trained weights bit for bit; and the CLI's
+               first 2 losses and adapter update must agree with
+               `VideoSwapTrainer.step` called directly on its models
+               (TRAIN_CLI_LOSS_TOL, TRAIN_CLI_UPDATE_TOL, from the spread
+               of two direct runs, which is printed); the CLI's step
+               times, the train phase's, and the validation's wall-clock
+               and peak memory are printed;
 - atlas_small: the atlas_swan nets at full width (2^19 hash table) on an
                8-frame 128x96 synthetic clip, batch 10000: one main step and
                one inverse step on the same params and draws, GPU against
@@ -142,11 +160,13 @@ Phases (all by default):
                and one propagated point drag.
 
 Launch counts are set to 0 just before the unrouted, sample, train, blend,
-recipe and atlas paths and read just after each (a recipe's run: the CLI,
-before the direct `validation`). scripts/fault_control.py shows
+recipe, train_recipe and atlas paths and read just after each (a recipe's
+run: the CLI, before the direct `validation`; train_recipe: each CLI run,
+the two summed, not the direct steps). scripts/fault_control.py shows
 that the unet, small, train_small, blend_small, atlas_small and unrouted
-limits fail a kernel with a planted fault, and dpm_small's and the recipe
-phase's checks a fault on the recipe's path;
+limits fail a kernel with a planted fault, dpm_small's and the recipe
+phase's checks a fault on the recipe's path, and train_recipe's resume
+check a resume that starts a fresh AdamW;
 scripts/profile_step.py breaks one full-width U-Net step, training step or
 atlas iteration down by device time.
 
@@ -174,7 +194,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PHASES = ('build', 'kernels', 'unrouted', 'unet', 'small', 'dpm_small',
           'sample', 'train_small', 'train', 'blend_small', 'blend', 'recipe',
-          'atlas_small', 'atlas')
+          'train_recipe', 'atlas_small', 'atlas')
 SEED = 0
 FRAMES, SIZE, POINTS = 16, 512, 10
 STEPS = 4          # DDIM steps of the full-width sample (a smoke run's time)
@@ -262,6 +282,35 @@ RECIPES = {
                  'so that the point overlay\'s selection runs (the shipped '
                  '3004 and 3009 configs select points so)', _SYNTHETIC]},
 }
+
+# the train_recipe phase: the shipped training config through the train CLI
+# (videoswap_torch.train) in the recipe phase's tree, run for 2 steps, then
+# resumed to 4; its cuts on '#' lines as RECIPES' are
+TRAIN_RECIPE = {
+    'path': 'options/train_videoswap/animal/2001_catheadturn_T05_Iter100/'
+            '2001_catheadturn_T05_Iter100.yml',
+    'swap': 'kitten_to_catA', 'lora': 'edlora_catA.pth', 'alpha': 1.0,
+    'tap': 'TAP_2001.pth',
+    'values': {'logger.save_checkpoint_freq': 2, 'val.val_freq': 4,
+               'val.editing_config.num_inference_steps': 5,
+               'val.save_type': 'frame'},
+    'cuts': ['cut: total_iter 100 -> 4 (2 steps, then 2 more on --resume)',
+             'cut: save_checkpoint_freq 100 -> 2',
+             'cut: val_freq 100 -> 4',
+             'cut: num_inference_steps 50 -> 5 (the fewest that open the '
+             'latent-blend window)',
+             'cut: one editing prompt of three (kitten_to_catA)',
+             'cut: save_type video -> frame (PNG frames)', _SYNTHETIC]}
+TRAIN_RECIPE_ITERS = (2, 4)
+# the CLI's first TRAIN_RECIPE_ITERS[0] steps against VideoSwapTrainer.step
+# called directly on its models: the losses (largest relative difference)
+# and the change of the adapter's weights (relative L2). On the H100 the two
+# direct runs and the CLI gave the same bits, losses and update (spread 0,
+# the phase's first run), so the limits allow a few fp32 roundings and no
+# more (two steps of lr 5e-4 alone move the loss on the same draws by
+# 2.7e-3: the resumed run's steps 3-4 against steps 1-2)
+TRAIN_CLI_LOSS_TOL = 1e-6
+TRAIN_CLI_UPDATE_TOL = 1e-4
 
 # the 1009 recipe's geometry (448x768 frames, 56x96 latents): the U-Net
 # levels' token counts 5376, 1344, 336 and 84, of which only level 0's is a
@@ -2486,11 +2535,13 @@ def vispoint_fails(errs) -> bool:
                 or not errs['changed'])
 
 
-def recipe_config(root: Path, name: str, tree: Path) -> Path:
-    """RECIPES[name]'s shipped config rewritten into `tree`: its file paths
-    pointing at the tree's files, its cuts made (each listed on a '#' line
-    at its top)."""
-    recipe = RECIPES[name]
+def recipe_config(root: Path, name: str, tree: Path, recipe=None,
+                  extra=None, suffix: str = '') -> Path:
+    """RECIPES[name]'s shipped config (or `recipe`'s) rewritten into
+    `tree` as `<its stem><suffix>.yml`: its file paths pointing at the
+    tree's files, its cuts and the `extra` values made (each cut listed
+    on a '#' line at its top)."""
+    recipe = recipe or RECIPES[name]
     text = (root / recipe['path']).read_text()
     swap = recipe['swap']
     sw = f'val.editing_config.editing_prompts.{swap}'
@@ -2505,11 +2556,11 @@ def recipe_config(root: Path, name: str, tree: Path) -> Path:
         'path.pretrained_model_path': tree / 'pretrained',
         'path.pretrained_adapter_path': tree / 'adapter.pth',
         f'{sw}.lora_path': f'{tree / recipe["lora"]}---{recipe["alpha"]}',
-        **{k: v for k, v in recipe['values'].items()}}
+        **recipe['values'], **(extra or {})}
     text = rewrite_yaml(text, {k: str(v) for k, v in values.items()},
                         {'val.editing_config.editing_prompts': swap})
     head = ''.join(f'# {c}\n' for c in recipe['cuts'])
-    out = tree / Path(recipe['path']).name
+    out = tree / f'{Path(recipe["path"]).stem}{suffix}.yml'
     out.write_text(head + text)
     return out
 
@@ -2597,48 +2648,252 @@ def make_recipe_tree(pipe, tree: Path) -> dict:
     return written
 
 
-def phase_recipe(report, state):
+def recipe_tree(state) -> tuple[Path, dict]:
+    """The experiment tree of the recipe and train_recipe phases
+    (make_recipe_tree from the smoke's pipeline), written once into a
+    temporary directory that is removed when `state` lets it go; returns
+    (tree, the written tensors)."""
     import tempfile
-    import torch
-    pipe = state['pipe']
-    report['recipe'] = {}
-    with tempfile.TemporaryDirectory() as d:
-        tree = Path(d)
+    if 'recipe_tree' not in state:
+        d = tempfile.TemporaryDirectory()
         t0 = time.perf_counter()
-        written = make_recipe_tree(pipe, tree)
+        written = make_recipe_tree(state['pipe'], Path(d.name))
         log(f'# recipe: experiment tree written in '
             f'{time.perf_counter() - t0:.1f} s')
-        for name in RECIPES:
-            r = recipe_run(name, tree, written)
-            torch.cuda.empty_cache()
-            report['recipe'][name] = r
-            report['launches'][f'recipe_{name}'] = r['launches']
-            fails = recipe_fails(r)
-            tm = r['timings']
-            stages = {k: (round(v['s'], 3) if isinstance(v, dict)
-                          else round(v, 3)) for k, v in tm.items()}
-            swap = RECIPES[name]['swap']
-            log(f'# recipe {name} ({RECIPES[name]["path"]}; '
-                f'{"; ".join(RECIPES[name]["cuts"])}): frames '
-                f'{r["shape"]}, stages (s; the CLI run\'s peak GiB above the '
-                f'{r["resident_gib"]:.3f} GiB this script holds) '
-                f'{json.dumps(stages)}; '
-                f'{swap} steps (s) '
-                f'{" ".join(f"{v:.3f}" for v in tm[swap]["step_s"])}, VAE '
-                f'decode {tm[swap]["decode_s"]:.3f} s; inversion steps (s) '
-                f'{" ".join(f"{v:.3f}" for v in tm["inversion"]["step_s"])}; '
-                f'direct validation {r["direct_s"]:.2f} s')
-            log(f'# recipe {name} checks: load {json.dumps(r["load"])}; CLI '
-                f'frames vs direct validation rel L2 {r["rel_err"]:.3e} (tol '
-                f'{RECIPE_REL_TOL:.0e}), bit-equal {r["bit_equal"]}; '
-                f'vispoint (index_list {r["index_list"]}) '
-                f'{json.dumps(r["vispoint"])}; files {json.dumps(r["files"])}'
-                f'; metrics {json.dumps(r["metrics"])}; launches '
-                f'{json.dumps(r["launches"])} '
-                f'{"FAIL " + str(fails) if fails else "ok"}')
-            if fails:
-                raise PhaseError(f'recipe {name}: {fails}')
+        state['recipe_tree'] = (d, written)
+    d, written = state['recipe_tree']
+    return Path(d.name), written
 
+
+def phase_recipe(report, state):
+    import torch
+    report['recipe'] = {}
+    tree, written = recipe_tree(state)
+    for name in RECIPES:
+        r = recipe_run(name, tree, written)
+        torch.cuda.empty_cache()
+        report['recipe'][name] = r
+        report['launches'][f'recipe_{name}'] = r['launches']
+        fails = recipe_fails(r)
+        tm = r['timings']
+        stages = {k: (round(v['s'], 3) if isinstance(v, dict)
+                      else round(v, 3)) for k, v in tm.items()}
+        swap = RECIPES[name]['swap']
+        log(f'# recipe {name} ({RECIPES[name]["path"]}; '
+            f'{"; ".join(RECIPES[name]["cuts"])}): frames '
+            f'{r["shape"]}, stages (s; the CLI run\'s peak GiB above the '
+            f'{r["resident_gib"]:.3f} GiB this script holds) '
+            f'{json.dumps(stages)}; '
+            f'{swap} steps (s) '
+            f'{" ".join(f"{v:.3f}" for v in tm[swap]["step_s"])}, VAE '
+            f'decode {tm[swap]["decode_s"]:.3f} s; inversion steps (s) '
+            f'{" ".join(f"{v:.3f}" for v in tm["inversion"]["step_s"])}; '
+            f'direct validation {r["direct_s"]:.2f} s')
+        log(f'# recipe {name} checks: load {json.dumps(r["load"])}; CLI '
+            f'frames vs direct validation rel L2 {r["rel_err"]:.3e} (tol '
+            f'{RECIPE_REL_TOL:.0e}), bit-equal {r["bit_equal"]}; '
+            f'vispoint (index_list {r["index_list"]}) '
+            f'{json.dumps(r["vispoint"])}; files {json.dumps(r["files"])}'
+            f'; metrics {json.dumps(r["metrics"])}; launches '
+            f'{json.dumps(r["launches"])} '
+            f'{"FAIL " + str(fails) if fails else "ok"}')
+        if fails:
+            raise PhaseError(f'recipe {name}: {fails}')
+
+
+
+# ------------------------------------------------------------- train recipe
+def flat_state(sd: dict):
+    """A state dict's tensors, flattened in key order, fp32 on the CPU."""
+    import torch
+    return torch.cat([sd[k].detach().float().flatten().cpu()
+                      for k in sorted(sd)])
+
+
+def state_differences(a, b, path: str = '') -> list[str]:
+    """The places where two nested state dicts differ: tensors bit for bit
+    (dtype and shape included), everything else by equality."""
+    import torch
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        same = (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)
+                and a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a.cpu(), b.cpu()))
+        return [] if same else [path]
+    if isinstance(a, dict) and isinstance(b, dict):
+        out = [f'{path}.{k}' for k in set(a) ^ set(b)]
+        for k in a.keys() & b.keys():
+            out += state_differences(a[k], b[k], f'{path}.{k}')
+        return out
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)) \
+            and len(a) == len(b):
+        return [d for i, (x, y) in enumerate(zip(a, b))
+                for d in state_differences(x, y, f'{path}[{i}]')]
+    return [] if a == b else [path]
+
+
+def train_cli(yml: Path, tree: Path, resume: bool):
+    """One run of the train CLI (`videoswap_torch.train.train`, its default
+    device): (its result, its kernel launches, its wall-clock s)."""
+    import torch
+    from videoswap_torch.train import train
+    reset_launches()
+    t0 = time.perf_counter()
+    out = train(str(tree), types.SimpleNamespace(
+        opt=str(yml), resume=resume, device=None, distributed=False))
+    torch.cuda.synchronize()
+    return out, read_launches(), time.perf_counter() - t0
+
+
+def direct_train_steps(out: dict, steps: int):
+    """`VideoSwapTrainer.step` called directly `steps` times on a train CLI
+    run's models, from the adapter its loop started with and a fresh AdamW,
+    on a batch made here from its dataset (moments of the bf16 pixels),
+    the noise from the config's manual_seed: (losses, the adapter's state
+    dict after, on the CPU)."""
+    import numpy as np
+    import torch
+    from videoswap_torch.pipelines import VideoSwapTrainer
+    tr, opt = out['trainer'], out['opt']
+    tr.adapter.load_state_dict(out['start_state']['adapter'])
+    trainer = VideoSwapTrainer(
+        unet=tr.unet, vae=tr.vae, text_encoder=tr.text_encoder,
+        tokenizer=tr.tokenizer, sched=tr.sched, adapter=tr.adapter,
+        tune_cfg=opt['train']['tune_cfg'],
+        optimizer_cfg=opt['train']['optimizer'])
+    dev = trainer.device
+    item = out['dataset'][0]
+    tok = trainer.tokenizer
+    ids = tok([item['prompt']], padding='max_length',
+              max_length=tok.model_max_length, truncation=True).input_ids
+    pixels = torch.from_numpy(item['pixels'])[None].to(
+        dev, next(trainer.vae.parameters()).dtype)
+    with torch.no_grad():
+        mean, logvar = trainer.vae.encode_video_moments(pixels)
+    batch = {'latent_mean': mean, 'latent_logvar': logvar,
+             'input_ids': torch.as_tensor(np.asarray(ids), device=dev),
+             'pred_tracks': torch.from_numpy(item['pred_tracks']).to(dev),
+             'point_embedding': torch.from_numpy(
+                 item['point_embedding']).to(dev)}
+    gen = torch.Generator(device=dev).manual_seed(opt['manual_seed'])
+    losses = [trainer.step(batch, gen).item() for _ in range(steps)]
+    return losses, {k: v.detach().cpu().clone()
+                    for k, v in trainer.adapter.state_dict().items()}
+
+
+def _loss_diff(a: list, b: list) -> float:
+    return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+
+def train_recipe_run(tree: Path) -> dict:
+    """TRAIN_RECIPE through the train CLI in `tree`: TRAIN_RECIPE_ITERS[0]
+    steps; two direct runs of as many steps on that run's models; then
+    --resume to TRAIN_RECIPE_ITERS[1], the validation at its last step.
+    Returns the readings of the phase's checks."""
+    import torch
+    from videoswap_torch.builders import load_adapter_checkpoint
+    from videoswap_torch.models import SparsePointAdapter
+    from videoswap_torch.train import state_snapshot
+    n1, n2 = TRAIN_RECIPE_ITERS
+    ymls = [recipe_config(ROOT, 'train', tree, TRAIN_RECIPE,
+                          {'train.total_iter': n}, f'_iter{n}')
+            for n in TRAIN_RECIPE_ITERS]
+    torch.cuda.empty_cache()
+    first, launches, wall1 = train_cli(ymls[0], tree, resume=False)
+    saved = state_snapshot(first['trainer'])
+    init = first['start_state']['adapter']
+    cli_update = flat_state(saved['adapter']) - flat_state(init)
+    direct = [direct_train_steps(first, n1) for _ in range(2)]
+    updates = [flat_state(sd) - flat_state(init) for _, sd in direct]
+    losses, steps_s = list(first['losses']), list(first['step_s'])
+    del first
+    torch.cuda.empty_cache()
+
+    second, launches2, wall2 = train_cli(ymls[1], tree, resume=True)
+    launches = {k: c + launches2[k] for k, c in launches.items()}
+    exp = Path(second['opt']['path']['exp_root'])
+    swap = TRAIN_RECIPE['swap']
+    frames = len(list((exp / 'visualization' / f'iter_{n2}' / swap /
+                       f'frames_{swap}').glob('*.png')))
+    trained = {k: v.detach().cpu() for k, v in
+               second['trainer'].adapter.state_dict().items()}
+    fresh = SparsePointAdapter(second['trainer'].adapter.cfg)
+    missing, unused = load_adapter_checkpoint(
+        str(exp / 'models' / f'models_{n2}' / 'adapter.pth'), fresh)
+    return {
+        'start_step': second['start_step'],
+        'resume_differences': state_differences(second['start_state'],
+                                                saved),
+        'losses': losses + second['losses'],
+        'moved': moved_share(flat_state(trained) - flat_state(init)),
+        'launches': launches, 'iter_frames': frames,
+        'adapter_file': {'missing': len(missing), 'unused': len(unused),
+                         'differ': len(state_differences(
+                             fresh.state_dict(), trained))},
+        'cli_vs_direct': {'loss': _loss_diff(losses, direct[0][0]),
+                          'update': rel_err(cli_update, updates[0])},
+        'direct_spread': {'loss': _loss_diff(direct[1][0], direct[0][0]),
+                          'update': rel_err(updates[1], updates[0])},
+        'direct_losses': [d[0] for d in direct],
+        'step_s': steps_s + second['step_s'],
+        'validation': second['validation'].get(n2, {}),
+        'wall_s': [wall1, wall2]}
+
+
+def train_recipe_fails(r) -> list:
+    fails = []
+    if r['start_step'] != TRAIN_RECIPE_ITERS[0] or r['resume_differences']:
+        fails.append('resume')
+    if not all(math.isfinite(v) for v in r['losses']):
+        fails.append('losses not finite')
+    if r['moved'] < TRAIN_MOVED_MIN:
+        fails.append('moved')
+    fails += [f'launches {k}' for k, c in r['launches'].items()
+              if c <= 0 and KERNEL_PATH.get(k, 'train') == 'train']
+    if r['iter_frames'] != FRAMES:
+        fails.append('validation frames')
+    if any(r['adapter_file'].values()):
+        fails.append('adapter file')
+    if r['cli_vs_direct']['loss'] > TRAIN_CLI_LOSS_TOL or \
+            r['cli_vs_direct']['update'] > TRAIN_CLI_UPDATE_TOL:
+        fails.append('CLI vs direct')
+    return fails
+
+
+def phase_train_recipe(report, state):
+    tree, _ = recipe_tree(state)
+    r = train_recipe_run(tree)
+    report['train_recipe'] = r
+    report['launches']['train_recipe'] = r['launches']
+    fails = train_recipe_fails(r)
+    steps = r['step_s']
+    train_steps = ' '.join(f'{v:.3f}' for v in report.get('train_step_s',
+                                                         []))
+    val = r['validation']
+    log(f'# train_recipe ({TRAIN_RECIPE["path"]}; '
+        f'{"; ".join(TRAIN_RECIPE["cuts"])}): CLI steps (s) '
+        f'{" ".join(f"{v:.3f}" for v in steps)}, p50 '
+        f'{sorted(steps)[len(steps) // 2]:.3f}; the train phase\'s steps '
+        f'in this run (s) {train_steps or "not run"}; validation at step {TRAIN_RECIPE_ITERS[1]} '
+        f'{val.get("s", float("nan")):.2f} s, peak '
+        f'{val.get("peak_gib", float("nan")):.2f} GiB (the process\'s; '
+        f'{val.get("resident_gib", float("nan")):.2f} GiB resident at its '
+        f'start); CLI runs {" ".join(f"{v:.1f}" for v in r["wall_s"])} s '
+        f'(build, load and steps)')
+    log(f'# train_recipe checks: resumed at step {r["start_step"]}, state '
+        f'differences {r["resume_differences"][:5]}; losses '
+        f'{" ".join(f"{v:.6f}" for v in r["losses"])}; adapter weights '
+        f'moved {r["moved"]:.6f} (min {TRAIN_MOVED_MIN}); iter frames '
+        f'{r["iter_frames"]}; adapter file {json.dumps(r["adapter_file"])}; '
+        f'CLI vs direct: loss {r["cli_vs_direct"]["loss"]:.3e} (tol '
+        f'{TRAIN_CLI_LOSS_TOL:g}), update rel L2 '
+        f'{r["cli_vs_direct"]["update"]:.3e} (tol {TRAIN_CLI_UPDATE_TOL:g}); '
+        f'two direct runs: loss {r["direct_spread"]["loss"]:.3e}, update '
+        f'{r["direct_spread"]["update"]:.3e} (direct losses '
+        f'{json.dumps(r["direct_losses"])}); launches '
+        f'{json.dumps(r["launches"])} '
+        f'{"FAIL " + str(fails) if fails else "ok"}')
+    if fails:
+        raise PhaseError(f'train_recipe: {fails}')
 
 # ------------------------------------------------------------------ atlas
 def atlas_clip(frames: int, height: int, width: int, device, seed=SEED):
@@ -2985,7 +3240,8 @@ def main() -> None:
                  'small': phase_small, 'dpm_small': phase_dpm_small,
                  'sample': phase_sample, 'train_small': phase_train_small,
                  'train': phase_train, 'blend_small': phase_blend_small,
-                 'blend': phase_blend, 'recipe': phase_recipe}[phase](
+                 'blend': phase_blend, 'recipe': phase_recipe,
+                 'train_recipe': phase_train_recipe}[phase](
                     report, state)
             log(f'# phase {phase}: {time.perf_counter() - t0:.1f} s')
     except PhaseError as e:

@@ -4,8 +4,9 @@
     python3 scripts/fault_control.py
 
 Plants one fault at a time, in a kernel's wrapper (a chunk of the kernel's
-work skipped), in the trainer, in the blended swap or on the recipe's path
-(the DPM++ step, the loader, the point overlay), and runs
+work skipped), in the trainer, in the blended swap, on the recipe's path
+(the DPM++ step, the loader, the point overlay) or in the train CLI's
+resume, and runs
 chip_smoke.py's unet, small, train_small and blend_small comparisons (GPU
 bf16 kernels against the CPU fp32 plain path; blend_small in its recompute
 tier), its atlas_small comparison (GPU fp32 against CPU fp32) and its
@@ -106,6 +107,16 @@ once):
                       swap's selection: the recipe's `_vispoint` check (the
                       2001 run's swap selects two points).
 
+The train CLI's fault, run against the checks of chip_smoke.py's
+train_recipe phase (the 2001 training config, 2 steps, then --resume to 4,
+in the same tree):
+
+- resume_fresh_adamw: --resume restores the adapter and the step from the
+                      train state but starts a fresh AdamW (its moments and
+                      step counts lost): train_recipe's resume check (the
+                      resumed run's adapter and AdamW state against the
+                      saved ones, bit for bit).
+
 The last three of the kernel faults are faults of the unrouted kernels,
 which no model path runs:
 the unrouted limits catch them, beside the kernel limit.
@@ -132,7 +143,8 @@ forward and its other gradients are untouched), both p2p faults fail
 blend_small's limit or its exact-match check, the unrouted kernels'
 faults fail the unrouted limits, the sound recipe run passes dpm_small's
 and the recipe's checks, and each recipe fault fails the check named for
-it above; the sound run passes the kernels phase's check at the recipe's
+it above; the sound train-recipe run passes train_recipe's checks and
+resume_fresh_adamw fails its resume check; the sound run passes the kernels phase's check at the recipe's
 shapes, and flash_partial_block_upper_rows fails it.
 """
 
@@ -452,6 +464,27 @@ def _vispoint_ignores_index_list():
         yield
 
 
+@contextlib.contextmanager
+def _resume_fresh_adamw():
+    from videoswap_torch import builders
+    from videoswap_torch import train as train_cli
+    from videoswap_torch.models import converters
+
+    def faulted(path, adapter, optimizer):
+        state = converters.load_torch_file(path)
+        adapter.load_state_dict(state['adapter'], strict=True)
+        return int(state['global_step'])
+    with mock.patch.object(builders, 'load_train_state', faulted), \
+            mock.patch.object(train_cli, 'load_train_state', faulted):
+        yield
+
+
+# the train CLI's faults -> context managers planting them
+TRAIN_RECIPE_FAULTS = {
+    'sound': contextlib.nullcontext,
+    'resume_fresh_adamw': _resume_fresh_adamw,
+}
+
 # the recipe's faults -> context managers planting them
 RECIPE_FAULTS = {
     'sound': contextlib.nullcontext,
@@ -463,7 +496,9 @@ RECIPE_FAULTS = {
 
 def recipe_rows(pipe, cpu) -> dict:
     """Each recipe fault (and the sound run) against dpm_small's checks and
-    the 2001 recipe's; {fault: readings and the checks that failed}."""
+    the 2001 recipe's, then each train-recipe fault (and the sound run)
+    against train_recipe's, in the same tree; {fault: readings and the
+    checks that failed}, the train recipe's under 'train_recipe'."""
     import tempfile
 
     import torch
@@ -484,6 +519,18 @@ def recipe_rows(pipe, cpu) -> dict:
                           'recipe_vispoint': r['vispoint'],
                           'recipe_fails': cs.recipe_fails(r)}
             cs.log(f'# {name}: {json.dumps(rows[name])}')
+        rows['train_recipe'] = {}
+        for name, plant in TRAIN_RECIPE_FAULTS.items():
+            with plant():
+                r = cs.train_recipe_run(tree)
+            torch.cuda.empty_cache()
+            row = {k: r[k] for k in ('start_step', 'resume_differences',
+                                     'losses', 'moved', 'cli_vs_direct',
+                                     'direct_spread')}
+            row['train_recipe_fails'] = cs.train_recipe_fails(r)
+            row['resume_differences'] = row['resume_differences'][:8]
+            rows['train_recipe'][name] = row
+            cs.log(f'# train_recipe {name}: {json.dumps(row)}')
     return rows
 
 
@@ -719,6 +766,8 @@ def main() -> None:
     lora_dir.cleanup()
     recipe = recipe_rows(pipe, cpu)
     sound = rows.pop('sound')
+    train_recipe = recipe.pop('train_recipe')
+    train_recipe_sound = train_recipe.pop('sound')
     recipe_sound = recipe.pop('sound')
     kernel_tol = {'hash': cs.HASH_TOL,
                   'geglu_gate': cs.TOL['geglu_gate'],
@@ -764,10 +813,14 @@ def main() -> None:
         for f in recipe['loader_drops_motion_module']['recipe_fails'])
     caught['vispoint_ignores_index_list'] = 'vispoint' in recipe[
         'vispoint_ignores_index_list']['recipe_fails']
+    caught['resume_fresh_adamw'] = 'resume' in train_recipe[
+        'resume_fresh_adamw']['train_recipe_fails']
     ok = not any(v for k, v in sound.items() if k.endswith('_fails')) \
         and not sound['recipe_shapes_error'] \
         and not recipe_sound['dpm_small_fails'] \
-        and not recipe_sound['recipe_fails'] and all(caught.values())
+        and not recipe_sound['recipe_fails'] \
+        and not train_recipe_sound['train_recipe_fails'] \
+        and all(caught.values())
     print(json.dumps({'ok': ok, 'unet_tol': cs.MODEL_REL_TOL,
                       'small_tol': cs.SAMPLE_REL_TOL,
                       'blend_small_tol': cs.BLEND_REL_TOL,
@@ -783,8 +836,12 @@ def main() -> None:
                                      'update': cs.ATLAS_UPDATE_TOL},
                       'dpm_step_tol': cs.DPM_STEP_TOL,
                       'recipe_tol': cs.RECIPE_REL_TOL,
+                      'train_cli_tols': {'loss': cs.TRAIN_CLI_LOSS_TOL,
+                                         'update': cs.TRAIN_CLI_UPDATE_TOL},
                       'sound': sound, 'recipe_sound': recipe_sound,
+                      'train_recipe_sound': train_recipe_sound,
                       'faults': rows, 'recipe_faults': recipe,
+                      'train_recipe_faults': train_recipe,
                       'caught': caught}), flush=True)
     sys.exit(0 if ok else 1)
 

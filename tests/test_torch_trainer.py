@@ -414,3 +414,61 @@ def test_lr_schedules_match_optax():
         for step in (0, 5, 10, 50, 100, 150):
             assert math.isclose(ours(step), float(ref(step)), rel_tol=1e-6,
                                 abs_tol=1e-12), (args, step)
+
+
+def test_adamw_matches_optax_across_the_bridge():
+    """Two `optax.adamw` updates of the adapter's params with seeded
+    gradients, against the port's AdamW (the trainer's `init_state`) taking
+    the second from optax's state after the first, carried across by
+    `optax_adam_state_to_torch`: the weights and both moments within 1e-6
+    relative L2 a tensor (fp32 rounding: the two order their arithmetic
+    differently)."""
+    import types
+
+    import optax
+    from videoswap_torch.models import AdapterConfig, SparsePointAdapter
+    from videoswap_torch.models.converters import optax_adam_state_to_torch
+    jadapter = JAdapter(cfg=JAdapterConfig(**ADAPTER_KW))
+    shapes = jax.eval_shape(
+        lambda k, t, e: jadapter.init(k, t, (SIZE, SIZE), e),
+        jax.random.PRNGKey(0), jnp.zeros((F, P, 2)), jnp.zeros((P, 12)))
+    params = [_random_params(shapes, 5)['params']]
+    rs = np.random.RandomState(6)
+    tx = optax.adamw(1e-3, b1=0.9, b2=0.999, weight_decay=0.01)
+    states = [jax.jit(tx.init)(params[0])]
+    grads = []
+
+    @jax.jit
+    def update(g, state, p):
+        updates, state = tx.update(g, state, p)
+        return optax.apply_updates(p, updates), state
+    for _ in range(2):
+        grads.append(jax.tree.map(
+            lambda x: (1e-2 * rs.randn(*x.shape)).astype(np.float32),
+            params[0]))
+        p, state = update(grads[-1], states[-1], params[-1])
+        states.append(state)
+        params.append(p)
+
+    adapter = SparsePointAdapter(AdapterConfig(**ADAPTER_KW))
+    adapter.load_state_dict(jax_params_to_state_dict(params[1]), strict=True)
+    opt = VideoSwapTrainer.init_state(types.SimpleNamespace(
+        adapter=adapter, optimizer_cfg={'lr': 1e-3}))
+    adam = states[1][0]
+    optax_adam_state_to_torch(adam.mu, adam.nu, adam.count, adapter, opt)
+    g = jax_params_to_state_dict(grads[1])
+    for name, p in adapter.named_parameters():
+        p.grad = g[name].clone()
+    opt.step()
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm().clamp_min(1e-30))
+    want = {'weight': jax_params_to_state_dict(params[2]),
+            'exp_avg': jax_params_to_state_dict(states[2][0].mu),
+            'exp_avg_sq': jax_params_to_state_dict(states[2][0].nu)}
+    for name, p in adapter.named_parameters():
+        got = {'weight': p.detach(), **{k: opt.state[p][k] for k in
+                                        ('exp_avg', 'exp_avg_sq')}}
+        for k, v in got.items():
+            assert rel(v, want[k][name]) <= 1e-6, (name, k)
+        assert float(opt.state[p]['step']) == 2.0

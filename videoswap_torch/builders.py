@@ -27,6 +27,11 @@ As in the JAX package, a `pretrained_model_path` that is not a directory
 is logged and the weights stay random (runs without checkpoints); a file
 that a key names and that is missing raises.
 
+`save_adapter_checkpoint` writes a trained adapter as the reference's
+`.pth` (the file `load_adapter_checkpoint` reads); `save_train_state` and
+`load_train_state` keep the adapter, the AdamW state and the step in one
+torch file (the JAX package's are flax's msgpack and a pickle).
+
 `build_atlas_nets` builds the layered-neural-atlas nets of an atlas
 config's `models` block the same way.
 """
@@ -141,6 +146,64 @@ def load_adapter_checkpoint(path: str, adapter: SparsePointAdapter):
             'the port (the JAX package\'s .msgpack needs flax)')
     sd = converters.load_torch_file(_file(path, 'pretrained_adapter_path'))
     return converters.load_normalized(adapter, sd)
+
+
+def _save_atomic(obj, path: str) -> None:
+    """torch.save to a temporary name beside `path`, then rename: a run
+    killed mid-save leaves the previous file whole."""
+    os.makedirs(os.path.dirname(path) or '.', exist_ok=True)
+    tmp = f'{path}.tmp-{os.getpid()}'
+    torch.save(obj, tmp)
+    os.replace(tmp, path)
+
+
+def _adapter_state(adapter: SparsePointAdapter) -> dict:
+    """The adapter's state dict under the reference's keys, fp32 on the
+    CPU."""
+    return {k: v.detach().to('cpu', torch.float32)
+            for k, v in adapter.state_dict().items()}
+
+
+def save_adapter_checkpoint(path: str, adapter: SparsePointAdapter) -> None:
+    """A trained adapter as the reference's `.pth` (its state dict, fp32),
+    the file `load_adapter_checkpoint` and a swap config's
+    `path.pretrained_adapter_path` read."""
+    _save_atomic(_adapter_state(adapter), path)
+
+
+def train_state_dict(adapter: SparsePointAdapter,
+                     optimizer: torch.optim.Optimizer,
+                     global_step: int) -> dict:
+    """A resumable checkpoint: the adapter (fp32), the AdamW `state_dict`
+    and the step."""
+    return {'adapter': _adapter_state(adapter),
+            'optimizer': optimizer.state_dict(),
+            'global_step': int(global_step)}
+
+
+def restore_train_state(state: dict, adapter: SparsePointAdapter,
+                        optimizer: torch.optim.Optimizer) -> int:
+    """A `train_state_dict` into `adapter` (strict) and `optimizer`;
+    returns its step."""
+    adapter.load_state_dict(state['adapter'], strict=True)
+    optimizer.load_state_dict(state['optimizer'])
+    return int(state['global_step'])
+
+
+def save_train_state(path: str, adapter: SparsePointAdapter,
+                     optimizer: torch.optim.Optimizer,
+                     global_step: int) -> None:
+    """The train state in one torch file."""
+    _save_atomic(train_state_dict(adapter, optimizer, global_step), path)
+
+
+def load_train_state(path: str, adapter: SparsePointAdapter,
+                     optimizer: torch.optim.Optimizer) -> int:
+    """What `save_train_state` wrote, into `adapter` and `optimizer`;
+    returns the step."""
+    return restore_train_state(
+        converters.load_torch_file(_file(path, 'train state')), adapter,
+        optimizer)
 
 
 def _load_pretrained(models: dict, pre: Optional[str], unet_opt: dict,

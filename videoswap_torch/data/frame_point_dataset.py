@@ -93,3 +93,11 @@ class SingleVideoPointDataset:
         if self.condition is not None:
             batch.update(self.condition)
         return batch
+
+
+def infinite_batches(dataset):
+    """The reference's epoch-cycling data yielder (train.py): the
+    dataset's items in order, again and again."""
+    while True:
+        for i in range(len(dataset)):
+            yield dataset[i]

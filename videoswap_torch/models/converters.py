@@ -11,7 +11,9 @@ The atlas IMLPs keep their `hidden_{i}` layer names (the port's modules
 carry the same attribute names) and their 3-D `hash_table` as it is.
 
 The input is a nested mapping of array-likes (numpy arrays, or anything
-`numpy.asarray` takes); this module imports nothing of JAX.
+`numpy.asarray` takes); this module imports nothing of JAX. An optax
+AdamW state carries over the same way (`optax_adam_state_to_torch`), so
+that a run trained in the JAX package continues in the port.
 
 Checkpoint files (videoswap_tpu/models/converters.py's families: the
 diffusers SD-1.5 directory, AnimateDiff's `mm_sd_v14.ckpt`, the trained
@@ -95,6 +97,29 @@ def jax_params_to_state_dict(params: Mapping) -> dict[str, torch.Tensor]:
             raise KeyError(f'two flax paths map to {key}')
         out[key] = torch.from_numpy(np.ascontiguousarray(t))
     return out
+
+
+def optax_adam_state_to_torch(mu: Mapping, nu: Mapping, count,
+                              module: torch.nn.Module,
+                              optimizer: torch.optim.Optimizer) -> None:
+    """An optax `adamw` state (its ScaleByAdamState's `mu`, `nu` and
+    `count`, numpy, in `module`'s flax param tree) into `optimizer`'s
+    state, a `torch.optim.AdamW` over `module.parameters()`: `exp_avg`,
+    `exp_avg_sq`, and `step` = `count` (the updates already applied; both
+    bias-correct the next update with step + 1). The two updates are then
+    the same arithmetic: with eps_root 0, optax's m^ / (sqrt(v^) + eps) +
+    wd p is torch's m^ / (sqrt(v) / sqrt(1 - b2^t) + eps) + wd p."""
+    exp_avg, exp_avg_sq = (jax_params_to_state_dict(t) for t in (mu, nu))
+    params = dict(module.named_parameters())
+    if set(exp_avg) != set(params) or set(exp_avg_sq) != set(params):
+        raise KeyError('the optax state\'s tree does not name the module\'s '
+                       f'parameters: {sorted(set(exp_avg) ^ set(params))}')
+    step = float(np.asarray(count))
+    for name, p in params.items():
+        optimizer.state[p] = {
+            'step': torch.tensor(step, dtype=torch.float32),
+            'exp_avg': exp_avg[name].to(p.device, p.dtype),
+            'exp_avg_sq': exp_avg_sq[name].to(p.device, p.dtype)}
 
 
 def clip_key_map(key: str) -> str:

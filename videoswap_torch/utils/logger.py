@@ -4,8 +4,10 @@ videoswap_tpu/utils/logger.py, single-process: the port has no
 
 `set_path_logger` creates `experiments/<name>` (training) or
 `results/<name>` (testing) under the root, archive-renames an existing one
-with a timestamp, copies the config file there under a command-line header,
-records the paths in `opt['path']` and starts the log file.
+with a timestamp (or, on a resume, keeps it in place), copies the config
+file there under a command-line header, records the paths in `opt['path']`
+and starts the log file. `MessageLogger` formats the training loop's
+`[name][Iter: n/N, lr] [eta, time] loss:` lines.
 """
 
 from __future__ import annotations
@@ -42,13 +44,21 @@ def copy_opt_file(opt_path: str, experiments_root: str) -> None:
 
 
 def set_path_logger(root_path: str, config_path: str, opt: dict,
-                    is_train: bool = True) -> dict:
+                    is_train: bool = True,
+                    reuse_existing: bool = False) -> dict:
     """Create the experiment directory tree and record its paths in
-    `opt['path']` (exp_root, models, visualization, log)."""
+    `opt['path']` (exp_root, models, visualization, log).
+
+    `reuse_existing` (the train CLI's `--resume`) keeps an existing
+    experiment directory in place instead of archive-renaming it: the
+    rename would move away the very checkpoint the resume reads."""
     name = opt['name']
     exp_root = os.path.join(root_path,
                             'experiments' if is_train else 'results', name)
-    mkdir_and_rename(exp_root)
+    if reuse_existing:
+        os.makedirs(exp_root, exist_ok=True)
+    else:
+        mkdir_and_rename(exp_root)
     paths = {
         'exp_root': exp_root,
         'models': os.path.join(exp_root, 'models'),
@@ -99,3 +109,37 @@ def dict2str(opt: dict, indent_level: int = 1) -> str:
         else:
             msg += ' ' * (indent_level * 2) + k + ': ' + str(v) + '\n'
     return msg
+
+
+class MessageLogger:
+    """Formats `[name][Iter: n/N, lr] [eta, time] loss:` lines, those of
+    the JAX package's MessageLogger."""
+
+    def __init__(self, opt: dict, start_iter: int = 0):
+        self.exp_name = opt['name']
+        self.total_iter = opt['train']['total_iter']
+        self.start_iter = start_iter
+        self.logger = get_logger()
+        self.start_time = time.time()
+
+    def __call__(self, log_vars: dict) -> None:
+        log_vars = dict(log_vars)
+        current_iter = log_vars.pop('iter')
+        lrs = log_vars.pop('lrs', [])
+        msg = (f'[{self.exp_name[:30]}..][Iter:{current_iter:8,d}/'
+               f'{self.total_iter}, lr:(' +
+               ', '.join(f'{lr:.3e}' for lr in lrs) + ')] ')
+        total_time = time.time() - self.start_time
+        done = max(current_iter - self.start_iter, 1)
+        time_sec_avg = total_time / done
+        eta = time_sec_avg * (self.total_iter - current_iter)
+        msg += f'[eta: {int(eta // 3600)}:{int(eta % 3600 // 60):02d}:' \
+               f'{int(eta % 60):02d}, time (avg): {time_sec_avg:.3f}] '
+        for k, v in log_vars.items():
+            msg += f'{k}: {float(v):.4e} '
+        self.logger.info(msg)
+
+
+def reduce_loss_dict(loss_dict: dict) -> dict:
+    """Cross-process loss averaging, in one process: the input as it is."""
+    return loss_dict
