@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (videoswap_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases build,kernels,unrouted,unet,small,dpm_small,sample,train_small,train,blend_small,blend,recipe,train_recipe,atlas_small,atlas]
+    python3 chip_smoke.py [--phases build,kernels,unrouted,unet,small,dpm_small,sample,train_small,train,blend_small,blend,recipe,train_recipe,atlas_small,atlas,atlas_recipe]
 
 Phases (all by default):
 
@@ -157,16 +157,47 @@ Phases (all by default):
                losses must be finite and fall, the hash kernel must launch
                once a main step: all 16 levels in one launch), the
                reconstruction PSNR of 4 frames
-               and one propagated point drag.
+               and one propagated point drag;
+- atlas_recipe: the shape-change chain through the port's three CLIs on
+               the shipped options/train_atlas/atlas_swan.yml (ATLAS_RECIPE:
+               its nets, batch and losses as written; each cut on a '#'
+               line of the rewritten file): 72 synthetic PNG frames and
+               masks at 854x480 (atlas_clip's disk and background, known
+               motion), `videoswap_torch.extract_flow --method matching`
+               (71 pairs), `videoswap_torch.train_atlas` (pretraining as
+               shipped, 200 iterations, the validation at 200, checkpoints
+               at 100 and 200),
+               `videoswap_torch.propagate_point_displacement` (a drag of
+               two of three named points on the disk by ATLAS_DRAG px) to
+               annotation/TAP_duck.pth; then the checks: the flows' medians
+               on the disk and the background against the known motion,
+               the CLI's flow file against a direct call, the card's flow
+               against the CPU's on two pairs (ATLAS_FLOW_OFF_SHARE,
+               ATLAS_FLOW_MEDIAN_TOL) and its box filter alone
+               (ATLAS_BOX_FILTER_TOL), the CLI's logged losses bit-equal
+               to an AtlasTrainer driven directly from the same seed, one
+               hash launch a main step, the checkpoint reloaded bit-equal
+               into fresh nets and their PSNR equal to the logged one,
+               every validation file present, a full evaluation of
+               ATLAS_FULL_EVAL_FRAMES frames with every file present, the
+               TAP file equal to a direct propagation, with the source's
+               keys, names and shapes, finite or -1 tracks, the undragged
+               track kept, and the dragged tracks within ATLAS_TAP_CPU_PX
+               of a propagation through the nets moved to the CPU, hidden
+               in the same frames (ATLAS_TAP_ALPHA_MARGIN); the keyframe
+               points' distances to source and target printed, not
+               checked; the seconds of each stage and the peak memory.
 
 Launch counts are set to 0 just before the unrouted, sample, train, blend,
-recipe, train_recipe and atlas paths and read just after each (a recipe's
-run: the CLI, before the direct `validation`; train_recipe: each CLI run,
-the two summed, not the direct steps). scripts/fault_control.py shows
+recipe, train_recipe, atlas and atlas_recipe paths and read just after each
+(a recipe's run: the CLI, before the direct `validation`; train_recipe: each
+CLI run, the two summed, not the direct steps; atlas_recipe: the three CLIs,
+not the direct trainer). scripts/fault_control.py shows
 that the unet, small, train_small, blend_small, atlas_small and unrouted
 limits fail a kernel with a planted fault, dpm_small's and the recipe
-phase's checks a fault on the recipe's path, and train_recipe's resume
-check a resume that starts a fresh AdamW;
+phase's checks a fault on the recipe's path, train_recipe's resume
+check a resume that starts a fresh AdamW, and atlas_recipe's checks five
+faults of the shape-change chain;
 scripts/profile_step.py breaks one full-width U-Net step, training step or
 atlas iteration down by device time.
 
@@ -194,7 +225,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PHASES = ('build', 'kernels', 'unrouted', 'unet', 'small', 'dpm_small',
           'sample', 'train_small', 'train', 'blend_small', 'blend', 'recipe',
-          'train_recipe', 'atlas_small', 'atlas')
+          'train_recipe', 'atlas_small', 'atlas', 'atlas_recipe')
 SEED = 0
 FRAMES, SIZE, POINTS = 16, 512, 10
 STEPS = 4          # DDIM steps of the full-width sample (a smoke run's time)
@@ -3163,6 +3194,523 @@ def phase_atlas(report, state):
         raise PhaseError(f'atlas PSNR {psnr} or propagated track not finite')
 
 
+# ----------------------------------------------------------- atlas recipe
+# the shipped atlas recipe through the port's three CLIs, frames to an
+# edited TAP file: extract_flow, train_atlas, propagate_point_displacement
+ATLAS_RECIPE = {
+    'path': 'options/train_atlas/atlas_swan.yml',
+    # pretraining as shipped: cut to a tenth (720 iterations a mapping), the
+    # trained atlas put the dragged keyframe points where alpha <= 0.5, and
+    # hidden tracks cannot show a fault of the drag
+    'values': {'train.total_iter': 200, 'logger.save_checkpoint_freq': 100,
+               'val.val_freq': 200, 'logger.print_freq': 50},
+    'cuts': ['the clip: synthetic frames and masks at 854x480 (DAVIS 480p; '
+             'resized to res_x x res_y on loading), flows from '
+             'videoswap_torch.extract_flow --method matching'],
+}
+# the clip as written: frames, height, width (DAVIS 480p)
+ATLAS_RECIPE_CLIP = (72, 480, 854)
+# frames of the full evaluation run after training (of ATLAS_RECIPE_CLIP's
+# 72: all 72 took 160.5 s on the H100's host, most of it writing gifs)
+ATLAS_FULL_EVAL_FRAMES = 8
+# the drag of the keyframe's points, pixels (x, y), at res_x x res_y
+ATLAS_DRAG = (20, 10)
+# named points on the disk at frame 0, offsets from its centre (x, y);
+# all but the last are dragged (duck.json)
+ATLAS_POINTS = {'head': (-30, -20), 'body': (0, 0), 'tail': (25, 15)}
+# the median flow on the disk and on the background (forward; backward with
+# the sign reversed) within this many pixels of the clip's known motion
+ATLAS_FLOW_SHIFT_TOL = 0.25
+# the card's compute_bidirectional_flow against the CPU's on two pairs: the
+# share of pixels whose flows differ by more than ATLAS_FLOW_OFF_PX, and
+# the median difference. Sound readings on the H100: no
+# pixel off by 0.5 px, median 3.8e-7 px, max 0.088 px
+ATLAS_FLOW_OFF_PX = 0.5
+ATLAS_FLOW_OFF_SHARE = 1e-3
+ATLAS_FLOW_MEDIAN_TOL = 1e-5
+# the matching flow's 7x7 box filter on the card against the CPU, on the
+# first pair's gray difference: max |difference| over max |CPU|. Both sum
+# fp32; inputs read at TF32 precision (10 mantissa bits) would be off by up
+# to 2^-11 relative, a few 1e-4; the candidate choice it feeds moved only
+# 2.4e-4 of the pixels by more than 0.01 px then (fault control)
+ATLAS_BOX_FILTER_TOL = 1e-5
+# the propagated TAP file against a propagation through the trained nets
+# moved to the CPU (a witness independent of how good the atlas is): the
+# same hidden frames, except where the CPU's scaled alpha is within
+# ATLAS_TAP_ALPHA_MARGIN of the 0.5 threshold (fp32 rounding of card and
+# CPU may flip such a frame), and the visible positions within
+# ATLAS_TAP_CPU_PX pixels (both are rounded to whole pixels)
+ATLAS_TAP_CPU_PX = 1.0
+ATLAS_TAP_ALPHA_MARGIN = 1e-4
+# the validation files evaluate_model writes (videos: .mp4, or .gif where
+# imageio is missing), with full=False and the ones full=True adds
+ATLAS_VAL_FILES = ('reconstruction.mp4', 'alpha.mp4', 'foreground.mp4',
+                   'background.mp4', 'atlas_fg.png', 'atlas_bg.png',
+                   'checkerboard.mp4')
+ATLAS_FULL_FILES = ATLAS_VAL_FILES + (
+    'edit.mp4', 'edited_fg.mp4', 'edited_bg.mp4', 'texture_orig1.png',
+    'texture_edit1.png', 'texture_orig2.png', 'texture_edit2.png',
+    'checkerboard_fg.mp4', 'checkerboard_bg.mp4', 'uv_fg.mp4',
+    'uv_fg_masked.mp4', 'uv_bg.mp4', 'residuals.mp4', 'alpha_vs_gtmask.mp4',
+    'global_info.mp4')
+
+
+def missing_files(folder: Path, names) -> list:
+    """The names with no file in `folder` (an .mp4 may be a .gif)."""
+    return [n for n in names if not (folder / n).exists()
+            and not (n.endswith('.mp4')
+                     and (folder / n.replace('.mp4', '.gif')).exists())]
+
+
+def atlas_recipe_points(height: int, width: int, res_x: int, res_y: int):
+    """(source points {name: [y, x]} at frame 0, target points, the tracks
+    (F, P, 2) of every point along the disk's known motion), in res_x x
+    res_y pixels (the atlas's), the disk of atlas_clip at height x width."""
+    import numpy as np
+    frames = ATLAS_RECIPE_CLIP[0]
+    sx, sy = res_x / width, res_y / height
+    cx, cy = 0.3 * width * sx, 0.55 * height * sy
+    (dvx, dvy) = ATLAS_DISK_SHIFT
+    src, dst = {}, {}
+    tracks = np.zeros((frames, len(ATLAS_POINTS), 2), np.float32)
+    for p, (name, (ox, oy)) in enumerate(ATLAS_POINTS.items()):
+        x, y = round(cx + ox), round(cy + oy)
+        src[name] = [y, x]
+        if p < len(ATLAS_POINTS) - 1:
+            dst[name] = [y + ATLAS_DRAG[1], x + ATLAS_DRAG[0]]
+        t = np.arange(frames)
+        tracks[:, p, 0] = x + dvx * sx * t
+        tracks[:, p, 1] = y + dvy * sy * t
+    return src, dst, tracks
+
+
+def write_atlas_recipe_tree(tree: Path, frames: int, height: int,
+                            width: int, res_x: int, res_y: int) -> None:
+    """atlas_clip's frames and masks as PNG files under tree/frames and
+    tree/masks; the keyframe's points (annotation/00000.json), their drag
+    (annotation/duck.json) and a TAP.pth of tracks along the disk's motion
+    with 1280-wide embeddings."""
+    import numpy as np
+    import torch
+    from videoswap_torch.utils.png import write_png
+    clip = atlas_clip(frames, height, width, 'cuda')
+    video = (clip['video'] * 255).round().clamp(0, 255).to(torch.uint8)
+    mask = (clip['mask'] * 255).to(torch.uint8)
+    video, mask = video.cpu().numpy(), mask.cpu().numpy()
+    for sub in ('frames', 'masks', 'annotation'):
+        (tree / sub).mkdir(parents=True, exist_ok=True)
+    for i in range(frames):
+        write_png(str(tree / 'frames' / f'{i:05d}.png'), video[i])
+        write_png(str(tree / 'masks' / f'{i:05d}.png'), mask[i])
+    src, dst, tracks = atlas_recipe_points(height, width, res_x, res_y)
+    (tree / 'annotation' / '00000.json').write_text(json.dumps(src))
+    (tree / 'annotation' / 'duck.json').write_text(json.dumps(dst))
+    rs = np.random.RandomState(SEED + 11)
+    torch.save({'pred_tracks': torch.from_numpy(tracks[:frames]),
+                'point_embedding': torch.from_numpy(
+                    rs.randn(len(src), 1280).astype(np.float32)),
+                'point_name2id': {n: i for i, n in enumerate(src)}},
+               tree / 'annotation' / 'TAP.pth')
+
+
+def flow_shift_errors(flow_dir: Path, mask_dir: Path, frames: int) -> dict:
+    """The median forward and backward flow over the disk and over the
+    background, pooled over every pair, less the known motion (the
+    backward's sign reversed): the largest |difference| of x and y for
+    each, pixels; and the worst single pair's."""
+    import numpy as np
+    from PIL import Image
+    known = {'disk': ATLAS_DISK_SHIFT, 'background': ATLAS_BG_SHIFT}
+    pooled = {f'{d} {r}': [] for d in ('forward', 'backward')
+              for r in known}
+    worst = 0.0
+    masks = [np.asarray(Image.open(mask_dir / f'{i:05d}.png')) > 127
+             for i in range(frames)]
+    for i in range(frames - 1):
+        fl = np.load(flow_dir / f'{i:05d}.npy')
+        for d, f, m, sign in (('forward', fl[0], masks[i], 1),
+                              ('backward', fl[1], masks[i + 1], -1)):
+            for r, sel in (('disk', m), ('background', ~m)):
+                v = f[sel]
+                pooled[f'{d} {r}'].append(v)
+                worst = max(worst, float(np.abs(
+                    np.median(v, axis=0) - sign * np.asarray(known[r])).max()))
+    out = {}
+    for k, vs in pooled.items():
+        d, r = k.split()
+        sign = 1 if d == 'forward' else -1
+        out[k] = float(np.abs(np.median(np.concatenate(vs), axis=0)
+                              - sign * np.asarray(known[r])).max())
+    out['worst pair'] = worst
+    return out
+
+
+def flow_device_errors(frame_dir: Path, pairs) -> dict:
+    """compute_bidirectional_flow on the card against the CPU on `pairs`:
+    the share of pixels (both directions) whose flows differ by more than
+    ATLAS_FLOW_OFF_PX, the median and the largest difference, pixels; and
+    the seconds of each side."""
+    import numpy as np
+    from videoswap_torch.extract_flow import read_frame
+    from videoswap_torch.preprocess.flow import compute_bidirectional_flow
+    diffs, t = [], [0.0, 0.0]
+    for i in pairs:
+        f0, f1 = (read_frame(frame_dir / f'{j:05d}.png') for j in (i, i + 1))
+        out = []
+        for j, dev in enumerate(('cuda', 'cpu')):
+            t0 = time.perf_counter()
+            out.append(compute_bidirectional_flow(f0, f1, 'matching',
+                                                  device=dev))
+            t[j] += time.perf_counter() - t0
+        diffs.append(np.linalg.norm(out[0] - out[1], axis=-1).ravel())
+    d = np.concatenate(diffs)
+    import torch
+    from videoswap_torch.preprocess.flow import _gray
+    from videoswap_torch.preprocess.matching_flow import box_filter
+    f0, f1 = (torch.from_numpy(read_frame(frame_dir / f'{j:05d}.png'))
+              for j in (pairs[0], pairs[0] + 1))
+    e = (_gray(f1) - _gray(f0)).abs()
+    ref = box_filter(e, 7)
+    box = float((box_filter(e.cuda(), 7).cpu() - ref).abs().max()
+                / ref.abs().max())
+    return {'off_share': float((d > ATLAS_FLOW_OFF_PX).mean()),
+            'share_over_0.01px': float((d > 0.01).mean()),
+            'median': float(np.median(d)), 'max': float(d.max()),
+            'box_filter_rel': box, 'card_s': t[0], 'cpu_s': t[1]}
+
+
+def direct_atlas_run(cli: dict) -> dict:
+    """An AtlasTrainer driven directly from the CLI run's seed on the data
+    it loaded: fresh nets from the seed, both mappings pretrained, a fresh
+    main Adam, then `step` and `inverse_step` to total_iter. Returns the
+    loss terms at the CLI's print steps."""
+    import torch
+    from videoswap_torch.atlas import trainer as at
+    from videoswap_torch.builders import build_atlas_nets
+    opt, tr = cli['opt'], cli['trainer']
+    fused = tr.fused
+    data = {'video': fused[..., at.RGB], 'mask': fused[..., at.MASK],
+            'dx': fused[..., at.DX], 'dy': fused[..., at.DY],
+            'flows': fused[..., at.FLOW_F], 'flows_rev': fused[..., at.FLOW_B],
+            'flow_masks': fused[..., at.VALID_F],
+            'flow_masks_rev': fused[..., at.VALID_B]}
+    nets = build_atlas_nets(opt['models'], device='cuda', seed=cli['seed'])
+    direct = at.AtlasTrainer(nets, data, tr.train_opt, tr.larger_dim,
+                             tr.num_frames, device='cuda')
+    gen = torch.Generator(device='cuda').manual_seed(cli['seed'])
+    pre = int(tr.train_opt.get('pretrain_UV_mapping_iter', 0))
+    if pre > 0:
+        for name in ('FG_UV_Mapping', 'BG_UV_Mapping'):
+            direct.pretrain_mapping(name, gen, pre)
+        direct.init_opt_state()
+    logged = {}
+    for it in range(1, int(tr.train_opt['total_iter']) + 1):
+        ld = direct.step(it, gen)
+        ld['fg_inv_loss'] = direct.inverse_step(gen)
+        if it in cli['logged']:
+            logged[it] = {k: float(v) for k, v in ld.items()}
+    return logged
+
+
+def tap_cpu_witness(nets, src, dst, source, card_tracks, larger: int,
+                    num_frames: int, norm_s, norm_t) -> dict:
+    """The dragged points' tracks propagated through copies of the trained
+    nets on the CPU, against the card's: the largest distance over frames
+    visible on both, pixels; the frames hidden on one side only, those of
+    them where the CPU's scaled alpha lies within ATLAS_TAP_ALPHA_MARGIN of
+    0.5, and each point's least |alpha - 0.5| over the frames."""
+    import copy
+
+    import numpy as np
+    import torch
+    from videoswap_torch.atlas import losses
+    from videoswap_torch.atlas.propagate import (_frames_uvt, bind_nets,
+                                                 propagate_point_sequence)
+    cpu = {n: copy.deepcopy(net).cpu() for n, net in nets.items()}
+    fg_map, fg_inv, f_alpha = bind_nets(cpu)
+    tracks = propagate_point_sequence(
+        src, dst, 0, source['pred_tracks'], source['point_name2id'], fg_map,
+        fg_inv, f_alpha, larger, num_frames, norm_s, norm_t)
+    out = {'max_px': 0.0, 'hidden_differs': 0, 'hidden_differs_at_margin': 0,
+           'alpha_margin': {}}
+    for n in dst:
+        i = source['point_name2id'][n]
+        sy, sx = src[n]
+        xyt = torch.tensor([[norm_s(sx), norm_s(sy), norm_t(0)]],
+                           dtype=torch.float32)
+        base = fg_inv(_frames_uvt(fg_map(xyt), num_frames, norm_t))
+        margin = (losses.scaled_alpha(f_alpha(base))[:, 0] - 0.5).abs()
+        margin = margin.numpy()
+        out['alpha_margin'][n] = float(margin.min())
+        card_vis = (card_tracks[:, i] >= 0).all(-1)
+        cpu_vis = (tracks[:, i] >= 0).all(-1)
+        both = card_vis & cpu_vis
+        if both.any():
+            out['max_px'] = max(out['max_px'], float(np.abs(
+                card_tracks[both, i] - tracks[both, i]).max()))
+        flip = card_vis != cpu_vis
+        out['hidden_differs'] += int(flip.sum())
+        out['hidden_differs_at_margin'] += int(
+            (flip & (margin < ATLAS_TAP_ALPHA_MARGIN)).sum())
+    del cpu
+    return out
+
+
+def atlas_recipe_config(tree: Path, values: dict) -> Path:
+    """ATLAS_RECIPE's shipped file rewritten into `tree`: the dataset paths
+    pointing at the tree, the cuts and `values` made, each cut on a '#'
+    line at its top."""
+    from videoswap_torch.utils.config import cfg_get, parse_yaml
+    text = (ROOT / ATLAS_RECIPE['path']).read_text()
+    shipped = parse_yaml(text)
+    vals = {'datasets.frame_path': tree / 'frames',
+            'datasets.mask_path': tree / 'masks',
+            'datasets.flow_path': tree / 'flows',
+            'datasets.annotation_path': tree / 'annotation' / '00000.json',
+            **values}
+    text = rewrite_yaml(text, {k: str(v) for k, v in vals.items()}, {})
+    cuts = [f'cut: {k} {cfg_get(shipped, k)} -> {v}'
+            for k, v in values.items()] + ATLAS_RECIPE['cuts']
+    out = tree / Path(ATLAS_RECIPE['path']).name
+    out.write_text(''.join(f'# {c}\n' for c in cuts) + text)
+    return out
+
+
+def atlas_recipe_run(tree: Path) -> dict:
+    """The atlas recipe in `tree`: the clip written; the three CLIs run,
+    frames -> flows -> atlas -> TAP_duck.pth, with the launch counts set to
+    0 before and read after; then the readings of the phase's checks: the
+    flows against the known motion and against the CPU, the CLI's losses
+    against a direct AtlasTrainer, the checkpoint reloaded, the PSNR
+    again, the files, a full evaluation of ATLAS_FULL_EVAL_FRAMES frames,
+    the TAP file against a direct propagation and against one through the
+    nets moved to the CPU."""
+    import numpy as np
+    import torch
+    from videoswap_torch import extract_flow
+    from videoswap_torch import propagate_point_displacement as ppd
+    from videoswap_torch import train_atlas
+    from videoswap_torch.atlas.evaluate import evaluate_model
+    from videoswap_torch.atlas.propagate import (bind_nets,
+                                                 propagate_point_sequence)
+    from videoswap_torch.builders import (build_atlas_nets,
+                                          load_atlas_checkpoint)
+    from videoswap_torch.data.frame_point_dataset import load_tap_file
+    from videoswap_torch.preprocess.flow import compute_bidirectional_flow
+    from videoswap_torch.utils.config import load_config
+    frames, height, width = ATLAS_RECIPE_CLIP
+    yml = atlas_recipe_config(tree, ATLAS_RECIPE['values'])
+    ds = load_config(str(yml))['datasets']
+    res_x, res_y = ds['res_x'], ds['res_y']
+    times = {}
+    t0 = time.perf_counter()
+    write_atlas_recipe_tree(tree, frames, height, width, res_x, res_y)
+    times['write clip'] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_launches()
+    t0 = time.perf_counter()
+    extract_flow.cli(['--frame_dir', str(tree / 'frames'), '--out_dir',
+                      str(tree / 'flows'), '--method', 'matching'])
+    torch.cuda.synchronize()
+    times['flow'] = time.perf_counter() - t0
+    cli = train_atlas.train(str(tree), types.SimpleNamespace(
+        opt=str(yml), device=None, shard=None))
+    for k, v in cli['times'].items():
+        times[f'train {k}'] = v
+    last = max(cli['checkpoints'])
+    ann = tree / 'annotation'
+    t0 = time.perf_counter()
+    tap_path = ppd.main([
+        '--atlas_config_path', str(yml), '--atlas_model_path',
+        cli['checkpoints'][last], '--source_tap_path', str(ann / 'TAP.pth'),
+        '--source_point_path', str(ann / '00000.json'),
+        '--target_point_path', str(ann / 'duck.json')])
+    torch.cuda.synchronize()
+    times['propagation'] = time.perf_counter() - t0
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    r = {'launches': launches, 'iters': last, 'peak_gib': peak,
+         'logged': cli['logged'], 'validation': cli['validation'],
+         'pretrain': cli['pretrain']}
+
+    # the flows: known motion, the CLI's files against a direct call, the
+    # card against the CPU
+    r['flow_shift'] = flow_shift_errors(tree / 'flows', tree / 'masks',
+                                        frames)
+    from videoswap_torch.extract_flow import read_frame
+    f0, f1 = (read_frame(tree / 'frames' / f'{j:05d}.png') for j in (0, 1))
+    r['flow_file_differs'] = not np.array_equal(
+        np.load(tree / 'flows' / '00000.npy'),
+        compute_bidirectional_flow(f0, f1, 'matching'))
+    t0 = time.perf_counter()
+    r['flow_device'] = flow_device_errors(tree / 'frames',
+                                          (0, (frames - 1) // 2))
+    times['flow card vs CPU'] = time.perf_counter() - t0
+
+    # the CLI's losses against a direct trainer
+    t0 = time.perf_counter()
+    direct = direct_atlas_run(cli)
+    times['direct trainer'] = time.perf_counter() - t0
+    r['cli_vs_direct'] = max(
+        abs(v - direct[s][k]) if k in direct[s] else math.inf
+        for s, ld in cli['logged'].items() for k, v in ld.items())
+
+    # the checkpoint into fresh nets (another seed), and the PSNR again
+    tr = cli['trainer']
+    fresh = build_atlas_nets(cli['opt']['models'], device='cuda',
+                             seed=cli['seed'] + 1)
+    load_atlas_checkpoint(cli['checkpoints'][last], fresh)
+    r['checkpoint_differs'] = [
+        f'{n}.{k}' for n, net in tr.nets.items()
+        for k, v in net.state_dict().items()
+        if not torch.equal(v, fresh[n].state_dict()[k])]
+    r['checkpoints'] = sorted(cli['checkpoints'])
+    views = train_atlas.clip_views(tr)
+    r['psnr_reloaded'] = evaluate_model(
+        fresh, views['video'], tr.res_x, tr.res_y, tr.num_frames, tr.norm_s,
+        tr.norm_t)
+    del fresh
+    exp = Path(cli['opt']['path']['exp_root'])
+    r['val_missing'] = missing_files(exp / 'visualization' / f'Iter_{last}',
+                                     ATLAS_VAL_FILES)
+
+    # the full evaluation
+    t0 = time.perf_counter()
+    r['psnr_full'] = evaluate_model(
+        tr.nets, views['video'], tr.res_x, tr.res_y, ATLAS_FULL_EVAL_FRAMES,
+        tr.norm_s, tr.norm_t, save_dir=str(tree / 'full_eval'), data=views,
+        full=True, uv_mapping_scale=tr.uv_scale, derivative_amount=tr.d_amt)
+    torch.cuda.synchronize()
+    times['full evaluation'] = time.perf_counter() - t0
+    r['full_missing'] = missing_files(tree / 'full_eval', ATLAS_FULL_FILES)
+    r['video_files'] = sorted({p.suffix for p in (tree / 'full_eval')
+                               .iterdir()})
+
+    # the propagated TAP file against a direct propagation
+    src = json.loads((ann / '00000.json').read_text())
+    dst = json.loads((ann / 'duck.json').read_text())
+    source, edited = load_tap_file(str(ann / 'TAP.pth')), \
+        load_tap_file(tap_path)
+    larger = max(res_x, res_y)
+    tracks = propagate_point_sequence(
+        src, dst, 0, source['pred_tracks'], source['point_name2id'],
+        *bind_nets(tr.nets), larger, tr.num_frames, tr.norm_s, tr.norm_t)
+    et = np.asarray(edited['pred_tracks'])
+    r['tap'] = {
+        'file': Path(tap_path).name,
+        'differs_from_direct': not np.array_equal(et, tracks),
+        'keys': sorted(edited) == sorted(source),
+        'names': edited['point_name2id'] == source['point_name2id'],
+        'shapes': all(np.shape(edited[k]) == np.shape(source[k])
+                      for k in source),
+        'finite_or_hidden': bool(np.isfinite(et).all() and np.all(
+            (et >= 0).all(-1) | (et == -1).all(-1))),
+        'undragged_kept': all(np.array_equal(
+            et[:, i], source['pred_tracks'][:, i])
+            for n, i in source['point_name2id'].items() if n not in dst),
+        'visible_frames': {n: int((et[:, source['point_name2id'][n], 0]
+                                   >= 0).sum()) for n in dst}}
+    t0 = time.perf_counter()
+    r['tap']['cpu'] = tap_cpu_witness(tr.nets, src, dst, source, et, larger,
+                                      tr.num_frames, tr.norm_s, tr.norm_t)
+    times['propagation on the CPU'] = time.perf_counter() - t0
+    # a reading, not a check (it turns on the atlas's quality): each
+    # dragged point's keyframe row, its distance to the source and to the
+    # target (-1: hidden)
+    r['tap']['keyframe_to_source_and_target_px'] = {
+        n: [float(np.hypot(x - src[n][1], y - src[n][0])),
+            float(np.hypot(x - dst[n][1], y - dst[n][0]))] if x >= 0
+        else -1 for n in dst
+        for x, y in [et[0, source['point_name2id'][n]]]}
+    r['times'] = times
+    return r
+
+
+def tap_fails(t) -> list:
+    """The checks of the propagated TAP file that fail, from its readings
+    (atlas_recipe_run's r['tap'])."""
+    fails = []
+    if t['differs_from_direct']:
+        fails.append('TAP vs direct')
+    if not (t['keys'] and t['names'] and t['shapes']):
+        fails.append('TAP layout')
+    if not (t['finite_or_hidden'] and t['undragged_kept']):
+        fails.append('TAP tracks')
+    c = t['cpu']
+    if c['max_px'] > ATLAS_TAP_CPU_PX or \
+            c['hidden_differs'] != c['hidden_differs_at_margin']:
+        fails.append('TAP vs CPU')
+    return fails
+
+
+def atlas_recipe_fails(r) -> list:
+    fails = []
+    if max(v for k, v in r['flow_shift'].items()
+           if k != 'worst pair') > ATLAS_FLOW_SHIFT_TOL:
+        fails.append('flow vs known motion')
+    if r['flow_file_differs']:
+        fails.append('flow file vs direct call')
+    d = r['flow_device']
+    if d['off_share'] > ATLAS_FLOW_OFF_SHARE or \
+            d['median'] > ATLAS_FLOW_MEDIAN_TOL or \
+            d['box_filter_rel'] > ATLAS_BOX_FILTER_TOL:
+        fails.append('flow card vs CPU')
+    if r['cli_vs_direct'] != 0:
+        fails.append('CLI vs direct')
+    if r['launches']['hash_table_grad'] != r['iters']:
+        fails.append('hash launches')
+    if r['checkpoint_differs']:
+        fails.append('checkpoint')
+    if r['psnr_reloaded'] != r['validation'][r['iters']]['psnr']:
+        fails.append('PSNR of the reloaded nets')
+    if r['val_missing'] or r['full_missing']:
+        fails.append('validation files')
+    fails += tap_fails(r['tap'])
+    losses = [v for ld in r['logged'].values() for v in ld.values()]
+    if not all(math.isfinite(v) for v in losses) or \
+            not math.isfinite(r['psnr_full']):
+        fails.append('not finite')
+    return fails
+
+
+def phase_atlas_recipe(report, state):
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        r = atlas_recipe_run(Path(d))
+    report['atlas_recipe'] = {k: v for k, v in r.items()
+                              if k not in ('logged',)}
+    report['launches']['atlas_recipe'] = r['launches']
+    fails = atlas_recipe_fails(r)
+    t = r['times']
+    log(f'# atlas_recipe ({ATLAS_RECIPE["path"]}; '
+        f'{"; ".join(ATLAS_RECIPE["cuts"])}): stage s '
+        f'{json.dumps({k: round(v, 3) for k, v in t.items()})}; peak '
+        f'{r["peak_gib"]:.2f} GiB (the three CLIs)')
+    log(f'# atlas_recipe flows: median - known motion (px) '
+        f'{json.dumps(r["flow_shift"])} (tol {ATLAS_FLOW_SHIFT_TOL}); CLI '
+        f'file vs direct call differs {r["flow_file_differs"]}; card vs CPU '
+        f'{json.dumps(r["flow_device"])} (tol share > {ATLAS_FLOW_OFF_PX} px '
+        f'{ATLAS_FLOW_OFF_SHARE:g}, median {ATLAS_FLOW_MEDIAN_TOL:g}, box '
+        f'filter {ATLAS_BOX_FILTER_TOL:g})')
+    log(f'# atlas_recipe training: pretraining final losses '
+        f'{json.dumps(r["pretrain"])}; logged total loss '
+        f'{json.dumps({s: ld["total_loss"] for s, ld in r["logged"].items()})}'
+        f'; CLI vs direct AtlasTrainer max |diff| {r["cli_vs_direct"]:.3e} '
+        f'(bit-equal required); validation {json.dumps(r["validation"])}; '
+        f'PSNR of the reloaded checkpoint {r["psnr_reloaded"]:.6f}; '
+        f'checkpoint tensors differing {r["checkpoint_differs"][:5]}; '
+        f'checkpoints at {r["checkpoints"]}; hash_table_grad launches '
+        f'{r["launches"]["hash_table_grad"]} in {r["iters"]} main steps')
+    log(f'# atlas_recipe full evaluation ({ATLAS_FULL_EVAL_FRAMES} frames): '
+        f'PSNR {r["psnr_full"]:.4f}; files missing {r["val_missing"]} / '
+        f'{r["full_missing"]}; suffixes {r["video_files"]}; TAP '
+        f'{json.dumps(r["tap"])} {"FAIL " + str(fails) if fails else "ok"}')
+    if fails:
+        raise PhaseError(f'atlas_recipe: {fails}')
+
+
 def env_line() -> str:
     """The optional packages the port's writers and readers import where
     they are used (PIL: gif and non-PNG frames; imageio: mp4), and those it
@@ -3224,12 +3772,12 @@ def main() -> None:
                 phase_build(report)
             elif phase == 'kernels':
                 phase_kernels(report)
-            elif phase in ('atlas_small', 'atlas'):
+            elif phase in ('atlas_small', 'atlas', 'atlas_recipe'):
                 # the atlas runs alone on the card
                 state.clear()
                 torch.cuda.empty_cache()
-                {'atlas_small': phase_atlas_small,
-                 'atlas': phase_atlas}[phase](report, state)
+                {'atlas_small': phase_atlas_small, 'atlas': phase_atlas,
+                 'atlas_recipe': phase_atlas_recipe}[phase](report, state)
             else:
                 if 'pipe' not in state:
                     state['pipe'] = build_pipeline('cuda', torch.bfloat16)

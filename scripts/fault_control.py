@@ -117,6 +117,35 @@ in the same tree):
                       resumed run's adapter and AdamW state against the
                       saved ones, bit for bit).
 
+The shape-change chain's faults, each run against the checks of
+chip_smoke.py's atlas_recipe phase at its own depth (the three atlas CLIs
+on options/train_atlas/atlas_swan.yml; about three minutes a run: a
+shallower atlas leaves the dragged points where alpha <= 0.5, and then the
+propagated tracks cannot show a fault of the drag):
+
+- propagate_ignores_drag: the propagate CLI moves each point to where it
+                      is (the target points replaced by the source's):
+                      the TAP file against a direct propagation;
+- card_drag_doubled:  propagation through nets on the card applies each
+                      drag at twice its length (the CLI and the direct
+                      call alike): the TAP file against the propagation
+                      through the nets moved to the CPU;
+- checkpoint_before_training: the train CLI saves the nets as they were
+                      built, before pretraining and training: the
+                      checkpoint reloaded against the trained nets;
+- backward_flow_negated: the extract_flow CLI writes the forward flow
+                      negated as the backward flow: the CLI's file
+                      against compute_bidirectional_flow called directly;
+- cli_skips_inverse_step: the train CLI's iterations take the main step
+                      alone: its logged losses against a direct
+                      AtlasTrainer's;
+- box_filter_tf32:    the 7x7 box filter of the matching flow's candidate
+                      choice reads its inputs at TF32 precision (10
+                      mantissa bits, what a TF32 convolution would read)
+                      on the card: the box filter on the card against the
+                      CPU (the flows themselves moved too little: 2.4e-4
+                      more of the pixels by more than 0.01 px).
+
 The last three of the kernel faults are faults of the unrouted kernels,
 which no model path runs:
 the unrouted limits catch them, beside the kernel limit.
@@ -145,7 +174,9 @@ faults fail the unrouted limits, the sound recipe run passes dpm_small's
 and the recipe's checks, and each recipe fault fails the check named for
 it above; the sound train-recipe run passes train_recipe's checks and
 resume_fresh_adamw fails its resume check; the sound run passes the kernels phase's check at the recipe's
-shapes, and flash_partial_block_upper_rows fails it.
+shapes, and flash_partial_block_upper_rows fails it; the sound atlas
+recipe passes atlas_recipe's checks and each of its faults fails the check
+named for it.
 """
 
 from __future__ import annotations
@@ -479,6 +510,141 @@ def _resume_fresh_adamw():
         yield
 
 
+@contextlib.contextmanager
+def _propagate_ignores_drag():
+    from videoswap_torch import propagate_point_displacement as ppd
+    real = ppd.propagate_point_sequence
+
+    def faulted(source, target, *args):
+        return real(source, {n: source[n] for n in target}, *args)
+    with mock.patch.object(ppd, 'propagate_point_sequence', faulted):
+        yield
+
+
+@contextlib.contextmanager
+def _card_drag_doubled():
+    from videoswap_torch import propagate_point_displacement as ppd
+    from videoswap_torch.atlas import propagate
+    real_bind, real_point = propagate.bind_nets, propagate.propagate_point
+    card = []
+
+    def bind(nets):
+        fns = real_bind(nets)
+        if nets['FG_UV_Mapping'].hidden_0.weight.is_cuda:
+            card.append(fns[0])
+        return fns
+
+    def point(x, y, tx, ty, t, n, fg_map, *args):
+        if any(fg_map is f for f in card):
+            tx, ty = 2 * tx - x, 2 * ty - y
+        return real_point(x, y, tx, ty, t, n, fg_map, *args)
+    with mock.patch.object(propagate, 'bind_nets', bind), \
+            mock.patch.object(ppd, 'bind_nets', bind), \
+            mock.patch.object(propagate, 'propagate_point', point):
+        yield
+
+
+@contextlib.contextmanager
+def _checkpoint_before_training():
+    import copy
+
+    from videoswap_torch import train_atlas
+    build = train_atlas.build_atlas_nets
+    save = train_atlas.save_atlas_checkpoint
+    built = {}
+
+    def keep(*args, **kwargs):
+        nets = build(*args, **kwargs)
+        built['nets'] = copy.deepcopy(nets)
+        return nets
+    with mock.patch.object(train_atlas, 'build_atlas_nets', keep), \
+            mock.patch.object(train_atlas, 'save_atlas_checkpoint',
+                              lambda path, nets: save(path, built['nets'])):
+        yield
+
+
+@contextlib.contextmanager
+def _backward_flow_negated():
+    from videoswap_torch import extract_flow
+    real = extract_flow.compute_bidirectional_flow
+
+    def faulted(*args, **kwargs):
+        flow = real(*args, **kwargs)
+        flow[1] = -flow[0]
+        return flow
+    with mock.patch.object(extract_flow, 'compute_bidirectional_flow',
+                           faulted):
+        yield
+
+
+@contextlib.contextmanager
+def _cli_skips_inverse_step():
+    from videoswap_torch.atlas.trainer import AtlasTrainer
+
+    def faulted(self, start_step, n, generator):
+        ld = {}
+        for it in range(start_step + 1, start_step + n + 1):
+            ld = self.step(it, generator)
+        return ld
+    with mock.patch.object(AtlasTrainer, 'run_steps', faulted):
+        yield
+
+
+@contextlib.contextmanager
+def _box_filter_tf32():
+    import torch
+
+    from videoswap_torch.preprocess import matching_flow
+    real = matching_flow.box_filter
+
+    def faulted(x, k):
+        if x.is_cuda:       # TF32 keeps 10 of fp32's 23 mantissa bits
+            x = (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
+        return real(x, k)
+    with mock.patch.object(matching_flow, 'box_filter', faulted):
+        yield
+
+
+# the shape-change chain's faults -> context managers planting them, and
+# the atlas_recipe check that must catch each
+ATLAS_RECIPE_FAULTS = {
+    'sound': (contextlib.nullcontext, None),
+    'propagate_ignores_drag': (_propagate_ignores_drag, 'TAP vs direct'),
+    'card_drag_doubled': (_card_drag_doubled, 'TAP vs CPU'),
+    'checkpoint_before_training': (_checkpoint_before_training,
+                                   'checkpoint'),
+    'backward_flow_negated': (_backward_flow_negated,
+                              'flow file vs direct call'),
+    'cli_skips_inverse_step': (_cli_skips_inverse_step, 'CLI vs direct'),
+    'box_filter_tf32': (_box_filter_tf32, 'flow card vs CPU'),
+}
+
+
+def atlas_recipe_rows() -> dict:
+    """Each atlas-recipe fault (and the sound run) against atlas_recipe's
+    checks, each in a tree of its own: {fault: readings and the checks
+    that failed}."""
+    import tempfile
+
+    import torch
+    rows = {}
+    for name, (plant, _) in ATLAS_RECIPE_FAULTS.items():
+        with tempfile.TemporaryDirectory() as d, plant():
+            r = cs.atlas_recipe_run(Path(d))
+        torch.cuda.empty_cache()
+        rows[name] = {'flow_shift': r['flow_shift'],
+                      'flow_file_differs': r['flow_file_differs'],
+                      'flow_device': r['flow_device'],
+                      'cli_vs_direct': r['cli_vs_direct'],
+                      'checkpoint_differs': len(r['checkpoint_differs']),
+                      'psnr': [r['validation'][r['iters']]['psnr'],
+                               r['psnr_reloaded']],
+                      'tap': r['tap'],
+                      'atlas_recipe_fails': cs.atlas_recipe_fails(r)}
+        cs.log(f'# atlas_recipe {name}: {json.dumps(rows[name])}')
+    return rows
+
+
 # the train CLI's faults -> context managers planting them
 TRAIN_RECIPE_FAULTS = {
     'sound': contextlib.nullcontext,
@@ -765,6 +931,8 @@ def main() -> None:
         cs.log(f'# {name}: {json.dumps(row)}')
     lora_dir.cleanup()
     recipe = recipe_rows(pipe, cpu)
+    atlas_recipe = atlas_recipe_rows()
+    atlas_recipe_sound = atlas_recipe.pop('sound')
     sound = rows.pop('sound')
     train_recipe = recipe.pop('train_recipe')
     train_recipe_sound = train_recipe.pop('sound')
@@ -815,11 +983,15 @@ def main() -> None:
         'vispoint_ignores_index_list']['recipe_fails']
     caught['resume_fresh_adamw'] = 'resume' in train_recipe[
         'resume_fresh_adamw']['train_recipe_fails']
+    for name, row in atlas_recipe.items():
+        caught[name] = ATLAS_RECIPE_FAULTS[name][1] in row[
+            'atlas_recipe_fails']
     ok = not any(v for k, v in sound.items() if k.endswith('_fails')) \
         and not sound['recipe_shapes_error'] \
         and not recipe_sound['dpm_small_fails'] \
         and not recipe_sound['recipe_fails'] \
         and not train_recipe_sound['train_recipe_fails'] \
+        and not atlas_recipe_sound['atlas_recipe_fails'] \
         and all(caught.values())
     print(json.dumps({'ok': ok, 'unet_tol': cs.MODEL_REL_TOL,
                       'small_tol': cs.SAMPLE_REL_TOL,
@@ -842,6 +1014,14 @@ def main() -> None:
                       'train_recipe_sound': train_recipe_sound,
                       'faults': rows, 'recipe_faults': recipe,
                       'train_recipe_faults': train_recipe,
+                      'atlas_recipe_tols': {
+                          'flow_shift': cs.ATLAS_FLOW_SHIFT_TOL,
+                          'flow_off_share': cs.ATLAS_FLOW_OFF_SHARE,
+                          'flow_median': cs.ATLAS_FLOW_MEDIAN_TOL,
+                          'tap_cpu_px': cs.ATLAS_TAP_CPU_PX,
+                          'tap_alpha_margin': cs.ATLAS_TAP_ALPHA_MARGIN},
+                      'atlas_recipe_sound': atlas_recipe_sound,
+                      'atlas_recipe_faults': atlas_recipe,
                       'caught': caught}), flush=True)
     sys.exit(0 if ok else 1)
 

@@ -706,10 +706,13 @@ def test_build_atlas_nets_loads_the_published_config_strictly():
         .hidden_1.weight, again['BG_UV_Mapping'].hidden_1.weight)
 
 
-def test_atlas_runs_with_jax_blocked():
+def test_atlas_runs_with_jax_blocked(tmp_path):
     """The atlas path imports nothing of JAX, flax, optax, yaml, PIL or
     videoswap_tpu: with them blocked, build the nets and take one main and
-    one inverse step on the CPU."""
+    one inverse step on the CPU. Then, PIL let in (the CLIs read and write
+    images with it), the three atlas CLIs run on a 3-frame 24x16 clip with
+    --device cpu: flows, 2 iterations with a validation, a propagated drag,
+    with JAX, flax, optax, yaml and videoswap_tpu still blocked."""
     code = textwrap.dedent(f'''
         import sys
         for m in ('jax', 'flax', 'optax', 'yaml', 'PIL'):
@@ -745,6 +748,61 @@ def test_atlas_runs_with_jax_blocked():
         loaded = [m for m in sys.modules
                   if m.split('.')[0] in ('jax', 'flax', 'optax', 'yaml',
                                          'PIL', 'videoswap_tpu')
+                  and sys.modules[m] is not None]
+        assert not loaded, loaded
+
+        del sys.modules['PIL']
+        import json
+        import os
+        from pathlib import Path
+        from PIL import Image
+        from videoswap_torch import extract_flow, train_atlas
+        from videoswap_torch import propagate_point_displacement as ppd
+        d = Path({str(tmp_path)!r})
+        for sub in ('frames', 'masks', 'annotation'):
+            (d / sub).mkdir()
+        ys, xs = np.mgrid[0:16, 0:24]
+        for i in range(3):
+            img = np.stack([np.sin(xs * 0.5 - i) * 0.4 + 0.5,
+                            ys / 16, xs / 24], -1)
+            Image.fromarray((img * 255).astype(np.uint8)).save(
+                d / 'frames' / f'{{i:05d}}.png')
+            Image.fromarray(((xs - 8 - i) ** 2 + (ys - 8) ** 2 < 20)
+                            .astype(np.uint8) * 255).save(
+                d / 'masks' / f'{{i:05d}}.png')
+        extract_flow.cli(['--frame_dir', str(d / 'frames'), '--out_dir',
+                          str(d / 'flows'), '--method', 'lk',
+                          '--device', 'cpu'])
+        models = '\\n'.join(f'  {{n}}: {{json.dumps(o)}}'
+                              for n, o in models.items())
+        (d / 'a.yml').write_text('\\n'.join([
+            'name: blocked', 'manual_seed: 1',
+            f'datasets: {{{{frame_path: {{d}}/frames, mask_path: {{d}}/masks,'
+            f' flow_path: {{d}}/flows, res_x: 24, res_y: 16, max_frames: 72}}}}',
+            'models:', models, 'train:', '  optimizer: {{lr: 0.001}}',
+            '  total_iter: 2', '  sample_batch_size: 128',
+            '  pretrain_UV_mapping_iter: 1',
+            f"  loss_cfg: {{json.dumps(opt['loss_cfg'])}}",
+            'val: {{val_freq: 2}}',
+            'logger: {{print_freq: 1, save_checkpoint_freq: 2}}']) + '\\n')
+        os.chdir(d)       # the train CLI's experiment tree goes there
+        train_atlas.main(['-opt', str(d / 'a.yml'), '--device', 'cpu'])
+        (d / 'annotation' / '00000.json').write_text('{{"p": [8, 8]}}')
+        (d / 'annotation' / 'duck.json').write_text('{{"p": [9, 10]}}')
+        torch.save({{'pred_tracks': torch.zeros(3, 1, 2),
+                    'point_name2id': {{'p': 0}}}},
+                   d / 'annotation' / 'TAP.pth')
+        out = ppd.main([
+            '--atlas_config_path', str(d / 'a.yml'), '--atlas_model_path',
+            str(d / 'experiments/blocked/models/models_2.pth'),
+            '--source_tap_path', str(d / 'annotation/TAP.pth'),
+            '--source_point_path', str(d / 'annotation/00000.json'),
+            '--target_point_path', str(d / 'annotation/duck.json'),
+            '--device', 'cpu'])
+        assert out.endswith('TAP_duck.pth')
+        loaded = [m for m in sys.modules
+                  if m.split('.')[0] in ('jax', 'flax', 'optax', 'yaml',
+                                         'videoswap_tpu')
                   and sys.modules[m] is not None]
         assert not loaded, loaded
         print('ok')

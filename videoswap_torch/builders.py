@@ -33,13 +33,18 @@ that a key names and that is missing raises.
 torch file (the JAX package's are flax's msgpack and a pickle).
 
 `build_atlas_nets` builds the layered-neural-atlas nets of an atlas
-config's `models` block the same way.
+config's `models` block the same way; `save_atlas_checkpoint` and
+`load_atlas_checkpoint` write and read them as one torch file of flat
+`<net>.<param>` keys under the reference IMLP's names (`hidden.<i>.weight`,
+`hash_table`), the layout the JAX package's `.pth` loader reads (its own
+files are flax's msgpack).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 from typing import Optional
 
 import torch
@@ -310,3 +315,58 @@ def build_atlas_nets(models_opt: dict,
                 nets[name] = imlp_from_opt(models_opt[name])
             init_imlp(nets[name], gen)
     return nets
+
+
+_ATLAS_LAYER_KEY = re.compile(r'^hidden_(\d+)\.')
+_REF_LAYER_KEY = re.compile(r'^hidden\.(\d+)\.')
+
+
+def atlas_state_dict(nets: dict) -> dict:
+    """The nets' weights as flat `<net>.<param>` keys under the reference
+    IMLP's layer names (`hidden.<i>.weight`, `hidden.<i>.bias`,
+    `hash_table`), fp32 on the CPU."""
+    return {name + '.' + _ATLAS_LAYER_KEY.sub(r'hidden.\1.', k):
+            v.detach().to('cpu', torch.float32)
+            for name, net in nets.items()
+            for k, v in net.state_dict().items()}
+
+
+def save_atlas_checkpoint(path: str, nets: dict) -> None:
+    """The atlas nets as one torch file (`atlas_state_dict`): what
+    `load_atlas_checkpoint` and the JAX package's `.pth` branch of
+    train_atlas.py `load_atlas_checkpoint` read."""
+    _save_atomic(atlas_state_dict(nets), path)
+
+
+def load_atlas_checkpoint(path: str, nets: dict) -> None:
+    """An atlas checkpoint into `nets`, in place: flat `<net>.<param>`
+    keys or `{net: state_dict}`, layer names `hidden.<i>` (the reference's)
+    or `hidden_<i>` (the port's modules'). Raises on a missing or an unused
+    key, and on a net of the file that `nets` lacks."""
+    if not path.endswith('.pth'):
+        raise NotImplementedError(
+            f'{path}: only .pth atlas checkpoints load in the port (the JAX '
+            'package\'s .msgpack needs flax)')
+    sd = converters.load_torch_file(_file(path, 'atlas checkpoint'))
+    per_net, unused = {}, []
+    for key, value in sd.items():
+        if isinstance(value, dict):
+            name, sub = key, value
+        else:
+            name, _, rest = key.partition('.')
+            sub = {rest: value}
+        if name not in nets:
+            unused += [f'{name}.{k}' for k in sub]
+            continue
+        for k, v in sub.items():
+            per_net.setdefault(name, {})[
+                _REF_LAYER_KEY.sub(r'hidden_\1.', k)] = v
+    problems = [f'unused {k}' for k in unused]
+    for name, net in nets.items():
+        missing, extra = net.load_state_dict(per_net.get(name, {}),
+                                             strict=False)
+        problems += [f'missing {name}.{k}' for k in missing]
+        problems += [f'unused {name}.{k}' for k in extra]
+    if problems:
+        raise KeyError(f'{path}: {len(problems)} keys do not match the atlas '
+                       f'nets: {problems[:10]}')

@@ -31,6 +31,7 @@ from videoswap_torch.builders import MIXED_PRECISION, build_models
 from videoswap_torch.data import build_dataset
 from videoswap_torch.pipelines import VideoSwapPipeline
 from videoswap_torch.utils.config import cfg_get, load_config, resolve_path
+from videoswap_torch.utils.device import cli_device
 from videoswap_torch.utils.logger import dict2str, get_logger, \
     set_path_logger
 from videoswap_torch.utils.metrics import temporal_consistency, video_psnr
@@ -128,10 +129,7 @@ def test(root_path: str, opt_path: str, device: str | None = None,
         raise NotImplementedError(
             'path.clip_model_path: the CLIP scorer is not ported (ROADMAP.md '
             'Queue 1 item 8)')
-    device = torch.device(device or 'cuda')
-    if device.type == 'cuda' and not torch.cuda.is_available():
-        raise RuntimeError('no CUDA device: pass --device cpu to run on the '
-                           'CPU')
+    device = cli_device(device)
     set_path_logger(root_path, opt_path, opt, is_train=False)
     logger = get_logger()
     logger.info(dict2str(opt))

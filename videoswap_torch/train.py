@@ -45,6 +45,7 @@ from videoswap_torch.data import build_dataset
 from videoswap_torch.data.frame_point_dataset import infinite_batches
 from videoswap_torch.pipelines import VideoSwapPipeline, VideoSwapTrainer
 from videoswap_torch.utils.config import load_config, resolve_path
+from videoswap_torch.utils.device import cli_device
 from videoswap_torch.utils.logger import (MessageLogger, dict2str,
                                           get_logger, set_path_logger)
 from videoswap_torch.utils.profiling import StepTimer
@@ -98,10 +99,7 @@ def train(root_path: str, args) -> dict:
         raise NotImplementedError(
             '--distributed: multi-device training is not ported (ROADMAP.md '
             'Queue 1 item 9)')
-    device = torch.device(getattr(args, 'device', None) or 'cuda')
-    if device.type == 'cuda' and not torch.cuda.is_available():
-        raise RuntimeError('no CUDA device: pass --device cpu to run on the '
-                           'CPU')
+    device = cli_device(getattr(args, 'device', None))
     resume = getattr(args, 'resume', False)
     opt = load_config(args.opt)
     set_path_logger(root_path, args.opt, opt, is_train=True,
