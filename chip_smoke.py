@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (videoswap_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases build,kernels,unrouted,unet,small,dpm_small,sample,train_small,train,blend_small,blend,recipe,train_recipe,atlas_small,atlas,atlas_recipe]
+    python3 chip_smoke.py [--phases build,kernels,unrouted,unet,small,dpm_small,sample,train_small,train,blend_small,blend,recipe,train_recipe,semantic_points,atlas_small,atlas,atlas_recipe]
 
 Phases (all by default):
 
@@ -145,6 +145,40 @@ Phases (all by default):
                of two direct runs, which is printed); the CLI's step
                times, the train phase's, and the validation's wall-clock
                and peak memory are printed;
+- semantic_points: the semantic-point CLI's path
+               (`videoswap_torch.extract_semantic_point`) with the models of
+               the shipped options/test_videoswap/animal/2003_swan_*.yml
+               (SP_CONFIG, rewritten into the recipe phase's tree, each cut
+               on a '#' line), on a synthetic clip of 64 PNG frames at
+               854x480 (atlas_clip: known motion) with a keyframe annotation
+               at frame 8 (five named points, one empty entry) and seeded
+               synthetic cotracker_stride_4_wind_8.pth, body_pose_model.pth
+               (its heat biases calibrated on the clip's first frame, so
+               that the decode finds people) and UniMatch files under the
+               published key sets: the object
+               path with the DIFT tracker, with the native CoTracker
+               ($VS_COTRACKER_CKPT), the human path on 8 frames
+               (--pose_ckpt), and `extract_flow --method unimatch` on two
+               pairs; then the checks: the source each run logged, the
+               forward kernels launched, the TAP files' keys and shapes
+               (keypoints found on the human path), the human TAP against
+               the CPU (frame 0's keypoints the CPU detector's, the
+               embedding the CPU's on the TAP's tracks and the CLI's
+               features), the
+               2003 config's dataset reading the TAP (Resize 448x768) and
+               the adapter taking its embeddings once, the featurizer's
+               kernels against their plain versions at its shapes (batch 1,
+               8 draws on the frame axis, the 60x106 latent's ragged levels;
+               dift_shape_kernels), the features' shape (the up_block_1
+               tap's), one frame's features on the card (bf16, the
+               featurizer's second call) against the CPU (fp32), the
+               DIFT tracker on the card against the CPU fed the same
+               features, the patch-descriptor stand-in's tracks against the
+               known motion, and CoTracker, OpenPose (maps and people) and
+               UniMatch on the card (fp32, TF32 off) against the CPU (the
+               CPU's inputs cut: SP_SUB, SP_CROP), CoTracker's frames before
+               the query filled by its backward run, and OpenPose finding
+               people; each stage's seconds and the peak memory;
 - atlas_small: the atlas_swan nets at full width (2^19 hash table) on an
                8-frame 128x96 synthetic clip, batch 10000: one main step and
                one inverse step on the same params and draws, GPU against
@@ -189,15 +223,17 @@ Phases (all by default):
                checked; the seconds of each stage and the peak memory.
 
 Launch counts are set to 0 just before the unrouted, sample, train, blend,
-recipe, train_recipe, atlas and atlas_recipe paths and read just after each
-(a recipe's run: the CLI, before the direct `validation`; train_recipe: each
-CLI run, the two summed, not the direct steps; atlas_recipe: the three CLIs,
-not the direct trainer). scripts/fault_control.py shows
+recipe, train_recipe, semantic_points, atlas and atlas_recipe paths and read
+just after each (a recipe's run: the CLI, before the direct `validation`;
+train_recipe: each CLI run, the two summed, not the direct steps;
+semantic_points: its three CLI runs; atlas_recipe: the three CLIs, not the
+direct trainer). scripts/fault_control.py shows
 that the unet, small, train_small, blend_small, atlas_small and unrouted
 limits fail a kernel with a planted fault, dpm_small's and the recipe
 phase's checks a fault on the recipe's path, train_recipe's resume
-check a resume that starts a fresh AdamW, and atlas_recipe's checks five
-faults of the shape-change chain;
+check a resume that starts a fresh AdamW, atlas_recipe's checks five
+faults of the shape-change chain, and semantic_points' checks five faults
+of its path on the card;
 scripts/profile_step.py breaks one full-width U-Net step, training step or
 atlas iteration down by device time.
 
@@ -225,7 +261,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PHASES = ('build', 'kernels', 'unrouted', 'unet', 'small', 'dpm_small',
           'sample', 'train_small', 'train', 'blend_small', 'blend', 'recipe',
-          'train_recipe', 'atlas_small', 'atlas', 'atlas_recipe')
+          'train_recipe', 'semantic_points', 'atlas_small', 'atlas',
+          'atlas_recipe')
 SEED = 0
 FRAMES, SIZE, POINTS = 16, 512, 10
 STEPS = 4          # DDIM steps of the full-width sample (a smoke run's time)
@@ -1118,7 +1155,7 @@ def phase_kernels(report):
     recipe_shape_kernels(report, gen)
 
 
-def _fused_inputs(gen, b, hw, c, include_ffn):
+def _fused_inputs(gen, b, hw, c, include_ffn, f=FRAMES):
     """g, x (B, F, HW, C) bf16, the position table and a motion module's
     parameters (seeded random weights, random fp32 vectors) for the fused
     temporal kernel, and the module itself."""
@@ -1135,14 +1172,15 @@ def _fused_inputs(gen, b, hw, c, include_ffn):
                 p.add_(torch.randn(p.shape, generator=gen, device='cuda'),
                        alpha=0.1)
     mod.to(torch.bfloat16).requires_grad_(False)
-    g, x = (_rand(gen, (b, FRAMES, hw, c)) for _ in range(2))
-    pe = mod.transformer_blocks[0].pe[:FRAMES].to(torch.bfloat16)
+    g, x = (_rand(gen, (b, f, hw, c)) for _ in range(2))
+    pe = mod.transformer_blocks[0].pe[:f].to(torch.bfloat16)
     return g, x, pe, ft.flat_params(mod, include_ffn), mod
 
 
-def _fused_temporal(report, gen, h8, w8, c, b=2, tag=''):
+def _fused_temporal(report, gen, h8, w8, c, b=2, tag='', f=FRAMES):
     """The fused kernel against its plain version in both layouts at one
-    U-Net level of h8 x w8 latents, batch `b` (C <= 320 with the FFN, else
+    U-Net level of h8 x w8 latents, batch `b`, `f` frames (C <= 320 with
+    the FFN, else
     the attention half), timed
     beside the layer-wise module it replaces (no single PyTorch call
     computes this function: the layer-wise time stands in the library
@@ -1151,10 +1189,10 @@ def _fused_temporal(report, gen, h8, w8, c, b=2, tag=''):
     whole layer-wise module's."""
     import torch
     from videoswap_torch.ops import fused_temporal as ft
-    f, heads = FRAMES, 8
+    heads = 8
     hw = h8 * w8
     inc = c <= 320
-    g4, x4, pe, flat, mod = _fused_inputs(gen, b, hw, c, inc)
+    g4, x4, pe, flat, mod = _fused_inputs(gen, b, hw, c, inc, f)
     g2, x2 = ft.rows_of(g4).contiguous(), ft.rows_of(x4).contiguous()
     rows = b * hw * f
     n_mat = 22 if inc else 9             # C x C matrices
@@ -3711,6 +3749,667 @@ def phase_atlas_recipe(report, state):
         raise PhaseError(f'atlas_recipe: {fails}')
 
 
+# --------------------------------------------------------- semantic points
+# the trackers' and the pose model's checkpoints are seeded synthetic files
+# under the published key sets (no weights are in the repository):
+# - CoTracker at its default initialisation is an expanding map in fp32:
+#   after one 6-iteration window its tracks in fp32 and in float64 differ
+#   by 4.4 px (and the port's and the JAX package's fp32 by about as much),
+#   since each iteration moves a point by ~5 px through a random 12-block
+#   transformer. Its residual branches (attn.proj, mlp.fc2) x0.1 and its
+#   flow head x0.03 make it a contraction, as trained weights are near
+#   convergence: fp32 against float64 2.0e-4 px, moves of ~0.6 px a window;
+# - OpenPose at its default initialisation outputs its last biases alone
+#   (activations shrink ~0.6x a layer over 30-odd layers), flat maps on
+#   which the map resize's filter cannot be seen: He-normal weights keep
+#   the maps structured (PAF std ~3), and the heat heads' biases of -10
+#   keep every heat value below the decode's 0.1 (a random model's peaks
+#   would be thousands a part, and the PAF assembly is quadratic in them);
+#   calibrated_openpose_state then lifts each part's final bias so that
+#   SP_POSE_PEAKS peaks of the clip's first frame pass 0.1, and the decode
+#   assembles a few people a frame from them;
+# - UniMatch at its default initialisation, wrapped as {'model': ...}.
+
+
+def _seeded(build, seed: int):
+    import torch
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        return build()
+
+
+def synthetic_cotracker_state(seed: int = SEED) -> dict:
+    """cotracker_stride_4_wind_8.pth's state dict, seeded and conditioned
+    (see above)."""
+    from videoswap_torch.preprocess.cotracker_native import CoTrackerCore
+    model = _seeded(CoTrackerCore, seed)
+    sd = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    for k in sd:
+        if k.startswith('updateformer.flow_head.'):
+            sd[k] *= 0.03
+        elif '.attn.proj.' in k or '.mlp.fc2.' in k:
+            sd[k] *= 0.1
+    return sd
+
+
+def synthetic_openpose_state(seed: int = SEED) -> dict:
+    """body_pose_model.pth's state dict under its prefix-less published
+    keys: He-normal weights, zero biases, the heat heads' -10 (see
+    above)."""
+    import torch
+    from videoswap_torch.preprocess.pose import OpenPoseBody
+    gen = torch.Generator().manual_seed(seed)
+    sd = {}
+    for k, v in OpenPoseBody().state_dict().items():
+        scope, name, kind = k.split('.')
+        if kind == 'weight':
+            val = torch.randn(v.shape, generator=gen) * math.sqrt(
+                2.0 / v[0].numel())
+        elif scope.endswith('_2') and name.startswith(('conv5_5', 'Mconv7')):
+            val = torch.full_like(v, -10.0)
+        else:
+            val = torch.zeros_like(v)
+        sd[f'{name}.{kind}'] = val
+    return sd
+
+
+def calibrated_openpose_state(frame, device, seed: int = SEED) -> dict:
+    """synthetic_openpose_state with the last stage's heat biases lifted:
+    each part's by what puts the decode's threshold (pose.THRE1) halfway
+    between the SP_POSE_PEAKS-th and the next highest local maximum of its
+    blurred map on `frame`, so that that many pass there. The map is that
+    convolution plus its bias, and the resizes and the blur keep a
+    constant, so a bias moves the blurred map by itself; a pixel above the
+    threshold is a peak of the decode where it is no lower than its
+    neighbours in the frame (the decode's zeros outside are below it)."""
+    import numpy as np
+    from videoswap_torch.preprocess import pose
+    sd = synthetic_openpose_state(seed)
+    model = pose.OpenPoseBody()
+    pose.load_openpose_state(model, sd)
+    _, heat = pose.NativePoseDetector(model.to(device))._maps(frame)
+    bias = sd['Mconv7_stage6_L2.bias']
+    for part in range(pose.N_KEYPOINTS):
+        sm = pose._gaussian_blur(heat[..., part].astype(np.float64), 3.0)
+        p = np.pad(sm, 1, constant_values=-np.inf)
+        top = np.sort(sm[(sm >= p[:-2, 1:-1]) & (sm >= p[2:, 1:-1])
+                         & (sm >= p[1:-1, :-2]) & (sm >= p[1:-1, 2:])])[::-1]
+        bias[part] += pose.THRE1 - (top[SP_POSE_PEAKS - 1]
+                                    + top[SP_POSE_PEAKS]) / 2
+    return sd
+
+
+def synthetic_unimatch_state(seed: int = SEED) -> dict:
+    """A gmflow-scale2-regrefine6 checkpoint: {'model': the seeded default
+    initialisation's state dict}."""
+    from videoswap_torch.preprocess.unimatch import UniMatchFlow
+    return {'model': _seeded(UniMatchFlow, seed).state_dict()}
+
+
+# the semantic_points phase: the shipped 2003 swan config's models (its
+# `models` and `path` blocks, rewritten into the recipe phase's synthetic
+# tree) through `videoswap_torch.extract_semantic_point` on a synthetic clip
+# of the config's total_frames at DAVIS 480p (atlas_clip: a textured disk
+# moving by ATLAS_DISK_SHIFT over a background moving by ATLAS_BG_SHIFT), a
+# keyframe annotation at SP_KEYFRAME (five named points, one empty entry)
+SP_CONFIG = ('options/test_videoswap/animal/2003_swan_T05_local_Iter100/'
+             '2003_swan_T05_local_Iter100.yml')
+SP_CLIP = (64, 480, 854)           # frames, height, width
+SP_KEYFRAME = 8
+# (on the disk: offset from its centre at the keyframe, or on the
+# background: the keyframe's pixel); 'neck' is the annotation's empty entry
+SP_POINTS = {'head': ('disk', (30, -20)), 'body': ('disk', (0, 0)),
+             'tail': ('disk', (-40, 20)),
+             'left_front_leg': ('bg', (650, 120)),
+             'right_front_leg': ('bg', (720, 400))}
+SP_HUMAN_FRAMES = 8
+SP_POSE_PEAKS = 3                   # peaks a part on the first frame
+SP_FLOW_FRAMES = 3                  # extract_flow --method unimatch: 2 pairs
+# the CPU's side of the checks, cut for the CPU's time (on the H100's
+# host the featurizer took 74 s on a whole frame, UniMatch 61 s on a whole
+# pair, 16 s and 20 s on a 240x432 crop; the DIFT tracker 31 s on 5 frames,
+# most of it the matching flows): the tracker and CoTracker on frames 7-9
+# (the keyframe the middle one), the featurizer and UniMatch on the centre
+# 160x288 of frames 0 and 1
+SP_SUB = (7, 10)
+SP_CROP = (160, 288)
+SP_CUTS = [
+    'the paths point at a synthetic tree: random weights from a seed under '
+    'the published file and key names (the recipe phase\'s)',
+    'the clip: 64 synthetic PNG frames at 854x480 (a textured disk over a '
+    'textured background, known motion), not DAVIS blackswan',
+    'the trackers\' and the pose model\'s checkpoints: seeded synthetic '
+    'files under the published key sets']
+# one frame's DIFT features, the card (bf16) against the CPU (fp32): the
+# U-Net's limit (MODEL_REL_TOL). The DIFT tracker on the card against the
+# CPU, both fed the same features: the sub-pixel fit reads cosines that
+# differ by fp32 rounding, the flows' steps only centre the prior
+SP_TRACK_PX = 0.01
+# the patch-descriptor stand-in featurizer's tracks against the known motion
+# (tests/test_preprocess.py's limit)
+SP_STANDIN_PX = 1.5
+# CoTracker, OpenPose and UniMatch on the card (fp32, TF32 off) against the
+# CPU: CoTracker's tracks in pixels and its encoder's maps of the first
+# window (relative L2): on the H100 the tracks read 4.7e-3 px sound and
+# 1.4e-2 px with TF32 on (scripts/fault_control.py), too close for a limit
+# between them, so the tracks' limit sits at 4x the sound reading and the
+# encoder's maps, which TF32 moves by its 10-bit rounding, carry the check
+# for TF32; OpenPose's maps relative to the largest deviation of the CPU's
+# map from its mean (the heat maps sit near their -10 bias); UniMatch's
+# flows relative to the largest |flow| of the CPU's
+SP_COTRACKER_PX = 2e-2
+SP_COTRACKER_FMAPS_TOL = 1e-4
+SP_POSE_TOL = 1e-4
+SP_UNIMATCH_TOL = 1e-3
+# the human TAP's embedding against the CPU's on the same tracks and
+# features, relative to its largest entry: fp32 sums of the same bilinear
+# weights on both devices, in another order
+SP_EMBED_TOL = 1e-4
+
+
+def dift_levels(h8: int, w8: int) -> list:
+    """(height, width, C) of the U-Net's four levels on an h8 x w8 latent
+    (a stride-2 3x3 convolution with padding 1 between levels)."""
+    out = []
+    for c in (320, 640, 1280, 1280):
+        out.append((h8, w8, c))
+        h8, w8 = (h8 - 1) // 2 + 1, (w8 - 1) // 2 + 1
+    return out
+
+
+def dift_shape_kernels(report, gen, h8: int, w8: int) -> None:
+    """The featurizer's kernels against their plain versions at its shapes
+    (batch 1, the 8-draw ensemble on the frame axis, the ragged levels of an
+    h8 x w8 latent), at the limits of TOL: GEGLU at every level, the fused
+    temporal transformer at levels 0-1, temporal attention at 2-3, the
+    flash forward self and cross (Sk = 77) at every level."""
+    tag = ' (dift)'
+    same = True
+    for lvl, (h, w, c) in enumerate(dift_levels(h8, w8)):
+        hw = h * w
+        _geglu_case(report, gen, 8 * hw, c, tag)
+        if lvl < 2:
+            _fused_temporal(report, gen, h, w, c, 1, tag, f=8)
+        else:
+            same = _temporal_case(report, gen, hw, 8, c, tag) and same
+        for sk in (hw, 77):
+            _flash_case(report, gen, 8, 8, hw, sk, c // 8, tag)
+    if not same:
+        raise PhaseError('temporal_attention (dift shapes): two calls on '
+                         'the same inputs differ')
+
+
+def sp_known_tracks(frames: int, height: int, width: int) -> tuple:
+    """The annotated points' names, keyframe positions (x, y) and their
+    positions in every frame under atlas_clip's known motion: (names,
+    (P, 2), (F, P, 2))."""
+    import numpy as np
+    names = list(SP_POINTS)
+    cx = 0.3 * width + ATLAS_DISK_SHIFT[0] * SP_KEYFRAME
+    cy = 0.55 * height + ATLAS_DISK_SHIFT[1] * SP_KEYFRAME
+    key, motion = [], []
+    for name in names:
+        where, (a, b) = SP_POINTS[name]
+        key.append((cx + a, cy + b) if where == 'disk' else (a, b))
+        motion.append(ATLAS_DISK_SHIFT if where == 'disk'
+                      else ATLAS_BG_SHIFT)
+    key = np.asarray(key, np.float64)
+    t = np.arange(frames)[:, None, None] - SP_KEYFRAME
+    return names, key, key[None] + t * np.asarray(motion)[None]
+
+
+def write_sp_clip(root: Path) -> dict:
+    """The clip's PNG frames under root/frames and the annotation
+    root/00008.json; three run directories whose `frames` link to the clip
+    (dift, native_cotracker; human: its first SP_HUMAN_FRAMES frames), and
+    the flow CLI's frames (the first SP_FLOW_FRAMES). Returns the paths and
+    the known tracks."""
+    import torch
+    from videoswap_torch.utils.png import write_png
+    frames, height, width = SP_CLIP
+    data = atlas_clip(frames, height, width, 'cuda')
+    u8 = (data['video'].clamp(0, 1) * 255).round().to(
+        torch.uint8).cpu().numpy()
+    clip = root / 'frames'
+    clip.mkdir(parents=True)
+    for i, f in enumerate(u8):
+        write_png(str(clip / f'{i:05d}.png'), f)
+    names, key, known = sp_known_tracks(frames, height, width)
+    anno = {n: [float(y), float(x)] for n, (x, y) in zip(names, key)}
+    anno = {'neck': [], **anno}
+    (root / f'{SP_KEYFRAME:05d}.json').write_text(json.dumps(anno))
+    dirs = {}
+    for name, n in (('dift', frames), ('native_cotracker', frames),
+                    ('human', SP_HUMAN_FRAMES), ('flow', SP_FLOW_FRAMES)):
+        d = root / name / 'frames'
+        d.mkdir(parents=True)
+        for i in range(n):
+            (d / f'{i:05d}.png').symlink_to(clip / f'{i:05d}.png')
+        dirs[name] = d
+    return {'clip': clip, 'annotation': root / f'{SP_KEYFRAME:05d}.json',
+            'dirs': dirs, 'names': names, 'known': known,
+            'video': u8}
+
+
+def sp_model_opt(tree: Path, root: Path, dataset: dict) -> Path:
+    """SP_CONFIG rewritten into `tree` (its models' and adapter's files) and
+    `dataset` (datasets.path, datasets.tap_path), each cut on a '#' line."""
+    values = {
+        'models.unet.inference_config_path':
+            ROOT / 'options/model_cfg/inference.yml',
+        'models.unet.motion_module_path': tree / 'mm_sd_v14.ckpt',
+        'models.adapter.model_config_path':
+            ROOT / 'options/model_cfg/point_adapter.yml',
+        'path.pretrained_model_path': tree / 'pretrained',
+        'path.pretrained_adapter_path': tree / 'adapter.pth',
+        **{f'datasets.{k}': v for k, v in dataset.items()}}
+    text = rewrite_yaml((ROOT / SP_CONFIG).read_text(),
+                        {k: str(v) for k, v in values.items()}, {})
+    out = root / Path(SP_CONFIG).name
+    out.write_text(''.join(f'# {c}\n' for c in SP_CUTS) + text)
+    return out
+
+
+def cpu_featurizer(feat):
+    """The featurizer's models copied to the CPU in fp32 (the plain
+    versions of every kernel)."""
+    import torch
+    from videoswap_torch.preprocess.dift import SDFeaturizer
+    mods = {name: copy.deepcopy(getattr(feat, name)).to('cpu', torch.float32)
+            for name in ('unet', 'vae', 'text_encoder')}
+    return SDFeaturizer(tokenizer=feat.tokenizer, sched=feat.sched, **mods)
+
+
+def sp_features(card, frames, ref) -> dict:
+    """The card featurizer's map of frames[1], its second call (after
+    frames[0]: a draw that went on from call to call would differ): its
+    shape beside the up_block_1 tap's (the latent's level 1, 1280
+    channels), and its relative L2 against `ref`, the CPU's map of
+    frames[1] (inf if the shapes differ)."""
+    card.forward(frames[0], 'photo of a object')
+    out = card.forward(frames[1], 'photo of a object')
+    h8, w8 = card.noise_shape(tuple(frames[1].shape[:2]))[2:4]
+    return {'features_rel': (rel_err(out, ref)
+                             if tuple(out.shape) == tuple(ref.shape)
+                             else math.inf),
+            'features_shape': list(out.shape),
+            'features_tap_shape': [*dift_levels(h8, w8)[1][:2], 1280]}
+
+
+class PatchFeaturizer:
+    """tests/test_preprocess.py's stand-in featurizer: mean-centred 5x5
+    patch descriptors of the grey frame, on the card."""
+
+    def forward(self, image, prompt):
+        import torch
+        g = torch.as_tensor(image, device='cuda').float().mean(-1)
+        h, w = g.shape
+        pad = torch.nn.functional.pad(g[None, None], (2, 2, 2, 2),
+                                      mode='replicate')[0, 0]
+        feats = torch.stack([pad[dy:dy + h, dx:dx + w] for dy in range(5)
+                             for dx in range(5)], dim=-1)
+        return feats - feats.mean(-1, keepdim=True)
+
+
+def sp_cotracker(ckpt, device, video, queries):
+    """The predictor's tracks and visibility, and its encoder's maps of
+    the first window (under the predictor's own precision context)."""
+    import torch
+    from videoswap_torch.preprocess import cotracker_native as cn
+    pred = cn.NativeCoTrackerPredictor.from_checkpoint(ckpt, device)
+    tracks, vis = pred(video, queries, backward_tracking=True)
+    with torch.no_grad(), cn.fp32_math():
+        x = cn.resize_ac(torch.from_numpy(video[:cn.WINDOW]).to(device),
+                         *cn.INTERP_SHAPE)
+        fmaps = pred.model.encode(2 * (x / 255.0) - 1.0).cpu()
+    return tracks, vis, fmaps
+
+
+def sp_pose(ckpt, device, frame):
+    """The detector's maps and its people's keypoint lists on one frame."""
+    from videoswap_torch.preprocess.pose import NativePoseDetector
+    det = NativePoseDetector.from_checkpoint(ckpt, device)
+    paf, heat = det._maps(frame)
+    people = [[None if k is None else (k.x, k.y) for k in p.body.keypoints]
+              for p in det.detect_poses(frame)]
+    return paf, heat, people
+
+
+def sp_unimatch(ckpt, device, f0, f1):
+    from videoswap_torch.preprocess.unimatch import UniMatchWrapper
+    return UniMatchWrapper.from_checkpoint(ckpt, device).compute_flow(f0, f1)
+
+
+def sp_map_error(out, ref) -> float:
+    import numpy as np
+    return float(np.abs(out - ref).max() / np.abs(ref - ref.mean()).max())
+
+
+def sp_card_checks(inputs: dict, refs: dict) -> dict:
+    """The card's side of the phase's checks, against the CPU's `refs`
+    (sp_cpu_refs) and on its own: the featurizer's second call, CoTracker's
+    tracks (the frames before each query filled by the backward run),
+    OpenPose's maps and people, UniMatch's flow. scripts/fault_control.py
+    runs it under each planted fault."""
+    import numpy as np
+    out = sp_features(inputs['featurizer'], inputs['frames'],
+                      refs['features'])
+    tr, vis, fmaps = sp_cotracker(inputs['cot'], 'cuda',
+                                  inputs['sub_video'], inputs['queries'])
+    out['cotracker_unfilled'] = int(sum(
+        (tr[0, :int(t), n] == 0).all(-1).sum()
+        for n, t in enumerate(inputs['queries'][0, :, 0])))
+    out['cotracker_px'] = float(np.abs(tr - refs['cotracker'][0]).max())
+    out['cotracker_vis'] = float(np.abs(vis - refs['cotracker'][1]).max())
+    out['cotracker_fmaps_rel'] = rel_err(fmaps, refs['cotracker'][2])
+    paf, heat, people = sp_pose(inputs['pose'], 'cuda', inputs['frame'])
+    out['pose_paf'] = sp_map_error(paf, refs['pose'][0])
+    out['pose_heat'] = sp_map_error(heat, refs['pose'][1])
+    out['pose_people_equal'] = people == refs['pose'][2]
+    out['pose_people'] = len(people)
+    flow = sp_unimatch(inputs['unimatch'], 'cuda', *inputs['pair'])
+    out['unimatch_rel'] = float(np.abs(flow - refs['unimatch']).max()
+                                / np.abs(refs['unimatch']).max())
+    return out
+
+
+def sp_cpu_refs(inputs: dict) -> dict:
+    """The CPU's side (fp32): the featurizer's map of frames[1], CoTracker,
+    OpenPose and UniMatch on the same inputs; and their seconds."""
+    t = {}
+    refs = {}
+    t0 = time.perf_counter()
+    cpu = cpu_featurizer(inputs['featurizer'])
+    refs['features'] = cpu.forward(inputs['frames'][1], 'photo of a object')
+    del cpu
+    t['features'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    refs['cotracker'] = sp_cotracker(inputs['cot'], 'cpu',
+                                     inputs['sub_video'], inputs['queries'])
+    t['cotracker'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    refs['pose'] = sp_pose(inputs['pose'], 'cpu', inputs['frame'])
+    t['pose'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    refs['unimatch'] = sp_unimatch(inputs['unimatch'], 'cpu',
+                                   *inputs['pair'])
+    t['unimatch'] = time.perf_counter() - t0
+    refs['seconds'] = t
+    return refs
+
+
+def sp_card_fails(c: dict) -> list:
+    fails = []
+    if c['features_shape'] != c['features_tap_shape']:
+        fails.append('features shape')
+    if not c['features_rel'] <= MODEL_REL_TOL:
+        fails.append('features card vs CPU')
+    if c['cotracker_unfilled']:
+        fails.append('cotracker backward run')
+    if not (c['cotracker_px'] <= SP_COTRACKER_PX
+            and c['cotracker_fmaps_rel'] <= SP_COTRACKER_FMAPS_TOL):
+        fails.append('cotracker card vs CPU')
+    if not c['pose_people']:
+        fails.append('pose finds people')
+    if not (max(c['pose_paf'], c['pose_heat']) <= SP_POSE_TOL
+            and c['pose_people_equal']):
+        fails.append('pose card vs CPU')
+    if not c['unimatch_rel'] <= SP_UNIMATCH_TOL:
+        fails.append('unimatch card vs CPU')
+    return fails
+
+
+def _env(**values):
+    """Set environment variables (None: unset); returns a function that
+    restores them."""
+    old = {k: os.environ.get(k) for k in values}
+    for k, v in values.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+
+    def restore():
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return restore
+
+
+def semantic_points_run(tree: Path, root: Path, pipe) -> dict:
+    """The phase's path and checks in `root` (the trees' models from
+    `tree`); `pipe`'s adapter takes the TAP's embeddings once. Returns the
+    readings."""
+    import numpy as np
+    import torch
+    from videoswap_torch import extract_flow
+    from videoswap_torch import extract_semantic_point as esp
+    from videoswap_torch.data.frame_point_dataset import \
+        SingleVideoPointDataset
+    from videoswap_torch.preprocess.tracker import DIFTTracker
+    from videoswap_torch.utils.config import load_config
+    r = {'seconds': {}}
+    sec = r['seconds']
+    t0 = time.perf_counter()
+    clip = write_sp_clip(root)
+    ck = {'cot': root / 'cotracker_stride_4_wind_8.pth',
+          'pose': root / 'body_pose_model.pth',
+          'unimatch': root / 'gmflow-scale2-regrefine6-mixdata.pth'}
+    torch.save(synthetic_cotracker_state(), ck['cot'])
+    torch.save(calibrated_openpose_state(clip['video'][0], 'cuda'),
+               ck['pose'])
+    torch.save(synthetic_unimatch_state(), ck['unimatch'])
+    yml = sp_model_opt(tree, root, {'path': clip['dirs']['dift'],
+                                    'tap_path': root / 'dift' / 'TAP.pth'})
+    sec['write clip and checkpoints'] = time.perf_counter() - t0
+
+    cwd = os.getcwd()
+    restore = _env(VS_COTRACKER_CKPT=None, VS_UNIMATCH_CKPT=None,
+                   VS_OPENPOSE_CKPT=None)
+    os.chdir(root)               # no pretrained_models/ for the lookups
+    runs = {}
+    try:
+        reset_launches()
+        for name in ('dift', 'native_cotracker', 'human'):
+            os.environ['VS_COTRACKER_CKPT'] = (
+                str(ck['cot']) if name == 'native_cotracker' else '')
+            argv = ['--frame_dir', str(clip['dirs'][name]),
+                    '--keyframe_annotation', str(clip['annotation']),
+                    '--subject_category', 'object', '--model_opt', str(yml)]
+            if name == 'human':
+                argv += ['--is_human', 'true', '--pose_ckpt', str(ck['pose'])]
+            t0 = time.perf_counter()
+            runs[name] = esp.main(argv)
+            sec[f'cli {name}'] = time.perf_counter() - t0
+        r['launches'] = read_launches()
+        os.environ['VS_UNIMATCH_CKPT'] = str(ck['unimatch'])
+        t0 = time.perf_counter()
+        written = extract_flow.cli([
+            '--frame_dir', str(clip['dirs']['flow']), '--out_dir',
+            str(root / 'flow' / 'flows'), '--method', 'unimatch'])
+        sec['extract_flow unimatch (2 pairs)'] = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+        restore()
+    r['sources'] = {k: v['source'] for k, v in runs.items()}
+    r['cli_seconds'] = {k: v['seconds'] for k, v in runs.items()}
+    r['peak_gib'] = max(v['peak_gib'] for v in runs.values())
+    flows = [np.load(p) for p in written]
+    r['flows'] = {'files': len(written), 'shape': list(flows[0].shape),
+                  'finite': bool(all(np.isfinite(f).all() for f in flows))}
+
+    # the TAP files: the reference's keys, as the 2003 config's dataset
+    # reads them, the embeddings once through the adapter
+    taps = {}
+    for name, run in runs.items():
+        tap = torch.load(run['path'], weights_only=False)
+        taps[name] = {'keys': sorted(tap),
+                      'tracks': list(tap['pred_tracks'].shape),
+                      'embedding': list(tap['point_embedding'].shape),
+                      'finite': bool(torch.isfinite(
+                          tap['point_embedding']).all()),
+                      'visible_share': float(
+                          (tap['pred_tracks'] >= 0).all(-1).float().mean())}
+    r['taps'] = taps
+    opt = load_config(str(yml))
+    ds = SingleVideoPointDataset(opt['datasets'])
+    cond = ds.get_conditions()
+    states = pipe._adapter_states(cond, tuple(ds.get_frames().shape[-3:-1]),
+                                  1.0, False)
+    r['dataset'] = {'frames': list(ds.get_frames().shape),
+                    'tracks': list(np.asarray(cond['pred_tracks']).shape),
+                    'embedding': list(np.asarray(
+                        cond['point_embedding']).shape),
+                    'adapter_states': [list(s.shape) for s in states],
+                    'adapter_finite': bool(all(torch.isfinite(s).all()
+                                               for s in states))}
+
+    # the DIFT tracker on the card against the CPU, fed the same features
+    # (the CLI's, on the CPU), on SP_SUB
+    a, b = SP_SUB
+    video = clip['video']
+    frames = [f.astype(np.float32) / 127.5 - 1.0 for f in video]
+    ch, cw = SP_CROP
+    y0, x0 = (SP_CLIP[1] - ch) // 2, (SP_CLIP[2] - cw) // 2
+    crop = [f[y0:y0 + ch, x0:x0 + cw] for f in video[:2]]
+    feats = [f.cpu() for f in runs['dift']['features'][a:b]]
+    _, key, known = sp_known_tracks(*SP_CLIP)
+    tracks = {}
+    for dev in ('cuda', 'cpu'):
+        t0 = time.perf_counter()
+        tracks[dev] = DIFTTracker(None, device=dev).track(
+            frames[a:b], SP_KEYFRAME - a, key, 'object', feats=feats)
+        sec[f'dift tracker {dev} (sub-clip)'] = time.perf_counter() - t0
+    r['tracker_px'] = float(np.abs(tracks['cuda'] - tracks['cpu']).max())
+    # the stand-in featurizer's tracks on the card against the known motion
+    t0 = time.perf_counter()
+    stand = DIFTTracker(PatchFeaturizer(), device='cuda').track(
+        frames, SP_KEYFRAME, key, 'object')
+    sec['stand-in tracker card'] = time.perf_counter() - t0
+    r['standin_px'] = float(np.abs(stand - known).max())
+    r['standin_median_px'] = float(np.median(np.abs(stand - known)))
+
+    feat = runs['dift']['featurizer']
+    r['latent'] = list(feat.noise_shape(SP_CLIP[1:])[2:4])
+
+    # CoTracker, OpenPose, UniMatch and the featurizer, card against CPU
+    q = np.asarray([[SP_KEYFRAME - a, x, y] for x, y in key],
+                   np.float32)[None]
+    inputs = {'featurizer': feat,
+              'frames': [f.astype(np.float32) / 127.5 - 1.0 for f in crop],
+              'cot': str(ck['cot']),
+              'sub_video': video[a:b].astype(np.float32),
+              'queries': q, 'pose': str(ck['pose']), 'frame': video[0],
+              'unimatch': str(ck['unimatch']),
+              'pair': tuple(f.astype(np.float32) / 255.0 for f in crop)}
+    t0 = time.perf_counter()
+    refs = sp_cpu_refs(inputs)
+    sec['cpu references'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    r['card'] = sp_card_checks(inputs, refs)
+    sec['card checks'] = time.perf_counter() - t0
+    r['cpu_seconds'] = refs['seconds']
+    r['inputs'], r['refs'] = inputs, refs
+
+    # the human TAP against the CPU: frame 0's keypoints the CPU detector's
+    # first person's (as propagate_human_keypoint writes them), the
+    # embedding the CPU's on the TAP's tracks and the CLI's features
+    t0 = time.perf_counter()
+    tap = torch.load(runs['human']['path'], weights_only=False)
+    tracks = tap['pred_tracks'].numpy()
+    h, w = SP_CLIP[1:]
+    first = np.full((18, 2), -1.0, np.float32)
+    for ki, kp in enumerate(refs['pose'][2][0] if refs['pose'][2] else []):
+        if kp is not None:
+            first[ki] = (kp[0] * w, kp[1] * h)
+    emb = esp.extract_point_embedding(
+        {'pred_tracks': tracks.copy()}, str(clip['dirs']['human']), None,
+        True, [f.cpu() for f in runs['human']['features']])
+    ref = emb['point_embedding']
+    r['human'] = {
+        'frame0_keypoints': int((first >= 0).all(-1).sum()),
+        'frame0_equal': bool(np.array_equal(tracks[0], first)),
+        'embedding_rel': float(
+            np.abs(tap['point_embedding'].numpy() - ref).max()
+            / max(float(np.abs(ref).max()), 1e-30))}
+    sec['human TAP on the CPU'] = time.perf_counter() - t0
+    return r
+
+
+def semantic_points_fails(r) -> list:
+    fails = [f'source {k}' for k, v in r['sources'].items()
+             if v != {'dift': 'dift', 'native_cotracker': 'native_cotracker',
+                      'human': 'NativePoseDetector'}[k]]
+    fails += [f'launches {k}' for k in FORWARD_KERNELS
+              if r['launches'][k] <= 0]
+    want = ['point_embedding', 'point_name2id', 'pred_tracks']
+    for name, t in r['taps'].items():
+        p = 18 if name == 'human' else len(SP_POINTS)
+        f = SP_HUMAN_FRAMES if name == 'human' else SP_CLIP[0]
+        if t['keys'] != want or t['tracks'] != [f, p, 2] \
+                or t['embedding'] != [p, 1280] or not t['finite'] \
+                or not t['visible_share'] > 0:
+            fails.append(f'tap {name}')
+    hu = r['human']
+    if not (hu['frame0_keypoints'] and hu['frame0_equal']
+            and hu['embedding_rel'] <= SP_EMBED_TOL):
+        fails.append('human TAP vs CPU')
+    d = r['dataset']
+    if d['embedding'] != [len(SP_POINTS), 1280] or not d['adapter_finite']:
+        fails.append('dataset')
+    if r['flows'] != {'files': SP_FLOW_FRAMES - 1,
+                      'shape': [2, SP_CLIP[1], SP_CLIP[2], 2],
+                      'finite': True}:
+        fails.append('flow files')
+    if not r['tracker_px'] <= SP_TRACK_PX:
+        fails.append('tracker card vs CPU')
+    if not r['standin_px'] <= SP_STANDIN_PX:
+        fails.append('stand-in vs known motion')
+    return fails + sp_card_fails(r['card'])
+
+
+def phase_semantic_points(report, state):
+    import tempfile
+
+    import torch
+    tree, _ = recipe_tree(state)
+    with tempfile.TemporaryDirectory() as d:
+        r = semantic_points_run(tree, Path(d), state['pipe'])
+    # the featurizer's kernels at its shapes, at the kernels phase's limits
+    t0 = time.perf_counter()
+    dift_shape_kernels(report, torch.Generator(device='cuda').manual_seed(
+        SEED), *r['latent'])
+    r['seconds']['kernels at the dift shapes'] = time.perf_counter() - t0
+    report['launches']['semantic_points'] = r['launches']
+    r.pop('inputs')
+    r.pop('refs')
+    report['semantic_points'] = r
+    torch.cuda.empty_cache()
+    fails = semantic_points_fails(r)
+    log(f'# semantic_points ({SP_CONFIG}; {"; ".join(SP_CUTS)}): stage s '
+        f'{json.dumps({k: round(v, 3) for k, v in r["seconds"].items()})}; '
+        f'CLI stages s {json.dumps(r["cli_seconds"])}; peak '
+        f'{r["peak_gib"]:.2f} GiB (a CLI run); latent {r["latent"]}; '
+        f'sources {json.dumps(r["sources"])}; launches '
+        f'{json.dumps(r["launches"])}')
+    log(f'# semantic_points checks: TAP files {json.dumps(r["taps"])}; '
+        f'dataset {json.dumps(r["dataset"])}; flows {json.dumps(r["flows"])}'
+        f'; human TAP vs CPU {json.dumps(r["human"])} (embedding tol '
+        f'{SP_EMBED_TOL}); tracker card vs CPU {r["tracker_px"]:.3e} px (tol '
+        f'{SP_TRACK_PX}); stand-in vs known motion max {r["standin_px"]:.3f}'
+        f' median {r["standin_median_px"]:.3f} px (tol {SP_STANDIN_PX}); '
+        f'card vs CPU {json.dumps(r["card"])} (tols features '
+        f'{MODEL_REL_TOL}, cotracker {SP_COTRACKER_PX} px and maps '
+        f'{SP_COTRACKER_FMAPS_TOL}, pose '
+        f'{SP_POSE_TOL}, unimatch {SP_UNIMATCH_TOL}); CPU s '
+        f'{json.dumps(r["cpu_seconds"])} '
+        f'{"FAIL " + str(fails) if fails else "ok"}')
+    if fails:
+        raise PhaseError(f'semantic_points: {fails}')
+
+
 def env_line() -> str:
     """The optional packages the port's writers and readers import where
     they are used (PIL: gif and non-PNG frames; imageio: mp4), and those it
@@ -3789,7 +4488,8 @@ def main() -> None:
                  'sample': phase_sample, 'train_small': phase_train_small,
                  'train': phase_train, 'blend_small': phase_blend_small,
                  'blend': phase_blend, 'recipe': phase_recipe,
-                 'train_recipe': phase_train_recipe}[phase](
+                 'train_recipe': phase_train_recipe,
+                 'semantic_points': phase_semantic_points}[phase](
                     report, state)
             log(f'# phase {phase}: {time.perf_counter() - t0:.1f} s')
     except PhaseError as e:

@@ -146,6 +146,42 @@ propagated tracks cannot show a fault of the drag):
                       CPU (the flows themselves moved too little: 2.4e-4
                       more of the pixels by more than 0.01 px).
 
+The semantic-point faults, each run against the card's side of
+chip_smoke.py's semantic_points checks (sp_card_checks: the phase's sound
+run first, its CPU references taken once, in the recipe phase's tree).
+Each is planted on the card alone: a fault of the code that both devices
+run would reach the CPU's references too, where a check of the card
+against the CPU cannot see it. The checks named for the first three see
+the fault in either place (two read the card alone, the draw's compares
+the card's second call with the CPU's first); the bilinear map resize in
+the shared code is a fault that the CPU tests catch against the JAX
+package, as they catch the first three
+(tests/test_torch_dift.py::test_up_block_1_tap_matches_jax and
+::test_featurizer_matches_jax_given_its_draw, the tap;
+::test_featurizer_draws_the_same_noise_at_every_call, the draw;
+tests/test_torch_cotracker.py::test_predictor_matches_jax, the backward
+run; tests/test_torch_pose.py::test_maps_match_jax and
+::test_cubic_resize_is_jaxs, the resize), and TF32 exists only on the
+card:
+
+- dift_tap_up_block_0: the featurizer on the card returns the up_block_0
+                      tap instead of up_block_1: the features' shape
+                      against the up_block_1 tap's (the card alone);
+- dift_fresh_noise_per_frame: the featurizer on the card draws its noise
+                      from a generator that goes on from call to call (each
+                      frame its own draw): the features of its second call
+                      against the CPU's first (so also where the CPU's draw
+                      goes on);
+- cotracker_no_backward: CoTracker on the card skips the backward run on
+                      the reversed video (the frames before a query keep
+                      their zeros): those frames' tracks filled (the card
+                      alone);
+- pose_bilinear_maps: OpenPose on the card resizes its maps with the
+                      antialiased bilinear filter instead of the cubic one:
+                      its maps against the CPU's;
+- cotracker_tf32:     CoTracker on the card runs with TF32 products and
+                      convolutions: its tracks against the CPU's.
+
 The last three of the kernel faults are faults of the unrouted kernels,
 which no model path runs:
 the unrouted limits catch them, beside the kernel limit.
@@ -176,7 +212,8 @@ it above; the sound train-recipe run passes train_recipe's checks and
 resume_fresh_adamw fails its resume check; the sound run passes the kernels phase's check at the recipe's
 shapes, and flash_partial_block_upper_rows fails it; the sound atlas
 recipe passes atlas_recipe's checks and each of its faults fails the check
-named for it.
+named for it; the sound semantic_points run passes its checks and each
+semantic-point fault fails the check named for it.
 """
 
 from __future__ import annotations
@@ -605,6 +642,129 @@ def _box_filter_tf32():
         yield
 
 
+@contextlib.contextmanager
+def _dift_tap_up_block_0():
+    from videoswap_torch.preprocess import dift
+    real = dift.SDFeaturizer.forward
+
+    def faulted(self, image, prompt, noise=None):
+        if self.device.type != 'cuda':
+            return real(self, image, prompt, noise)
+        with mock.patch.object(dift, 'TAP', 'up_block_0'):
+            return real(self, image, prompt, noise)
+    with mock.patch.object(dift.SDFeaturizer, 'forward', faulted):
+        yield
+
+
+@contextlib.contextmanager
+def _dift_fresh_noise_per_frame():
+    import torch
+
+    from videoswap_torch.preprocess import dift
+    real = dift.SDFeaturizer.forward
+    gens = {}
+
+    def faulted(self, image, prompt, noise=None):
+        if self.device.type == 'cuda' and noise is None:
+            gen = gens.setdefault(id(self),
+                                  torch.Generator().manual_seed(
+                                      dift.NOISE_SEED))
+            noise = torch.randn(self.noise_shape(tuple(image.shape[:2])),
+                                generator=gen)
+        return real(self, image, prompt, noise)
+    with mock.patch.object(dift.SDFeaturizer, 'forward', faulted):
+        yield
+
+
+@contextlib.contextmanager
+def _cotracker_no_backward():
+    from videoswap_torch.preprocess import cotracker_native as cn
+    real = cn.NativeCoTrackerPredictor.__call__
+
+    def faulted(self, video, queries, backward_tracking=True):
+        return real(self, video, queries,
+                    backward_tracking and self.device.type != 'cuda')
+    with mock.patch.object(cn.NativeCoTrackerPredictor, '__call__',
+                           faulted):
+        yield
+
+
+@contextlib.contextmanager
+def _pose_bilinear_maps():
+    import torch.nn.functional as F
+
+    from videoswap_torch.preprocess import pose
+    real = pose.resize_cubic
+
+    def faulted(x, out_h, out_w):
+        if not x.is_cuda or x.shape[-1] == 3:      # the maps, not the input
+            return real(x, out_h, out_w)
+        lead, (h, w, c) = x.shape[:-3], x.shape[-3:]
+        y = F.interpolate(x.reshape(-1, h, w, c).permute(0, 3, 1, 2),
+                          size=(out_h, out_w), mode='bilinear',
+                          align_corners=False, antialias=True)
+        return y.permute(0, 2, 3, 1).reshape(*lead, out_h, out_w, c)
+    with mock.patch.object(pose, 'resize_cubic', faulted):
+        yield
+
+
+@contextlib.contextmanager
+def _cotracker_tf32():
+    import torch
+
+    from videoswap_torch.preprocess import cotracker_native as cn
+
+    @contextlib.contextmanager
+    def tf32():
+        prev = (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            yield
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = prev
+    with mock.patch.object(cn, 'fp32_math', tf32):
+        yield
+
+
+# the semantic-point faults -> context managers planting them, and the
+# semantic_points check that must catch each
+SP_FAULTS = {
+    'dift_tap_up_block_0': (_dift_tap_up_block_0, 'features shape'),
+    'dift_fresh_noise_per_frame': (_dift_fresh_noise_per_frame,
+                                   'features card vs CPU'),
+    'cotracker_no_backward': (_cotracker_no_backward,
+                              'cotracker backward run'),
+    'pose_bilinear_maps': (_pose_bilinear_maps, 'pose card vs CPU'),
+    'cotracker_tf32': (_cotracker_tf32, 'cotracker card vs CPU'),
+}
+
+
+def semantic_point_rows(tree: Path, pipe) -> dict:
+    """The sound semantic_points run in `tree`, then each semantic-point
+    fault against the card's side of its checks (the CPU's side taken once,
+    by the sound run): {fault: readings and the checks that failed}."""
+    import tempfile
+
+    import torch
+    with tempfile.TemporaryDirectory() as d:
+        r = cs.semantic_points_run(tree, Path(d), pipe)
+        rows = {'sound': {'card': r['card'], 'tracker_px': r['tracker_px'],
+                          'standin_px': r['standin_px'],
+                          'semantic_points_fails':
+                              cs.semantic_points_fails(r)}}
+        cs.log(f'# semantic_points sound: {json.dumps(rows["sound"])}')
+        for name, (plant, _) in SP_FAULTS.items():
+            with plant():
+                c = cs.sp_card_checks(r['inputs'], r['refs'])
+            torch.cuda.empty_cache()
+            rows[name] = {**c, 'semantic_points_fails': cs.sp_card_fails(c)}
+            cs.log(f'# semantic_points {name}: {json.dumps(rows[name])}')
+    return rows
+
+
 # the shape-change chain's faults -> context managers planting them, and
 # the atlas_recipe check that must catch each
 ATLAS_RECIPE_FAULTS = {
@@ -663,8 +823,10 @@ RECIPE_FAULTS = {
 def recipe_rows(pipe, cpu) -> dict:
     """Each recipe fault (and the sound run) against dpm_small's checks and
     the 2001 recipe's, then each train-recipe fault (and the sound run)
-    against train_recipe's, in the same tree; {fault: readings and the
-    checks that failed}, the train recipe's under 'train_recipe'."""
+    against train_recipe's, then the semantic-point faults
+    (semantic_point_rows), in the same tree; {fault: readings and the
+    checks that failed}, the train recipe's under 'train_recipe', the
+    semantic points' under 'semantic_points'."""
     import tempfile
 
     import torch
@@ -697,6 +859,7 @@ def recipe_rows(pipe, cpu) -> dict:
             row['resume_differences'] = row['resume_differences'][:8]
             rows['train_recipe'][name] = row
             cs.log(f'# train_recipe {name}: {json.dumps(row)}')
+        rows['semantic_points'] = semantic_point_rows(tree, pipe)
     return rows
 
 
@@ -936,6 +1099,8 @@ def main() -> None:
     sound = rows.pop('sound')
     train_recipe = recipe.pop('train_recipe')
     train_recipe_sound = train_recipe.pop('sound')
+    sp = recipe.pop('semantic_points')
+    sp_sound = sp.pop('sound')
     recipe_sound = recipe.pop('sound')
     kernel_tol = {'hash': cs.HASH_TOL,
                   'geglu_gate': cs.TOL['geglu_gate'],
@@ -986,12 +1151,15 @@ def main() -> None:
     for name, row in atlas_recipe.items():
         caught[name] = ATLAS_RECIPE_FAULTS[name][1] in row[
             'atlas_recipe_fails']
+    for name, row in sp.items():
+        caught[name] = SP_FAULTS[name][1] in row['semantic_points_fails']
     ok = not any(v for k, v in sound.items() if k.endswith('_fails')) \
         and not sound['recipe_shapes_error'] \
         and not recipe_sound['dpm_small_fails'] \
         and not recipe_sound['recipe_fails'] \
         and not train_recipe_sound['train_recipe_fails'] \
         and not atlas_recipe_sound['atlas_recipe_fails'] \
+        and not sp_sound['semantic_points_fails'] \
         and all(caught.values())
     print(json.dumps({'ok': ok, 'unet_tol': cs.MODEL_REL_TOL,
                       'small_tol': cs.SAMPLE_REL_TOL,
@@ -1022,6 +1190,14 @@ def main() -> None:
                           'tap_alpha_margin': cs.ATLAS_TAP_ALPHA_MARGIN},
                       'atlas_recipe_sound': atlas_recipe_sound,
                       'atlas_recipe_faults': atlas_recipe,
+                      'semantic_points_tols': {
+                          'features': cs.MODEL_REL_TOL,
+                          'cotracker_px': cs.SP_COTRACKER_PX,
+                          'cotracker_fmaps': cs.SP_COTRACKER_FMAPS_TOL,
+                          'pose': cs.SP_POSE_TOL,
+                          'unimatch': cs.SP_UNIMATCH_TOL},
+                      'semantic_points_sound': sp_sound,
+                      'semantic_points_faults': sp,
                       'caught': caught}), flush=True)
     sys.exit(0 if ok else 1)
 

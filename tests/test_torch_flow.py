@@ -303,36 +303,35 @@ def test_extract_flow_cli_writes_what_the_atlas_loader_reads(tmp_path,
 
 
 def test_auto_picks_what_the_jax_cli_picks(tmp_path, monkeypatch):
-    """'auto' is 'matching' with no UniMatch checkpoint on disk; with one,
-    the JAX package would run UniMatch, which the port refuses (naming its
-    ROADMAP item) rather than run another method; 'unimatch' is refused."""
+    """'auto' is 'matching' with no UniMatch checkpoint on disk and
+    'unimatch' with one, as in the JAX package; 'unimatch' without a
+    checkpoint raises FileNotFoundError, as the JAX package's does
+    (tests/test_torch_unimatch.py runs it on a checkpoint)."""
     monkeypatch.chdir(tmp_path)
     monkeypatch.setenv('VS_UNIMATCH_CKPT', '')
     assert tflow.resolve_method('auto') == 'matching'
     assert jflow.find_unimatch_checkpoint() is None
     assert tflow.find_unimatch_checkpoint() is None
-    with pytest.raises(NotImplementedError, match='Queue 1 item 7'):
+    with pytest.raises(FileNotFoundError, match='gmflow-scale2-regrefine6'):
         tflow.resolve_method('unimatch')
+    with pytest.raises(FileNotFoundError, match='gmflow-scale2-regrefine6'):
+        jflow.compute_bidirectional_flow(np.zeros((16, 16, 3)),
+                                         np.zeros((16, 16, 3)), 'unimatch')
     ckpt = tmp_path / 'pretrained_models' / \
         'gmflow-scale2-regrefine6-mixdata.pth'
     ckpt.parent.mkdir()
     ckpt.write_bytes(b'')
     assert tflow.find_unimatch_checkpoint() == \
         jflow.find_unimatch_checkpoint()
-    with pytest.raises(NotImplementedError, match='Queue 1 item 7'):
-        tflow.compute_bidirectional_flow(np.zeros((16, 16, 3)),
-                                         np.zeros((16, 16, 3)), 'auto',
-                                         device='cpu')
-    with pytest.raises(NotImplementedError, match='Queue 1 item 7'):
-        extract_flow.cli(['--frame_dir', '.', '--out_dir', 'o',
-                          '--method', 'auto'])
+    assert tflow.resolve_method('auto') == 'unimatch'
 
 
 def test_the_clis_refuse_what_is_not_ported_and_want_cuda(tmp_path):
-    """--method unimatch and --shard are refused, naming their ROADMAP
-    items, before anything runs; without --device cpu the CLIs want a CUDA
-    device and raise on a machine without one."""
-    with pytest.raises(NotImplementedError, match='Queue 1 item 7'):
+    """--method unimatch without a checkpoint on disk and --shard (named
+    by its ROADMAP item) are refused before anything runs; without
+    --device cpu the CLIs want a CUDA device and raise on a machine
+    without one."""
+    with pytest.raises(FileNotFoundError, match='gmflow-scale2-regrefine6'):
         extract_flow.cli(['--frame_dir', str(tmp_path), '--out_dir',
                           str(tmp_path / 'o'), '--method', 'unimatch'])
     with pytest.raises(NotImplementedError, match='Queue 1 item 9'):

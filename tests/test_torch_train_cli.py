@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.fixtures.logging_guard import jax_logger_as_found  # noqa: F401
 from videoswap_torch.builders import build_models, load_adapter_checkpoint
 from videoswap_torch.data import build_dataset
 from videoswap_torch.models import SparsePointAdapter

@@ -7,9 +7,9 @@ for each consecutive pair i, `<out_dir>/{i:05d}.npy`: the [2, H, W, 2]
 float32 forward and backward flow (`preprocess.flow.
 compute_bidirectional_flow`), the layout `atlas.data.load_input_data`
 reads. `--method auto` runs what the JAX CLI runs: UniMatch where its
-checkpoint is on disk, which is not ported (ROADMAP.md Queue 1 item 7) and
-is refused, else the weight-free matching flow; `--method unimatch` is
-refused. It runs on the GPU unless `--device cpu` is given.
+checkpoint is on disk ($VS_UNIMATCH_CKPT, pretrained_models/, the
+reference's thirdparty path), else the weight-free matching flow. It runs
+on the GPU unless `--device cpu` is given.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ from pathlib import Path
 import numpy as np
 
 from videoswap_torch.preprocess.flow import (compute_bidirectional_flow,
-                                             resolve_method)
+                                             load_unimatch, resolve_method)
 from videoswap_torch.utils.device import cli_device
 
 
@@ -36,6 +36,7 @@ def main(frame_dir: str, out_dir: str, method: str = 'auto',
     'cuda'. The method is resolved once, before the device is asked for."""
     method = resolve_method(method)
     device = cli_device(device)
+    unimatch = load_unimatch(device) if method == 'unimatch' else None
     os.makedirs(out_dir, exist_ok=True)
     paths = sorted(Path(frame_dir).iterdir())
     written = []
@@ -43,7 +44,7 @@ def main(frame_dir: str, out_dir: str, method: str = 'auto',
     for i in range(len(paths) - 1):
         nxt = read_frame(paths[i + 1])
         flow = compute_bidirectional_flow(prev, nxt, method=method,
-                                          device=device)
+                                          device=device, unimatch=unimatch)
         out = os.path.join(out_dir, f'{i:05d}.npy')
         np.save(out, flow)
         written.append(out)
@@ -60,7 +61,7 @@ def cli(argv=None) -> list[str]:
     parser.add_argument('--method', type=str, default='auto',
                         choices=['auto', 'unimatch', 'matching', 'lk'],
                         help="'auto' is UniMatch where its checkpoint is on "
-                             "disk (not ported: refused), else 'matching'")
+                             "disk, else 'matching'")
     parser.add_argument('--device', type=str, default=None,
                         help="'cpu' runs on the CPU; the default is 'cuda'")
     args = parser.parse_args(argv)

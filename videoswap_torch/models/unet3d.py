@@ -325,7 +325,8 @@ class AnimateDiffUNet3DModel(nn.Module):
     def forward(self, sample: torch.Tensor, timesteps,
                 encoder_hidden_states: torch.Tensor,
                 adapter_residuals: Optional[Sequence[torch.Tensor]] = None,
-                cfg_prefix_dedup: bool = False, ctrl: AttnCtrl = NO_CTRL):
+                cfg_prefix_dedup: bool = False, ctrl: AttnCtrl = NO_CTRL,
+                features: Optional[Sequence[str]] = None):
         """cfg_prefix_dedup: `sample` is the single shared CFG half while
         `encoder_hidden_states` carries both halves; the batch doubles to
         [uncond; cond] at the first cross-attention, where text enters.
@@ -335,8 +336,18 @@ class AnimateDiffUNet3DModel(nn.Module):
         applies (images of 256^2 and more).
 
         ctrl: attention control. Returns eps, or (eps, store) when the
-        controller stores ({site name: probabilities})."""
+        controller stores ({site name: probabilities}).
+
+        features: names of up-block outputs to return instead, as
+        {name: (B, F, h, w, C)} (`up_block_<i>`, the DIFT taps the JAX
+        package sows into its 'features' collection); the forward stops
+        after the last block asked for."""
         cfg = self.cfg
+        taps, wanted = {}, set(features or ())
+        unknown = wanted - {f'up_block_{i}'
+                            for i in range(len(self.up_blocks))}
+        if unknown:
+            raise ValueError(f'unknown feature taps: {sorted(unknown)}')
         dtype = self.conv_in.weight.dtype
         if cfg_prefix_dedup and \
                 encoder_hidden_states.shape[0] != 2 * sample.shape[0]:
@@ -368,7 +379,7 @@ class AnimateDiffUNet3DModel(nn.Module):
 
         x = self.mid_block(x, temb, text, ctrl=ctrl, store=store)
 
-        for block in self.up_blocks:
+        for i, block in enumerate(self.up_blocks):
             n_take = len(block.resnets)
             block_skips = skips[-n_take:]
             del skips[-n_take:]
@@ -378,6 +389,10 @@ class AnimateDiffUNet3DModel(nn.Module):
             else:
                 x = block(x, block_skips, temb, text, upsample_size,
                           ctrl=ctrl, store=store)
+            if f'up_block_{i}' in wanted:
+                taps[f'up_block_{i}'] = x
+                if len(taps) == len(wanted):
+                    return taps
 
         eps = self.conv_out(F.silu(self.conv_norm_out(x)))
         return (eps, store) if ctrl.stores else eps

@@ -13,15 +13,16 @@ fp32 tensors in [0, 1]; everything runs on the frames' device in fp32:
   `avg_pool2d` that counts the padding, so no TF32 convolution can touch it.
 
 `compute_bidirectional_flow` returns the reference's [2, H, W, 2] float32
-(forward, backward). Its 'matching' method is the weight-free global
-matching flow (matching_flow.py), 'lk' the pyramid alone. The learned
-UniMatch model ('unimatch', and 'auto' when its checkpoint is on disk) is
-not ported (ROADMAP.md Queue 1 item 7) and is refused: 'auto' never picks
-another method than the JAX package would.
+(forward, backward). Its 'unimatch' method is the learned UniMatch model
+(unimatch.py) on its published checkpoint, 'matching' the weight-free
+global matching flow (matching_flow.py), 'lk' the pyramid alone; 'auto' is
+'unimatch' where the checkpoint is on disk, else 'matching', as in the JAX
+package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import glob
 import os
 
@@ -30,8 +31,21 @@ import torch
 import torch.nn.functional as F
 
 _GRAY = (0.299, 0.587, 0.114)
-UNIMATCH_REFUSED = ('UniMatch flow (a learned model and its published '
-                    'checkpoint) is not ported (ROADMAP.md Queue 1 item 7)')
+
+
+@contextlib.contextmanager
+def fp32_math():
+    """fp32 products and convolutions in full fp32 on the card (TF32 off),
+    whatever the caller set."""
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
 
 
 def _gray(img: torch.Tensor) -> torch.Tensor:
@@ -151,19 +165,27 @@ def find_unimatch_checkpoint() -> str | None:
 
 def resolve_method(method: str) -> str:
     """The method the JAX package runs for `method`: 'auto' is 'unimatch'
-    when its checkpoint is on disk, else 'matching'. 'unimatch' raises."""
+    when its checkpoint is on disk, else 'matching'; 'unimatch' without a
+    checkpoint raises FileNotFoundError."""
     if method == 'auto':
-        ckpt = find_unimatch_checkpoint()
-        if ckpt is not None:
-            raise NotImplementedError(
-                f"--method auto would run UniMatch on {ckpt}: "
-                f'{UNIMATCH_REFUSED}; pass --method matching')
-        return 'matching'
-    if method == 'unimatch':
-        raise NotImplementedError(UNIMATCH_REFUSED)
-    if method not in ('matching', 'lk'):
+        return 'unimatch' if find_unimatch_checkpoint() else 'matching'
+    if method == 'unimatch' and find_unimatch_checkpoint() is None:
+        raise FileNotFoundError(
+            'method=unimatch needs a gmflow-scale2-regrefine6 checkpoint '
+            f'(set ${_UNIMATCH_CKPT_ENV} or place it under '
+            'pretrained_models/)')
+    if method not in ('unimatch', 'matching', 'lk'):
         raise ValueError(f'unknown flow method {method!r}')
     return method
+
+
+def load_unimatch(device=None):
+    """The UniMatch wrapper on the checkpoint `find_unimatch_checkpoint`
+    finds, on `device` (None: 'cuda')."""
+    from .unimatch import UniMatchWrapper
+    resolve_method('unimatch')
+    return UniMatchWrapper.from_checkpoint(find_unimatch_checkpoint(),
+                                           device=device)
 
 
 def _as_frame(frame, device) -> torch.Tensor:
@@ -173,12 +195,16 @@ def _as_frame(frame, device) -> torch.Tensor:
 
 
 def compute_bidirectional_flow(frame0, frame1, method: str = 'auto',
-                               device=None) -> np.ndarray:
+                               device=None, unimatch=None) -> np.ndarray:
     """[2, H, W, 2] float32: (forward frame0 -> frame1, backward frame1 ->
     frame0), the reference's .npy layout. Frames: (H, W, 3) in [0, 1]
-    (numpy or tensors). device: None means 'cuda'."""
+    (numpy or tensors). device: None means 'cuda'. unimatch: a loaded
+    UniMatch wrapper for the 'unimatch' method (else one is loaded)."""
     method = resolve_method(method)
     device = torch.device('cuda' if device is None else device)
+    if method == 'unimatch':
+        unimatch = unimatch or load_unimatch(device)
+        return unimatch.compute_flow(frame0, frame1)
     f0, f1 = _as_frame(frame0, device), _as_frame(frame1, device)
     if method == 'matching':
         from .matching_flow import global_matching_flow
@@ -188,3 +214,4 @@ def compute_bidirectional_flow(frame0, frame1, method: str = 'auto',
         fwd = pyramid_flow(f0, f1)
         bwd = pyramid_flow(f1, f0)
     return torch.stack([fwd, bwd]).cpu().numpy().astype(np.float32)
+

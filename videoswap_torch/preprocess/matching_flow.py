@@ -14,23 +14,20 @@ fp32. Two places where a natural PyTorch port leaves the JAX package:
 - ties: `torch.argmax` / `argmin` return the first extremum, as `jnp`'s
   do (the correlation matches, the cycle check, the candidate choice);
 - TF32: the correlation and attention products run with TF32 off
-  (`_fp32_matmul`), and the 7x7 box filter of `_photometric_select` is an
+  (flow.py `fp32_math`), and the 7x7 box filter of `_photometric_select` is an
   `avg_pool2d` (flow.py `box_filter`), fp32 sums that no TF32 setting
   reaches: TF32 there changes which candidate wins.
 
-`dift_features` (diffusion features) waits for the U-Net's DIFT taps
-(ROADMAP.md Queue 1 item 4); `global_matching_flow` takes external
-features as `feat0` / `feat1`.
+`global_matching_flow` takes external features as `feat0` / `feat1`, for
+example `dift_features` (diffusion features, dift.py).
 """
 
 from __future__ import annotations
 
-import contextlib
-
 import torch
 
 from .flow import (_gray, _levels, _lk_refine, _resize, _warp, box_filter,
-                   pyramid_flow)
+                   fp32_math, pyramid_flow)
 
 # the JAX package's defaults, which every caller uses: descriptors at
 # stride 8, LK refinement of each candidate over the 2 finest levels at 10
@@ -39,17 +36,6 @@ STRIDE = 8
 REFINE_LEVELS = 2
 REFINE_ITERS = 10
 PHASE_CANDIDATES = 2
-
-
-@contextlib.contextmanager
-def _fp32_matmul():
-    """fp32 products in full fp32 on the card, whatever the caller set."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def _grid_coords(gh: int, gw: int, stride: int,
@@ -94,7 +80,7 @@ def _global_match(feat0: torch.Tensor, feat1: torch.Tensor, stride: int,
     n = gh * gw
     f0 = feat0.reshape(n, c)
     f1 = feat1.reshape(n, c)
-    with _fp32_matmul():
+    with fp32_math():
         corr = f0 @ f1.T
         coords = _grid_coords(gh, gw, stride, feat0.device)
         idx01 = torch.argmax(corr, dim=1)
@@ -225,3 +211,12 @@ def global_matching_flow(img0, img1, feat0=None,
     cands = torch.stack([refined[0], pyramid_flow(img0, img1),
                          *refined[1:]])
     return _photometric_select(img0, img1, cands)[:h, :w]
+
+
+def dift_features(featurizer, frame, prompt: str = 'a video frame'):
+    """The DIFT feature map of a frame for matching (the frame in [-1, 1]
+    or [0, 255]): `featurizer.forward`'s (h, w, 1280) map."""
+    arr = torch.as_tensor(frame).float()
+    if float(arr.max()) > 1.5:
+        arr = arr / 127.5 - 1.0
+    return featurizer.forward(arr, prompt)
