@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (videoswap_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases build,kernels,unrouted,unet,small,dpm_small,sample,train_small,train,blend_small,blend,recipe,train_recipe,semantic_points,atlas_small,atlas,atlas_recipe]
+    python3 chip_smoke.py [--phases build,kernels,unrouted,unet,small,dpm_small,sample,train_small,train,edlora_small,edlora,blend_small,blend,recipe,clip_attn,train_recipe,semantic_points,atlas_small,atlas,atlas_recipe]
 
 Phases (all by default):
 
@@ -45,7 +45,10 @@ Phases (all by default):
                (recipe_shape_kernels: 56x96 latents, batch 1 and 2, GEGLU
                and the flash forward at every level, the fused temporal
                transformer at levels 0-1, temporal attention at 2-3), at
-               the same limits;
+               the same limits; then the ED-LoRA path's flash forward and
+               backward kernels and GEGLU at its shapes (edlora_shape_
+               kernels: one 512x512 image, 8 heads, B.H = 8), timed beside
+               SDPA and the cuBLAS products;
 - unrouted:    the fifth slice's path, the port's counterpart of the JAX
                package's two never-routed kernels and of the scripts that
                run them (scripts/bench_spatial_attn.py,
@@ -91,6 +94,24 @@ Phases (all by default):
                adapter's weights and the launch count of every kernel must be
                > 0 (the recompute of the level-0 layers in the backward
                launches the forward kernels again, and is counted);
+- edlora_small: the ED-LoRA trainer (videoswap_torch.edlora_train) on the
+               2D SD-1.5-width models at 64x64, 128 + 48 LoRA sites, alpha
+               EDLORA_ALPHA, non-zero factors, the same inputs and draws:
+               the loss and each group's gradient (the embeddings, the
+               factors), GPU bf16 against CPU fp32; then the trainer's two
+               AdamW updates (each group clipped by its own norm) against
+               the script's restatement of optax's on the card;
+- edlora:      the ED-LoRA CLI's path (`videoswap_torch.train_edlora`) on
+               train_edlora.py's docstring configuration at SD-1.5 width
+               (EDLORA_YAML, written with EDLORA_IMAGES synthetic 512x512
+               concept images): EDLORA_STEPS bf16 steps; the losses finite,
+               the embeddings and both factor groups moved, every frozen
+               weight bit-equal after the run, the checkpoint's keys the
+               sites', the flash forward, dQ, dK/dV and GEGLU kernels
+               launched; the file reloaded through load_edlora_into_pipeline
+               into the 3D pipeline, every merged weight bit-equal to
+               W + alpha up @ down from the file; the step times, peak
+               memory and launches a step;
 - blend_small: `VideoSwapPipeline.validation` at full width, 256x256, 2
                frames, 5 DDIM steps (the fewest that open the latent-blend
                window): inversion with attention stores, one swap with a
@@ -127,6 +148,20 @@ Phases (all by default):
                the discs of the visible, selected points, metrics.json and
                the frame files written, every forward kernel launched; the
                stage times, each swap's steps and VAE decode, peak memory;
+               the 1009 recipe also with visualize_attention and
+               path.clip_model_path (a ViT-L/14 config.json): its swap's
+               heatmap strip and the CLIP scores of the source and the swap
+               written;
+- clip_attn:   the swap CLI's CLIP scorer (make_clip_scorer: ViT-L/14,
+               random weights from the seeded CPU generator) on the 1009
+               recipe CLI run's source and swap, with its tokenizer, GPU
+               against CPU (fp32): the image and text embeddings and each
+               score, and the CPU's scores against the clip_score values
+               the CLI wrote to metrics.json; then the
+               attention dumps of `validation(visualize_attention)`:
+               blend_small's swap on the card, its dump of the summed stores
+               (probabilities: each row sums to 1), and the one-pass dump
+               of its frames on the card against the CPU;
 - train_recipe: the train CLI's path (`videoswap_torch.train`) on the
                shipped 2001 training config (TRAIN_RECIPE: 16 frames,
                512x512, fp16 as bf16, the kitten_to_catA ED-LoRA swap with
@@ -186,7 +221,8 @@ Phases (all by default):
                table's apart) and each net's change under Adam's first step;
 - atlas:       the third slice's path, layered-neural-atlas training at
                the published size: a synthetic 72-frame 768x448 clip built
-               on the card, UV pretraining of both mappings, ATLAS_STEPS
+               on the card, UV pretraining of both mappings (cut to
+               ATLAS_PRETRAIN_ITER iterations a frame), ATLAS_STEPS
                iterations of main step + inverse step at batch 10000 (the
                losses must be finite and fall, the hash kernel must launch
                once a main step: all 16 levels in one launch), the
@@ -222,8 +258,9 @@ Phases (all by default):
                points' distances to source and target printed, not
                checked; the seconds of each stage and the peak memory.
 
-Launch counts are set to 0 just before the unrouted, sample, train, blend,
-recipe, train_recipe, semantic_points, atlas and atlas_recipe paths and read
+Launch counts are set to 0 just before the unrouted, sample, train,
+edlora, blend, recipe, train_recipe, semantic_points, atlas and atlas_recipe
+paths and read
 just after each (a recipe's run: the CLI, before the direct `validation`;
 train_recipe: each CLI run, the two summed, not the direct steps;
 semantic_points: its three CLI runs; atlas_recipe: the three CLIs, not the
@@ -232,8 +269,11 @@ that the unet, small, train_small, blend_small, atlas_small and unrouted
 limits fail a kernel with a planted fault, dpm_small's and the recipe
 phase's checks a fault on the recipe's path, train_recipe's resume
 check a resume that starts a fresh AdamW, atlas_recipe's checks five
-faults of the shape-change chain, and semantic_points' checks five faults
-of its path on the card;
+faults of the shape-change chain, semantic_points' checks five faults
+of its path on the card, edlora_small's checks a merge without alpha and
+one gradient clip over both groups, and clip_attn's checks CLIP
+preprocessing without its normalisation and summed attention maps not
+divided by the step count;
 scripts/profile_step.py breaks one full-width U-Net step, training step or
 atlas iteration down by device time.
 
@@ -260,9 +300,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ('build', 'kernels', 'unrouted', 'unet', 'small', 'dpm_small',
-          'sample', 'train_small', 'train', 'blend_small', 'blend', 'recipe',
-          'train_recipe', 'semantic_points', 'atlas_small', 'atlas',
-          'atlas_recipe')
+          'sample', 'train_small', 'train', 'edlora_small', 'edlora',
+          'blend_small', 'blend', 'recipe', 'clip_attn', 'train_recipe',
+          'semantic_points', 'atlas_small', 'atlas', 'atlas_recipe')
 SEED = 0
 FRAMES, SIZE, POINTS = 16, 512, 10
 STEPS = 4          # DDIM steps of the full-width sample (a smoke run's time)
@@ -330,11 +370,17 @@ RECIPES = {
         'alpha': BLEND_LORA_ALPHA, 'concepts': BLEND_CONCEPTS,
         'tap': 'TAP_1009.pth', 'frame_hw': (448, 768),
         'values': {'val.editing_config.num_inference_steps': 5,
-                   'val.save_type': 'frame'},
+                   'val.save_type': 'frame',
+                   'val.editing_config.visualize_attention': 'true'},
+        'clip': True,
         'cuts': ['cut: num_inference_steps 50 -> 5 (the fewest that open '
                  'the latent-blend window)',
                  'cut: one editing prompt of five (man_to_hermione)',
-                 'cut: save_type video -> frame (PNG frames)', _SYNTHETIC]},
+                 'cut: save_type video -> frame (PNG frames)',
+                 'not a cut: visualize_attention true and '
+                 'path.clip_model_path (a ViT-L/14 config.json, random '
+                 'weights) added, so that the swap CLI\'s attention dumps '
+                 'and CLIP scores run', _SYNTHETIC]},
     '2001': {
         'path': 'options/test_videoswap/animal/2001_catheadturn_T05_Iter100/'
                 '2001_catheadturn_dpmpp20.yml',
@@ -590,6 +636,11 @@ ATLAS_TRAIN = {
 }
 ATLAS_FRAMES, ATLAS_H, ATLAS_W = 72, 448, 768
 ATLAS_STEPS = 200          # main + inverse iterations (a smoke run's time)
+# the atlas phase's UV pretraining, iterations a frame: the config's 100
+# cut to 10 (720 iterations a mapping instead of 7200, which took 70 s of the
+# phase's 81 on a slow host) to keep the whole script well inside its limit;
+# atlas_recipe pretrains as shipped, and its checks need that depth
+ATLAS_PRETRAIN_ITER = 10
 ATLAS_SMALL = (8, 96, 128)  # atlas_small's clip: frames, height, width
 # the synthetic clip's motion, pixels a frame: background and disk
 ATLAS_BG_SHIFT, ATLAS_DISK_SHIFT = (1.5, 0.5), (3.0, -1.25)
@@ -1059,6 +1110,22 @@ def recipe_shape_kernels(report, gen) -> None:
                          'the same inputs differ')
 
 
+def edlora_shape_kernels(report, gen) -> None:
+    """The ED-LoRA path's kernels against their plain versions at its
+    shapes: one 512x512 image, 8 heads (B.H = 8), the flash forward and
+    both backward kernels at every level, self and cross (Sk = 77), and
+    GEGLU at each level's rows (4096, 1024, 256, 64), at the limits of the
+    benchmark shapes, timed beside SDPA and the two cuBLAS products."""
+    from videoswap_torch.ops import flash_attention as fa
+    tag = ' (edlora)'
+    for n, c in ((4096, 320), (1024, 640), (256, 1280), (64, 1280)):
+        _geglu_case(report, gen, n, c, tag)
+    for s, d in ((4096, 40), (1024, 80), (256, 160), (64, 160)):
+        for sk in (s, 77):
+            _flash_case(report, gen, 1, 8, s, sk, d, tag)
+            _flash_backward(fa, gen, 1, 8, s, sk, d, report)
+
+
 def phase_kernels(report):
     import torch
     from videoswap_torch.ops import flash_attention as fa
@@ -1153,6 +1220,7 @@ def phase_kernels(report):
 
     _hash_kernels(report, gen)
     recipe_shape_kernels(report, gen)
+    edlora_shape_kernels(report, gen)
 
 
 def _fused_inputs(gen, b, hw, c, include_ffn, f=FRAMES):
@@ -2075,6 +2143,492 @@ def phase_train(report, state):
                          f'{missing}')
 
 
+# ----------------------------------------------------------------- ED-LoRA
+# the ED-LoRA path: options of train_edlora.py's docstring at SD-1.5
+# defaults (the 2D U-Net (320, 640, 1280, 1280), 8 heads, cross-attention
+# width 768; CLIP-L's 12 text layers; the SD VAE), 512x512, batch 1, bf16,
+# rank 4, scope attn (128 U-Net and 48 text-encoder sites), on
+# EDLORA_IMAGES synthetic concept images, EDLORA_STEPS steps through the
+# CLI (the cuts on the written file's '#' lines)
+EDLORA_STEPS = 6
+EDLORA_IMAGES = 4
+EDLORA_SITES = (128, 48)
+EDLORA_YAML = """\
+# train_edlora.py's docstring config at SD-1.5 defaults
+# cut: total_iter 100 -> {steps}
+# cut: print_freq 10 -> 1, save_checkpoint_freq 100 -> {steps}
+# cut: no path.pretrained_model_path: random weights from manual_seed
+# cut: {images} synthetic 512x512 concept images (a disc on noise)
+name: edlora_catA
+manual_seed: 0
+mixed_precision: bf16
+path: {{}}
+concepts:
+  catA1: {{init_token: cat}}
+datasets:
+  type: ConceptImageDataset
+  image_dir: {image_dir}
+  caption_template: a photo of a catA1
+  resolution: 512
+models: {{}}
+train:
+  lora_rank: 4
+  lora_alpha: 1.0
+  lora_scope: attn
+  optimizer: {{emb_lr: 1.e-3, lora_lr: 1.e-4}}
+  max_grad_norm: 1.0
+  total_iter: {steps}
+logger: {{print_freq: 1, save_checkpoint_freq: {steps}}}
+"""
+# edlora_small: the same models at 64x64 (8x8 latents: level 0's spatial
+# attention on the flash kernels at S = 64, levels 1-3, S <= 16, on the
+# temporal-attention kernel and its plain backward), alpha EDLORA_ALPHA and
+# non-zero factors (so that the merge shows in the loss and in both
+# factors' gradients), the same inputs and draws on both sides: the loss
+# (relative) and each group's flattened gradient (relative L2), GPU bf16
+# against CPU fp32; then the trainer's update (each group clipped by its
+# own norm, AdamW) on the card against the script's restatement of optax's
+# (edlora_update_reference) on the same two gradients, both groups above
+# the clip norm: relative L2 of the change, fp32 on the card. The change
+# (about lr an entry) is read as the difference of fp32 weights of ~0.05,
+# whose rounding (torch's decay and step round twice, the restatement
+# once) is ~1e-5 of it: on the CPU at the smoke widths the sound reading
+# is 2.7e-5, one clip over both groups reads 1.1e-2. Sound readings on the
+# H100 (the phase's first run): loss 2.0e-4, gradients 1.79e-2
+# (embeddings: a sum over every text-encoder and U-Net cross-attention
+# layer's bf16 backward) and 1.53e-2 (factors), update 6.1e-6; the
+# gradients' limit sits at about 2x those
+EDLORA_SMALL_SIZE = 64
+EDLORA_ALPHA = 0.7
+EDLORA_OPT = {'emb_lr': 1e-3, 'lora_lr': 1e-4, 'weight_decay': 0.01}
+EDLORA_LOSS_TOL = 5e-3
+EDLORA_GRAD_TOL = 4e-2
+EDLORA_UPDATE_TOL = 2e-4
+
+
+def edlora_models(device, dtype):
+    """The ED-LoRA path's 2D models at SD-1.5 width from SEED
+    (build_models without motion modules), frozen, and the tokenizer."""
+    from videoswap_torch.builders import build_models
+    built = build_models({'models': {'unet': {'unet_cfg': {
+        'use_motion_module': False}}}}, device=device, dtype=dtype,
+        seed=SEED)
+    for name in ('unet', 'vae', 'text_encoder'):
+        built[name].requires_grad_(False)
+    built.pop('adapter')
+    return built
+
+
+def edlora_trainer(models, max_grad_norm=None):
+    from videoswap_torch.edlora_train import EDLoRATrainer, lora_sites
+    return EDLoRATrainer(
+        unet=models['unet'], text_encoder=models['text_encoder'],
+        vae=models['vae'], sched=models['sched'],
+        unet_sites=lora_sites(models['unet'], 'unet'),
+        text_sites=lora_sites(models['text_encoder'], 'text_encoder'),
+        alpha=EDLORA_ALPHA, optimizer_cfg=EDLORA_OPT,
+        max_grad_norm=max_grad_norm)
+
+
+def edlora_small_inputs(trainer, cfg_tokenizer):
+    """The train params (the concept's warm start plus noise, down ~ U(+-1/
+    sqrt(I)), up ~ N(0, 0.02^2): non-zero, so the merge matters), a
+    64x64 image and the 16 layer-variant ids, and two draws, all made on
+    the CPU from SEED + 8 and rounded to bf16: (params, batch, [draws,
+    draws])."""
+    import numpy as np
+    import torch
+    from videoswap_torch.edlora_train import (init_concept_embedding,
+                                              register_concepts,
+                                              tokenize_layer_prompts)
+    gen = torch.Generator().manual_seed(SEED + 8)
+    bf = (lambda t: t.bfloat16().float())
+    cfg = register_concepts(cfg_tokenizer, ['catA1'])
+    emb = init_concept_embedding(trainer.text_encoder, cfg_tokenizer, 'cat')
+    params = {'concept_emb': {'catA1': bf(
+        emb.cpu() + 0.01 * torch.randn(emb.shape, generator=gen))},
+        'unet_lora': {}, 'text_lora': {}}
+    for part, module, sites in (
+            ('unet_lora', trainer.unet, trainer.unet_sites),
+            ('text_lora', trainer.text_encoder, trainer.text_sites)):
+        for site in sites:
+            o, i = module.get_parameter(site.name).shape[:2]
+            params[part][site.torch_key] = {
+                'down': bf((torch.rand((LORA_RANK, i), generator=gen) * 2
+                            - 1) * i ** -0.5),
+                'up': bf(torch.randn((o, LORA_RANK), generator=gen) * 0.02)}
+    size = EDLORA_SMALL_SIZE
+    batch = {'pixels': bf(torch.rand((1, 1, size, size, 3), generator=gen)
+                          * 2 - 1),
+             'input_ids': torch.from_numpy(np.asarray(tokenize_layer_prompts(
+                 cfg_tokenizer, 'a photo of a catA1', cfg)))}
+    draws = [{k: bf(v) if v.is_floating_point() else v
+              for k, v in trainer.make_draws(batch, gen).items()}
+             for _ in range(2)]
+    return params, batch, draws
+
+
+def edlora_params_on(params, device):
+    """A copy of the train params on `device`, fp32 leaves that require
+    grad."""
+    from videoswap_torch.edlora_train import param_groups
+    out = {'concept_emb': {k: v.to(device, copy=True)
+                           for k, v in params['concept_emb'].items()},
+           **{part: {k: {n: t.to(device, copy=True) for n, t in p.items()}
+                     for k, p in params[part].items()}
+              for part in ('unet_lora', 'text_lora')}}
+    groups = param_groups(out)
+    for t in groups['emb'] + groups['lora']:
+        t.requires_grad_(True)
+    return out
+
+
+def edlora_grads(trainer, params, batch, draws):
+    """(loss, {group: flattened gradient, fp32 on the card's device}) of one
+    loss_fn + backward."""
+    import torch
+    from videoswap_torch.edlora_train import param_groups
+    groups = param_groups(params)
+    for t in groups['emb'] + groups['lora']:
+        t.grad = None
+    loss = trainer.loss_fn(params, batch, draws)
+    loss.backward()
+    return loss.item(), {k: torch.cat([t.grad.float().flatten() for t in v])
+                         for k, v in groups.items()}
+
+
+def edlora_update_reference(params, grads_seq, max_norm):
+    """optax's multi_transform of two adamw groups, each chained after
+    clip_by_global_norm, restated: per group and step, g scaled by
+    max_norm / |g| where |g| >= max_norm, then Adam's moments, the
+    bias-corrected update and the decoupled decay (the embeddings without
+    decay). params: {group: flat tensor}; grads_seq: [{group: flat}]."""
+    import torch
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    lr = {'emb': EDLORA_OPT['emb_lr'], 'lora': EDLORA_OPT['lora_lr']}
+    wd = {'emb': 0.0, 'lora': EDLORA_OPT['weight_decay']}
+    out = {}
+    for k, p in params.items():
+        p = p.clone()
+        m, v = torch.zeros_like(p), torch.zeros_like(p)
+        for t, grads in enumerate(grads_seq, 1):
+            g = grads[k]
+            norm = g.norm()
+            if norm >= max_norm:
+                g = g / norm * max_norm
+            m = b1 * m + (1 - b1) * g
+            v = b2 * v + (1 - b2) * g * g
+            upd = (m / (1 - b1 ** t)) / ((v / (1 - b2 ** t)).sqrt() + eps)
+            p = p - lr[k] * (upd + wd[k] * p)
+        out[k] = p
+    return out
+
+
+def edlora_update_error(trainer, params, grads_seq) -> tuple[float, float]:
+    """The trainer's update (its optimizer from init_state, two steps of
+    `update` on the given gradients) against edlora_update_reference from
+    the same params, with the clip norm half the smallest group norm (every
+    group clipped at every step): (relative L2 error of the change, the
+    clip norm)."""
+    import torch
+    from videoswap_torch.edlora_train import param_groups
+    dev = trainer.device
+    max_norm = 0.5 * min(float(g.norm()) for gs in grads_seq
+                         for g in gs.values())
+    trainer.max_grad_norm = max_norm
+    tp = edlora_params_on(params, dev)
+    groups = param_groups(tp)
+    flat = (lambda: {k: torch.cat([t.detach().flatten() for t in v])
+                     for k, v in groups.items()})
+    before = flat()
+    opt = trainer.init_state(tp)
+    for grads in grads_seq:
+        for k, ts in groups.items():
+            off = 0
+            for t in ts:
+                t.grad = grads[k][off:off + t.numel()].view_as(t).clone()
+                off += t.numel()
+        trainer.update(opt)
+    after = flat()
+    ref = edlora_update_reference(before, grads_seq, max_norm)
+    change = torch.cat([after[k] - before[k] for k in before])
+    ref_change = torch.cat([ref[k] - before[k] for k in before])
+    return rel_err(change, ref_change), max_norm
+
+
+def edlora_small_errors(gpu, cpu_ref, inputs) -> dict:
+    """edlora_small's readings for the card's trainer `gpu` against the CPU's
+    (loss, grads) `cpu_ref` on `inputs` (edlora_small_inputs)."""
+    params, batch, draws = inputs
+    tp = edlora_params_on(params, gpu.device)
+    loss, grads = edlora_grads(gpu, tp, batch, draws[0])
+    _, grads2 = edlora_grads(gpu, tp, batch, draws[1])
+    ref_loss, ref_grads = cpu_ref
+    upd_err, max_norm = edlora_update_error(gpu, params, [grads, grads2])
+    return {'loss': abs(loss - ref_loss) / abs(ref_loss),
+            'grad_emb': rel_err(grads['emb'], ref_grads['emb']),
+            'grad_lora': rel_err(grads['lora'], ref_grads['lora']),
+            'update': upd_err, 'clip_norm': max_norm,
+            'finite': bool(all(g.isfinite().all() for g in grads.values()))}
+
+
+def edlora_small_fails(errs) -> list:
+    fails = [k for k, tol in (('loss', EDLORA_LOSS_TOL),
+                              ('grad_emb', EDLORA_GRAD_TOL),
+                              ('grad_lora', EDLORA_GRAD_TOL),
+                              ('update', EDLORA_UPDATE_TOL))
+             if not errs[k] <= tol]
+    return fails + ([] if errs['finite'] else ['finite'])
+
+
+def edlora_small_setup() -> dict:
+    """The card's trainer (bf16 models), the CPU's (fp32 copies), the
+    inputs and the CPU's loss and gradients."""
+    import torch
+    gpu_models = edlora_models('cuda', torch.bfloat16)
+    cpu_models = dict(gpu_models)
+    for name in ('unet', 'vae', 'text_encoder'):
+        cpu_models[name] = copy.deepcopy(gpu_models[name]).to(
+            'cpu', torch.float32)
+    gpu, cpu = edlora_trainer(gpu_models), edlora_trainer(cpu_models)
+    inputs = edlora_small_inputs(cpu, cpu_models['tokenizer'])
+    t0 = time.perf_counter()
+    params, batch, draws = inputs
+    cpu_ref = edlora_grads(cpu, edlora_params_on(params, 'cpu'), batch,
+                           draws[0])
+    return {'gpu': gpu, 'cpu_ref': cpu_ref, 'inputs': inputs,
+            'cpu_s': time.perf_counter() - t0}
+
+
+def phase_edlora_small(report, state):
+    import torch
+    s = edlora_small_setup()
+    t0 = time.perf_counter()
+    errs = edlora_small_errors(s['gpu'], s['cpu_ref'], s['inputs'])
+    torch.cuda.synchronize()
+    t_gpu = time.perf_counter() - t0
+    fails = edlora_small_fails(errs)
+    n_u, n_t = len(s['gpu'].unet_sites), len(s['gpu'].text_sites)
+    log(f'# edlora_small {EDLORA_SMALL_SIZE}x{EDLORA_SMALL_SIZE}, SD-1.5 '
+        f'width 2D, {n_u} + {n_t} sites, rank {LORA_RANK}, alpha '
+        f'{EDLORA_ALPHA}: GPU bf16 vs CPU fp32 loss rel err '
+        f'{errs["loss"]:.3e} (tol {EDLORA_LOSS_TOL:.0e}), grads rel L2 '
+        f'embeddings {errs["grad_emb"]:.3e}, factors {errs["grad_lora"]:.3e}'
+        f' (tol {EDLORA_GRAD_TOL:.0e}); the trainer\'s two updates (clip '
+        f'norm {errs["clip_norm"]:.4e} a group) vs the restated optax on '
+        f'the card: change rel L2 {errs["update"]:.3e} (tol '
+        f'{EDLORA_UPDATE_TOL:.0e}); GPU {t_gpu:.2f} s (two passes, first '
+        f'calls), CPU {s["cpu_s"]:.1f} s '
+        f'{"FAIL " + str(fails) if fails else "ok"}')
+    report['edlora_small'] = errs
+    del s
+    torch.cuda.empty_cache()
+    if fails:
+        raise PhaseError(f'edlora_small: {fails} {json.dumps(errs)}')
+
+
+def write_concept_images(image_dir: Path, n: int, size: int,
+                         seed: int = SEED) -> None:
+    """n synthetic concept images, size x size PNG: a coloured disc at a
+    random place on uniform noise."""
+    import numpy as np
+    from videoswap_torch.utils.png import write_png
+    rs = np.random.RandomState(seed)
+    image_dir.mkdir(parents=True, exist_ok=True)
+    yy, xx = np.mgrid[0:size, 0:size]
+    for i in range(n):
+        img = rs.rand(size, size, 3) * 0.6
+        cy, cx = rs.uniform(0.3, 0.7, 2) * size
+        disc = (yy - cy) ** 2 + (xx - cx) ** 2 < (0.2 * size) ** 2
+        img[disc] = rs.rand(3)
+        write_png(str(image_dir / f'{i}.png'),
+                  (img * 255).round().astype(np.uint8))
+
+
+def edlora_run(tree: Path) -> dict:
+    """The ED-LoRA CLI (`videoswap_torch.train_edlora`) on EDLORA_YAML in
+    `tree`: the readings of the edlora phase's checks (with the LoRA init
+    and every frozen weight copied when the trainer is built), the step
+    times, peak memory and launches."""
+    from unittest import mock
+
+    import torch
+    from videoswap_torch import train_edlora as tcli
+    from videoswap_torch.edlora_train import EDLoRATrainer, param_groups
+    write_concept_images(tree / 'concepts', EDLORA_IMAGES, 512)
+    yml = tree / 'edlora_catA.yml'
+    yml.write_text(EDLORA_YAML.format(steps=EDLORA_STEPS,
+                                      images=EDLORA_IMAGES,
+                                      image_dir=tree / 'concepts'))
+    seen = {}
+
+    class Recording(EDLoRATrainer):
+        def __post_init__(self):
+            super().__post_init__()
+            seen['frozen'] = {
+                name: {k: v.detach().clone() for k, v in
+                       getattr(self, name).state_dict().items()}
+                for name in ('unet', 'text_encoder', 'vae')}
+
+        def init_train_params(self, generator, concept_emb, rank=4):
+            out = super().init_train_params(generator, concept_emb, rank)
+            seen['init'] = {k: [t.detach().clone() for t in v]
+                            for k, v in param_groups(out).items()}
+            return out
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() / 2 ** 30
+    reset_launches()
+    t0 = time.perf_counter()
+    with mock.patch.object(tcli, 'EDLoRATrainer', Recording):
+        out = tcli.train(str(tree), types.SimpleNamespace(
+            opt=str(yml), device='cuda', shard=None))
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    counts = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    trainer, tp = out['trainer'], out['train_params']
+    groups = param_groups(tp)
+    # the U-Net's factors and the text encoder's apart: {part: moved share}
+    n_unet = 2 * len(trainer.unet_sites)
+    moved = {}
+    for part, sl in (('embeddings', ('emb', slice(None))),
+                     ('unet factors', ('lora', slice(0, n_unet))),
+                     ('text factors', ('lora', slice(n_unet, None)))):
+        new = torch.cat([t.detach().flatten() for t in groups[sl[0]][sl[1]]])
+        old = torch.cat([t.flatten() for t in seen['init'][sl[0]][sl[1]]])
+        moved[part] = float((new != old).float().mean())
+    changed = [f'{name}.{k}' for name in seen['frozen']
+               for k, v in getattr(trainer, name).state_dict().items()
+               if not torch.equal(v, seen['frozen'][name][k])]
+    ckpt = out['checkpoints'][EDLORA_STEPS]
+    sd = torch.load(ckpt, map_location='cpu', weights_only=True)
+    want = {part: {f'{s.torch_key[:-len(".weight")]}.lora_{f}.weight'
+                   for s in sites for f in ('down', 'up')}
+            for part, sites in (('unet', trainer.unet_sites),
+                                ('text_encoder', trainer.text_sites))}
+    keys_ok = all(set(sd[p]) == want[p] for p in want)
+    cfg_file = Path(ckpt).parent / 'new_concept_cfg.json'
+    steps = out['step_s']
+    return {'losses': out['losses'], 'step_s': steps,
+            'mean_step_s': sum(steps[1:]) / max(len(steps) - 1, 1),
+            'total_s': total, 'peak_gib': peak, 'resident_gib': resident,
+            'launches': counts,
+            'launches_per_step': {k: v / EDLORA_STEPS
+                                  for k, v in counts.items() if v},
+            'sites': [len(trainer.unet_sites), len(trainer.text_sites)],
+            'moved': moved, 'frozen_changed': changed[:8],
+            'n_frozen_changed': len(changed), 'checkpoint': ckpt,
+            'checkpoint_keys_ok': keys_ok,
+            'new_concept_cfg': json.loads(cfg_file.read_text())
+            if cfg_file.is_file() else None,
+            'concept_rows': {k: list(v.shape) for k, v in
+                             sd['new_concept_embedding'].items()}}
+
+
+def edlora_reload(pipe, ckpt: str, alpha: float = 1.0) -> dict:
+    """The trained file through load_edlora_into_pipeline into the 3D
+    pipeline: every merged weight against W + alpha up @ down from the
+    file (the sum in fp32, rounded once to W's bf16, as the consumer's
+    docstring states), bit for bit; the concept's 16 rows registered; the
+    weights restored after."""
+    import torch
+    from videoswap_torch.edlora import (load_edlora_into_pipeline,
+                                        restore_pipeline)
+    from videoswap_torch.models.converters import clip_key_unmap
+    sd = torch.load(ckpt, map_location='cpu', weights_only=True)
+    # the concept's tokens go into a copy of the tokenizer: added to the
+    # pipeline's own, they would shift the ids of the later phases' concepts
+    tokenizer, pipe.tokenizer = pipe.tokenizer, copy.deepcopy(pipe.tokenizer)
+    ctx = load_edlora_into_pipeline(pipe, ckpt, alpha)
+    try:
+        worst, merged = 0.0, {}
+        for part, module, unmap in (('unet', pipe.unet, None),
+                                    ('text_encoder', pipe.text_encoder,
+                                     clip_key_unmap)):
+            n = 0
+            for key in sd[part]:
+                if not key.endswith('.lora_down.weight'):
+                    continue
+                base = key[:-len('.lora_down.weight')]
+                name = (unmap or (lambda k: k))(base + '.weight')
+                w0 = ctx[part][name]
+                down = sd[part][key].to(w0.device)
+                up = sd[part][base + '.lora_up.weight'].to(w0.device)
+                ref = (w0.float() + alpha * (
+                    up.reshape(up.shape[0], -1) @ down.reshape(
+                        down.shape[0], -1)).reshape(w0.shape)).to(w0.dtype)
+                got = module.get_parameter(name).detach()
+                worst = max(worst, float((got.float() - ref.float())
+                                         .abs().max()))
+                n += 1
+            merged[part] = n
+        rows = (pipe.extra_token_embeds.shape[0]
+                if pipe.extra_token_embeds is not None else 0)
+        concepts = sorted(pipe.new_concept_cfg or {})
+    finally:
+        restore_pipeline(pipe, ctx)
+        pipe.tokenizer = tokenizer
+    return {'merged': merged, 'max_abs_diff': worst, 'rows': rows,
+            'concepts': concepts}
+
+
+def edlora_fails(r) -> list:
+    fails = []
+    if not all(math.isfinite(v) for v in r['losses']):
+        fails.append('losses not finite')
+    fails += [f'{k} not moved' for k, v in r['moved'].items() if v <= 0]
+    if r['n_frozen_changed']:
+        fails.append('frozen weights changed')
+    if r['sites'] != list(EDLORA_SITES):
+        fails.append('sites')
+    if not r['checkpoint_keys_ok']:
+        fails.append('checkpoint keys')
+    rel = r['reload']
+    if rel['merged'] != {'unet': EDLORA_SITES[0],
+                         'text_encoder': EDLORA_SITES[1]} \
+            or rel['max_abs_diff'] != 0.0 or rel['rows'] != 16 \
+            or rel['concepts'] != ['catA1']:
+        fails.append('reload')
+    fails += [f'{n} not launched' for n in
+              ('flash_attention_fwd', 'flash_attention_bwd_dq',
+               'flash_attention_bwd_dkv', 'geglu_ffn', 'geglu_gate')
+              if r['launches'][n] <= 0]
+    return fails
+
+
+def phase_edlora(report, state):
+    import tempfile
+    import torch
+    with tempfile.TemporaryDirectory() as d:
+        r = edlora_run(Path(d))
+        torch.cuda.empty_cache()
+        r['reload'] = edlora_reload(state['pipe'], r['checkpoint'])
+    report['launches']['edlora'] = r['launches']
+    report['edlora'] = r
+    fails = edlora_fails(r)
+    log(f'# edlora (train_edlora CLI, {EDLORA_STEPS} steps at 512x512 '
+        f'bf16, SD-1.5 width 2D, rank {LORA_RANK}, sites unet '
+        f'{r["sites"][0]} text {r["sites"][1]}): s per step '
+        f'{" ".join(f"{v:.3f}" for v in r["step_s"])} (mean of steps 2-'
+        f'{EDLORA_STEPS} {r["mean_step_s"]:.4f} s; the first includes '
+        f'cuDNN algorithm selection), CLI total {r["total_s"]:.1f} s, peak '
+        f'{r["peak_gib"]:.2f} GiB (the {r["resident_gib"]:.2f} GiB this '
+        f'script held included); losses '
+        f'{" ".join(f"{v:.6f}" for v in r["losses"])}; launches a step '
+        f'{json.dumps(r["launches_per_step"])}')
+    log(f'# edlora checks: moved shares {json.dumps(r["moved"])}; frozen '
+        f'weights changed {r["n_frozen_changed"]}; checkpoint keys = sites '
+        f'{r["checkpoint_keys_ok"]}, concept rows '
+        f'{json.dumps(r["concept_rows"])}; reload into the 3D pipeline '
+        f'{json.dumps(r["reload"])} '
+        f'{"FAIL " + str(fails) if fails else "ok"}')
+    if fails:
+        raise PhaseError(f'edlora: {fails}')
+
+
 # ---------------------------------------------------------------- blended
 def blend_video(frames, size, seed):
     """A synthetic source video from the seed, (1, F, size, size, 3) in
@@ -2404,9 +2958,11 @@ def phase_dpm_small(report, state):
 def rewrite_yaml(text: str, values: dict, keep: dict) -> str:
     """A config's text with the value of each dotted key of `values` set
     (the `key: value` line at that nesting; a trailing comment goes with
-    the old value), and in each mapping `keep` names (dotted) only the
-    entry it keeps, the others' lines dropped."""
+    the old value; a key the file lacks is added as its parent mapping's
+    first entry), and in each mapping `keep` names (dotted) only the entry
+    it keeps, the others' lines dropped."""
     out, stack, drop_indent = [], [], None
+    parents, seen = {}, set()
     for line in text.splitlines():
         body = line.lstrip(' ')
         indent = len(line) - len(body)
@@ -2427,9 +2983,16 @@ def rewrite_yaml(text: str, values: dict, keep: dict) -> str:
             continue
         stack.append((indent, key))
         path = '.'.join(k for _, k in stack)
+        seen.add(path)
         if path in values:
             line = f'{" " * indent}{key}: {values[path]}'
         out.append(line)
+        parents.setdefault(path, (len(out), indent))
+    for path in [p for p in values if p not in seen][::-1]:
+        parent, _, leaf = path.rpartition('.')
+        at, indent = parents[parent]
+        out.insert(at, f'{" " * (indent + 2)}{leaf}: {values[path]}')
+        parents = {k: (i + (i >= at), d) for k, (i, d) in parents.items()}
     return '\n'.join(out) + '\n'
 
 
@@ -2626,6 +3189,8 @@ def recipe_config(root: Path, name: str, tree: Path, recipe=None,
         'path.pretrained_adapter_path': tree / 'adapter.pth',
         f'{sw}.lora_path': f'{tree / recipe["lora"]}---{recipe["alpha"]}',
         **recipe['values'], **(extra or {})}
+    if recipe.get('clip'):
+        values['path.clip_model_path'] = tree / CLIP_DIR
     text = rewrite_yaml(text, {k: str(v) for k, v in values.items()},
                         {'val.editing_config.editing_prompts': swap})
     head = ''.join(f'# {c}\n' for c in recipe['cuts'])
@@ -2642,6 +3207,8 @@ def recipe_run(name: str, tree: Path, written: dict,
     the stage times."""
     import numpy as np
     import torch
+    from videoswap_torch.pipelines.videoswap_pipeline import \
+        make_target_prompt
     from videoswap_torch.test import test
     from videoswap_torch.utils.config import load_config
     recipe = RECIPES[name]
@@ -2683,13 +3250,23 @@ def recipe_run(name: str, tree: Path, written: dict,
              **{f'{k}/frames_{k}': len(list(
                  (vis_dir / k / f'frames_{k}').glob('*.png')))
                 == len(frames) for k in ('source', swap, swap + '_vispoint')}}
+    if recipe.get('clip'):
+        files[f'{swap}_attention/cross_attention.png'] = (
+            vis_dir / f'{swap}_attention' / 'cross_attention.png').is_file()
+        files['clip_score source, swap'] = all(
+            'clip_score' in out['metrics'][k] for k in ('source', swap))
     return {'load': load, 'rel_err': err,
             'bit_equal': bool(np.array_equal(frames, ref)),
             'vispoint': vis, 'files': files, 'launches': counts,
             'timings': out['timings'], 'direct_s': t_direct,
             'resident_gib': resident,
             'shape': list(frames.shape), 'index_list': cond['index_list'],
-            'metrics': out['metrics']}
+            'metrics': out['metrics'], 'frames': frames,
+            'source_frames': ds.get_frames(), 'opt': out['opt'],
+            'tokenizer': pipe.tokenizer, 'prompts': {
+                'source': ds.prompt,
+                swap: make_target_prompt(ds.prompt, cfg['editing_prompts'][
+                    swap])}}
 
 
 def recipe_fails(r) -> list:
@@ -2714,6 +3291,7 @@ def make_recipe_tree(pipe, tree: Path) -> dict:
         {r['lora']: r['concepts'] for r in RECIPES.values()})
     write_clip(tree, RECIPE_FRAMES, SIZE,
                {r['tap']: r['frame_hw'] for r in RECIPES.values()})
+    write_clip_dir(tree / CLIP_DIR)
     return written
 
 
@@ -2741,6 +3319,10 @@ def phase_recipe(report, state):
     for name in RECIPES:
         r = recipe_run(name, tree, written)
         torch.cuda.empty_cache()
+        out = {k: r.pop(k) for k in ('frames', 'source_frames', 'prompts',
+                                     'opt', 'tokenizer')}
+        if RECIPES[name].get('clip'):
+            state['recipe_output'] = dict(out, metrics=r['metrics'])
         report['recipe'][name] = r
         report['launches'][f'recipe_{name}'] = r['launches']
         fails = recipe_fails(r)
@@ -2769,6 +3351,237 @@ def phase_recipe(report, state):
         if fails:
             raise PhaseError(f'recipe {name}: {fails}')
 
+
+
+# ---------------------------------------------------- CLIP and attention
+# the swap CLI's CLIP scorer: ViT-L/14 with CLIP-L's text tower (the sizes
+# of openai/clip-vit-large-patch14's config.json), random weights from a
+# seeded CPU generator (build_clip_scorer, no weights file), at 224x224
+CLIP_DIR = 'clip-vit-large-patch14'
+CLIP_CONFIG = {
+    'projection_dim': 768,
+    'vision_config': {'image_size': 224, 'patch_size': 14,
+                      'hidden_size': 1024, 'num_hidden_layers': 24,
+                      'num_attention_heads': 16, 'intermediate_size': 4096},
+    'text_config': {'vocab_size': 49408, 'hidden_size': 768,
+                    'num_hidden_layers': 12, 'num_attention_heads': 12,
+                    'max_position_embeddings': 77,
+                    'intermediate_size': 3072}}
+# clip_attn: the swap CLI's scorer (make_clip_scorer) on the card and on the
+# CPU, the same weights, fp32 both (TF32 off), on the 1009 recipe CLI run's
+# source and swap frames with its prompts and tokenizer (its concept tokens
+# included): the image and text embeddings (relative L2) and each score
+# (absolute, on the 0-100 scale; the towers' products sum in other orders),
+# and the CPU's scores against the clip_score values the CLI wrote to
+# metrics.json (rounded there to 3 decimals). The attention dumps: the maps
+# of a swap's summed stores (blend_small's swap at its 256x256, 2 frames,
+# BLEND_STEPS steps) must be probabilities over the 77 tokens (each row's
+# sum 1 within ATTN_ROW_TOL: bf16 maps, summed over the steps in fp32); the
+# one-pass dump of the same frames on the card (bf16) against the CPU
+# (fp32), relative L2 at MODEL_REL_TOL
+CLIP_EMBED_TOL = 1e-4
+CLIP_SCORE_TOL = 1e-2
+ATTN_ROW_TOL = 1e-2
+
+
+def write_clip_dir(path: Path, config: dict = CLIP_CONFIG) -> None:
+    """A CLIP directory that sizes the scorer (config.json) and holds no
+    weights: build_clip_scorer draws them from a fixed seed."""
+    path.mkdir(parents=True, exist_ok=True)
+    (path / 'config.json').write_text(json.dumps(config))
+
+
+def clip_inputs(state, d: str) -> dict:
+    """What clip_attn scores: the 1009 recipe CLI run's config, root,
+    tokenizer, videos ({'source': source frames, swap: swap frames}),
+    prompts and metrics.json when the recipe phase ran; else a synthetic
+    16-frame 512x512 source clip against BLEND_PROMPT, a CLIP directory
+    written into `d`, and no metrics."""
+    from videoswap_torch.utils.tokenizer import HashTokenizer
+    rec = state.get('recipe_output')
+    if rec is not None:
+        swap = RECIPES['1009']['swap']
+        return {'opt': rec['opt'], 'root': str(recipe_tree(state)[0]),
+                'tokenizer': rec['tokenizer'], 'prompts': rec['prompts'],
+                'videos': {'source': rec['source_frames'],
+                           swap: rec['frames']},
+                'metrics': rec['metrics'],
+                'source': 'the 1009 recipe CLI run'}
+    clip_dir = Path(d) / CLIP_DIR
+    write_clip_dir(clip_dir)
+    frames = ((blend_video(FRAMES, SIZE, SEED + 7)[0] + 1) * 127.5
+              ).round().astype('uint8')
+    return {'opt': {'path': {'clip_model_path': str(clip_dir)}}, 'root': d,
+            'tokenizer': HashTokenizer(), 'prompts': {'source': BLEND_PROMPT},
+            'videos': {'source': frames}, 'metrics': None,
+            'source': 'synthetic'}
+
+
+def clip_scorer(inputs: dict, device: str):
+    """The swap CLI's scorer of `inputs`' config on `device`."""
+    from videoswap_torch.test import make_clip_scorer
+    return make_clip_scorer(inputs['opt'], inputs['root'],
+                            inputs['tokenizer'], device)
+
+
+def clip_readings(scorer, inputs: dict) -> dict:
+    """A ClipScorer's embeddings (each video's image embeddings and its
+    prompt's text embedding, concatenated, on the CPU) and its score of
+    each video against its prompt."""
+    import torch
+    embeds, scores = [], {}
+    for key, prompt in inputs['prompts'].items():
+        img, txt = scorer.embeds(inputs['videos'][key], prompt)
+        embeds += [img.float().cpu(), txt.float().cpu()]
+        scores[key] = scorer.score(img, txt)
+    return {'embeds': torch.cat(embeds), 'scores': scores}
+
+
+def clip_errors(gpu_scorer, inputs: dict, ref: dict) -> dict:
+    """The card's embeddings and scores against the CPU's `ref`, and the
+    CPU's scores against the CLI's metrics.json where there is one."""
+    out = clip_readings(gpu_scorer, inputs)
+    keys = inputs['prompts']
+    errs = {'embeds_rel_err': rel_err(out['embeds'], ref['embeds']),
+            'score_abs_err': max(abs(out['scores'][k] - ref['scores'][k])
+                                 for k in keys),
+            'scores': out['scores'], 'ref_scores': ref['scores']}
+    metrics = inputs['metrics']
+    if metrics is not None:
+        errs['cli_scores'] = {k: metrics[k].get('clip_score') for k in keys}
+        errs['cli_score_abs_err'] = max(
+            abs(errs['cli_scores'][k] - ref['scores'][k])
+            if errs['cli_scores'][k] is not None else float('inf')
+            for k in keys)
+    return errs
+
+
+def clip_fails(errs) -> list:
+    return [k for k, tol in (('embeds_rel_err', CLIP_EMBED_TOL),
+                             ('score_abs_err', CLIP_SCORE_TOL),
+                             ('cli_score_abs_err', CLIP_SCORE_TOL))
+            if k in errs and not errs[k] <= tol]
+
+
+def attn_dump_run(pipe, lora: str, save_dir: str) -> dict:
+    """blend_small's swap (256x256, 2 frames, BLEND_STEPS steps, the
+    ED-LoRA file `lora`) through `validation` with visualize_attention:
+    the maps its dump aggregated from the summed stores, the heatmap strip
+    written, and the swap's frames."""
+    from unittest import mock
+
+    import numpy as np
+    frames, size = 2, 256
+    config = dict(blend_config(lora, True), visualize_attention=True)
+    seen = {}
+    real = pipe._dump_attention_maps
+
+    def dump(*args, **kw):
+        seen['summed'] = bool(kw.get('attn_sums'))
+        seen['maps'] = real(*args, **kw)
+        return seen['maps']
+
+    with mock.patch.object(pipe, '_dump_attention_maps', dump):
+        out = pipe.validation(blend_video(frames, size, SEED + 6),
+                              conditions(frames, size), BLEND_PROMPT, config,
+                              save_dir=save_dir, output_type='uint8')
+    strip = Path(save_dir) / 'man_to_hermione_attention' / \
+        'cross_attention.png'
+    return {'maps': np.asarray(seen['maps']), 'summed': seen['summed'],
+            'strip': strip.is_file(), 'frames': out['man_to_hermione']}
+
+
+def attn_row_error(maps) -> float:
+    """The largest |sum over the 77 tokens - 1| of a dump's maps."""
+    import numpy as np
+    return float(np.abs(maps.astype(np.float64).sum(-1) - 1.0).max())
+
+
+def attn_dump_fails(run) -> list:
+    """attn_dump_run's checks: the dump took the summed stores, wrote its
+    strip, and its maps are finite probabilities (rows summing to 1)."""
+    import numpy as np
+    ok = (run['summed'] and run['strip']
+          and bool(np.isfinite(run['maps']).all())
+          and attn_row_error(run['maps']) <= ATTN_ROW_TOL)
+    return [] if ok else ['attention summed maps']
+
+
+def phase_clip_attn(report, state):
+    import tempfile
+    import torch
+    pipe, cpu = state['pipe'], state['cpu']
+    r = {}
+    with tempfile.TemporaryDirectory() as d:
+        # the CLIP scorer: the recipe's source and swap (the 1009 swap
+        # through the CLI) when the recipe phase ran, else a synthetic clip
+        inputs = clip_inputs(state, d)
+        t0 = time.perf_counter()
+        cpu_scorer = clip_scorer(inputs, 'cpu')
+        t_build = time.perf_counter() - t0
+        gpu_scorer = clip_scorer(inputs, 'cuda')
+        t0 = time.perf_counter()
+        ref = clip_readings(cpu_scorer, inputs)
+        t_cpu = time.perf_counter() - t0
+        del cpu_scorer
+        clip_readings(gpu_scorer, inputs)                       # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        errs = clip_errors(gpu_scorer, inputs, ref)
+        torch.cuda.synchronize()
+        t_gpu = time.perf_counter() - t0
+        del gpu_scorer
+        torch.cuda.empty_cache()
+        shapes = {k: list(v.shape) for k, v in inputs['videos'].items()}
+        r['clip'] = dict(errs, videos=shapes, build_s=t_build, gpu_s=t_gpu,
+                         cpu_s=t_cpu)
+        fails = [f'clip {k}' for k in clip_fails(errs)]
+        cli = ('' if 'cli_scores' not in errs else
+               f', metrics.json {json.dumps(errs["cli_scores"])} vs CPU max '
+               f'abs err {errs["cli_score_abs_err"]:.3e} (tol '
+               f'{CLIP_SCORE_TOL:g})')
+        log(f'# clip_attn CLIP ViT-L/14 scorer (make_clip_scorer; '
+            f'{inputs["source"]}, videos {json.dumps(shapes)}): GPU vs CPU '
+            f'fp32 image and text embeddings rel L2 '
+            f'{errs["embeds_rel_err"]:.3e} (tol {CLIP_EMBED_TOL:.0e}), scores '
+            f'GPU {json.dumps(errs["scores"])} CPU '
+            f'{json.dumps(errs["ref_scores"])}, max abs err '
+            f'{errs["score_abs_err"]:.3e} (tol {CLIP_SCORE_TOL:g}){cli}; '
+            f'seconds: build (random init on the CPU) {t_build:.1f}, GPU '
+            f'scoring {t_gpu:.3f}, CPU scoring {t_cpu:.1f}')
+
+        # the attention dumps: the summed stores of blend_small's swap on
+        # the card, then the one-pass dump of its frames, card against CPU
+        lora = os.path.join(d, 'edlora_hermione.pth')
+        edlora_file(pipe, lora)
+        run = attn_dump_run(pipe, lora, os.path.join(d, 'attn'))
+        row_err = attn_row_error(run['maps'])
+        one = {}
+        for side, p in (('gpu', pipe), ('cpu', cpu)):
+            with torch.no_grad():
+                one[side] = p._dump_attention_maps(
+                    BLEND_PROMPT, run['frames'], 'one_pass',
+                    os.path.join(d, f'one_{side}'))
+        one_err = rel_err(torch.from_numpy(one['gpu']),
+                          torch.from_numpy(one['cpu']))
+        one_row_err = attn_row_error(one['gpu'])
+    r['attention'] = {'summed': run['summed'], 'strip': run['strip'],
+                      'shape': list(run['maps'].shape),
+                      'row_err': row_err, 'one_pass_rel_err': one_err,
+                      'one_pass_row_err': one_row_err}
+    report['clip_attn'] = r
+    fails += attn_dump_fails(run)
+    if not (one_err <= MODEL_REL_TOL and one_row_err <= ATTN_ROW_TOL):
+        fails.append('attention one pass')
+    log(f'# clip_attn attention dumps (blend_small\'s swap, '
+        f'visualize_attention): summed stores {run["summed"]}, strip '
+        f'written {run["strip"]}, maps {list(run["maps"].shape)}, rows\' '
+        f'|sum - 1| max {row_err:.3e} (tol {ATTN_ROW_TOL:g}); one pass on '
+        f'its frames GPU bf16 vs CPU fp32 rel L2 {one_err:.3e} (tol '
+        f'{MODEL_REL_TOL:g}), rows\' |sum - 1| {one_row_err:.3e} '
+        f'{"FAIL " + str(fails) if fails else "ok"}')
+    if fails:
+        raise PhaseError(f'clip_attn: {fails}')
 
 
 # ------------------------------------------------------------- train recipe
@@ -3152,7 +3965,7 @@ def phase_atlas(report, state):
         f'array {trainer.fused.numel() * 4 / 2 ** 30:.3f} GiB')
     gen = torch.Generator(device='cuda').manual_seed(SEED)
     reset_launches()
-    pre_iters = ATLAS_TRAIN['pretrain_UV_mapping_iter']
+    pre_iters = ATLAS_PRETRAIN_ITER
     pre = {}
     for name in ('FG_UV_Mapping', 'BG_UV_Mapping'):
         t0 = time.perf_counter()
@@ -4481,13 +5294,16 @@ def main() -> None:
                 if 'pipe' not in state:
                     state['pipe'] = build_pipeline('cuda', torch.bfloat16)
                 if phase in ('unet', 'small', 'dpm_small', 'train_small',
-                             'blend_small') and 'cpu' not in state:
+                             'blend_small', 'clip_attn') \
+                        and 'cpu' not in state:
                     state['cpu'] = cpu_copy(state['pipe'])
                 {'unrouted': phase_unrouted, 'unet': phase_unet,
                  'small': phase_small, 'dpm_small': phase_dpm_small,
                  'sample': phase_sample, 'train_small': phase_train_small,
-                 'train': phase_train, 'blend_small': phase_blend_small,
+                 'train': phase_train, 'edlora_small': phase_edlora_small,
+                 'edlora': phase_edlora, 'blend_small': phase_blend_small,
                  'blend': phase_blend, 'recipe': phase_recipe,
+                 'clip_attn': phase_clip_attn,
                  'train_recipe': phase_train_recipe,
                  'semantic_points': phase_semantic_points}[phase](
                     report, state)

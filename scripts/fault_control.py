@@ -182,6 +182,28 @@ card:
 - cotracker_tf32:     CoTracker on the card runs with TF32 products and
                       convolutions: its tracks against the CPU's.
 
+The ED-LoRA path's and the swap CLI's new faults, each planted on the card
+alone and run against the card's side of the check named for it (the
+CPU's references taken once: edlora_small's loss and gradients, the swap
+CLI's CLIP scorer's embeddings and scores of a synthetic 16-frame clip):
+
+- merge_drops_alpha:  the ED-LoRA trainer's merge on the card adds
+                      up @ down without alpha (edlora_small runs at alpha
+                      0.7 with non-zero factors): edlora_small's loss and
+                      gradients against the CPU's;
+- global_grad_clip:   the ED-LoRA trainer's update on the card clips every
+                      gradient by one global norm instead of each group by
+                      its own: edlora_small's update check (the trainer's
+                      two updates against the restated optax, both groups
+                      above the clip norm);
+- clip_unnormalised:  the CLIP scorer's preprocessing on the card skips
+                      the openai normalisation: clip_attn's embeddings and
+                      scores against the CPU's;
+- attn_sums_not_divided: the attention dump on the card shows the edit's
+                      summed maps without dividing them by the step count:
+                      clip_attn's check of the summed maps (probabilities
+                      whose rows sum to 1).
+
 The last three of the kernel faults are faults of the unrouted kernels,
 which no model path runs:
 the unrouted limits catch them, beside the kernel limit.
@@ -213,7 +235,9 @@ resume_fresh_adamw fails its resume check; the sound run passes the kernels phas
 shapes, and flash_partial_block_upper_rows fails it; the sound atlas
 recipe passes atlas_recipe's checks and each of its faults fails the check
 named for it; the sound semantic_points run passes its checks and each
-semantic-point fault fails the check named for it.
+semantic-point fault fails the check named for it; the sound ED-LoRA,
+CLIP and attention checks pass and each of their faults fails the check
+named for it.
 """
 
 from __future__ import annotations
@@ -729,6 +753,116 @@ def _cotracker_tf32():
         yield
 
 
+@contextlib.contextmanager
+def _merge_drops_alpha():
+    from videoswap_torch import edlora_train as et
+    real = et.merge_lora
+
+    def faulted(frozen, lora_params, sites, alpha):
+        on_card = any(p['up'].is_cuda for p in lora_params.values())
+        return real(frozen, lora_params, sites, 1.0 if on_card else alpha)
+    with mock.patch.object(et, 'merge_lora', faulted):
+        yield
+
+
+@contextlib.contextmanager
+def _global_grad_clip():
+    from videoswap_torch import edlora_train as et
+    real = et.EDLoRATrainer.update
+
+    def faulted(self, optimizer):
+        if not self.max_grad_norm or self.device.type != 'cuda':
+            return real(self, optimizer)
+        et.clip_by_global_norm_(
+            [p.grad for g in optimizer.param_groups for p in g['params']
+             if p.grad is not None], float(self.max_grad_norm))
+        optimizer.step()
+    with mock.patch.object(et.EDLoRATrainer, 'update', faulted):
+        yield
+
+
+@contextlib.contextmanager
+def _clip_unnormalised():
+    import torch
+
+    from videoswap_torch.models import clip_vision as cv
+    real = cv.preprocess_frames
+
+    def faulted(frames, image_size=224, device=None):
+        out = real(frames, image_size, device)
+        if not out.is_cuda:
+            return out
+        mean = torch.tensor(cv.CLIP_IMAGE_MEAN, device=out.device)
+        std = torch.tensor(cv.CLIP_IMAGE_STD, device=out.device)
+        return out * std + mean
+    with mock.patch.object(cv, 'preprocess_frames', faulted):
+        yield
+
+
+@contextlib.contextmanager
+def _attn_sums_not_divided():
+    from videoswap_torch.pipelines import VideoSwapPipeline
+    real = VideoSwapPipeline._dump_attention_maps
+
+    def faulted(self, *args, **kw):
+        if kw.get('attn_sums') and self.device.type == 'cuda':
+            kw['num_steps'] = 1
+        return real(self, *args, **kw)
+    with mock.patch.object(VideoSwapPipeline, '_dump_attention_maps',
+                           faulted):
+        yield
+
+
+# the ED-LoRA, CLIP and attention faults -> context managers planting
+# them, and the check that must catch each
+EDLORA_FAULTS = {
+    'sound': (contextlib.nullcontext, None),
+    'merge_drops_alpha': (_merge_drops_alpha, 'edlora_small'),
+    'global_grad_clip': (_global_grad_clip, 'edlora_small update'),
+    'clip_unnormalised': (_clip_unnormalised, 'clip'),
+    'attn_sums_not_divided': (_attn_sums_not_divided, 'attention'),
+}
+
+
+def edlora_clip_attn_rows(pipe) -> dict:
+    """The sound run, then each fault of EDLORA_FAULTS, against
+    edlora_small's checks, clip_attn's CLIP checks (the ViT-L/14 scorer on
+    a synthetic 16-frame 512x512 clip) and its check of the summed
+    attention maps (blend_small's swap): {fault: readings and the checks
+    that failed}."""
+    import os
+    import tempfile
+
+    import torch
+
+    s = cs.edlora_small_setup()
+    rows = {}
+    with tempfile.TemporaryDirectory() as d:
+        inputs = cs.clip_inputs({}, d)
+        ref = cs.clip_readings(cs.clip_scorer(inputs, 'cpu'), inputs)
+        gpu_scorer = cs.clip_scorer(inputs, 'cuda')
+        lora = os.path.join(d, 'edlora_hermione.pth')
+        cs.edlora_file(pipe, lora)
+        for name, (plant, _) in EDLORA_FAULTS.items():
+            with plant():
+                e = cs.edlora_small_errors(s['gpu'], s['cpu_ref'],
+                                           s['inputs'])
+                c = cs.clip_errors(gpu_scorer, inputs, ref)
+                a = cs.attn_dump_run(pipe, lora, os.path.join(d, name))
+            torch.cuda.empty_cache()
+            small = cs.edlora_small_fails(e)
+            fails = ((['edlora_small'] if set(small) - {'update'} else [])
+                     + (['edlora_small update'] if 'update' in small else [])
+                     + (['clip'] if cs.clip_fails(c) else [])
+                     + (['attention'] if cs.attn_dump_fails(a) else []))
+            rows[name] = {'edlora_small': e, 'clip': c,
+                          'attn_row_err': cs.attn_row_error(a['maps']),
+                          'fails': fails}
+            cs.log(f'# edlora/clip/attention {name}: '
+                   f'{json.dumps(rows[name])}')
+    return rows
+
+
 # the semantic-point faults -> context managers planting them, and the
 # semantic_points check that must catch each
 SP_FAULTS = {
@@ -1093,6 +1227,8 @@ def main() -> None:
         rows[name] = row
         cs.log(f'# {name}: {json.dumps(row)}')
     lora_dir.cleanup()
+    edlora = edlora_clip_attn_rows(pipe)
+    edlora_sound = edlora.pop('sound')
     recipe = recipe_rows(pipe, cpu)
     atlas_recipe = atlas_recipe_rows()
     atlas_recipe_sound = atlas_recipe.pop('sound')
@@ -1153,6 +1289,8 @@ def main() -> None:
             'atlas_recipe_fails']
     for name, row in sp.items():
         caught[name] = SP_FAULTS[name][1] in row['semantic_points_fails']
+    for name, row in edlora.items():
+        caught[name] = EDLORA_FAULTS[name][1] in row['fails']
     ok = not any(v for k, v in sound.items() if k.endswith('_fails')) \
         and not sound['recipe_shapes_error'] \
         and not recipe_sound['dpm_small_fails'] \
@@ -1160,6 +1298,7 @@ def main() -> None:
         and not train_recipe_sound['train_recipe_fails'] \
         and not atlas_recipe_sound['atlas_recipe_fails'] \
         and not sp_sound['semantic_points_fails'] \
+        and not edlora_sound['fails'] \
         and all(caught.values())
     print(json.dumps({'ok': ok, 'unet_tol': cs.MODEL_REL_TOL,
                       'small_tol': cs.SAMPLE_REL_TOL,
@@ -1198,6 +1337,14 @@ def main() -> None:
                           'unimatch': cs.SP_UNIMATCH_TOL},
                       'semantic_points_sound': sp_sound,
                       'semantic_points_faults': sp,
+                      'edlora_tols': {'loss': cs.EDLORA_LOSS_TOL,
+                                      'grad': cs.EDLORA_GRAD_TOL,
+                                      'update': cs.EDLORA_UPDATE_TOL,
+                                      'clip_embeds': cs.CLIP_EMBED_TOL,
+                                      'clip_score': cs.CLIP_SCORE_TOL,
+                                      'attn_row': cs.ATTN_ROW_TOL},
+                      'edlora_sound': edlora_sound,
+                      'edlora_faults': edlora,
                       'caught': caught}), flush=True)
     sys.exit(0 if ok else 1)
 

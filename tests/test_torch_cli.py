@@ -7,14 +7,17 @@ The experiment tree is chip_smoke.py's (`write_experiment_tree`,
 under the deprecated names), a generated CLIP vocabulary, the adapter's
 `.pth`, an ED-LoRA file, PNG frames and two TAP.pth files. The config has
 two swaps: one with its own `tap_path` (the second TAP file) and the
-DPM-Solver++ sampler, one with `select_point`; `visualize_point` on.
+DPM-Solver++ sampler, one with `select_point`; `visualize_point` and
+`visualize_attention` on, and `path.clip_model_path` a CLIP directory
+(relative to the root) with a tiny config.json and no weights.
 
 The CLI's frames must equal, bit for bit, those of `validation` called
 directly on the CLI's models (the same arithmetic on the same CPU); every
 tensor must load as written (0 missing, 0 unused); each swap's `_vispoint`
 frames may differ from its frames only inside the discs of its own
 conditions' visible, selected points (chip_smoke.vispoint_errors); the
-frame files and metrics.json must be written.
+frame files, metrics.json (with CLIP scores of the source and each swap)
+and each swap's attention heatmaps must be written.
 """
 
 import importlib.util
@@ -75,6 +78,7 @@ models:
 path:
   pretrained_model_path: {tree}/pretrained
   pretrained_adapter_path: {tree}/adapter.pth
+  clip_model_path: clip
 val:
   save_type: frame
   editing_config:
@@ -82,6 +86,7 @@ val:
     use_blend: false
     guidance_scale: 7.5
     visualize_point: True
+    visualize_attention: true
     editing_prompts:
       man_to_hermione:
         replace: man -> <hermione1> <hermione2>
@@ -97,6 +102,17 @@ val:
     t2i_guidance_scale: 0.5
     t2i_end: 0.5
 """
+
+
+# a CLIP directory's config.json at a tiny size (random weights)
+TINY_CLIP = {
+    'projection_dim': 16,
+    'vision_config': {'image_size': 28, 'patch_size': 14, 'hidden_size': 32,
+                      'num_hidden_layers': 1, 'num_attention_heads': 4,
+                      'intermediate_size': 64},
+    'text_config': {'vocab_size': 49408, 'hidden_size': 32,
+                    'num_hidden_layers': 1, 'num_attention_heads': 4,
+                    'max_position_embeddings': 77, 'intermediate_size': 64}}
 
 
 def _chip_smoke():
@@ -121,6 +137,7 @@ def run(tmp_path_factory):
         cs.write_clip(tree, CLIP_FRAMES, 72, {'TAP.pth': (H, W),
                                               'TAP_other.pth': (H, W)},
                       emb=12)
+        cs.write_clip_dir(tree / 'clip', TINY_CLIP)
         yml = tree / 'tiny_cli.yml'
         yml.write_text(CONFIG.format(tree=tree, root=ROOT, frames=FRAMES,
                                      h=H, w=W, clip_frames=CLIP_FRAMES))
@@ -239,3 +256,18 @@ def test_recipe_fault_plants_reach_the_cli_path(fault, module, name):
     with fc.RECIPE_FAULTS[fault]():
         assert getattr(mod, name) is not sound
     assert getattr(mod, name) is sound
+
+
+def test_cli_dumps_attention_and_scores_clip(run):
+    """visualize_attention writes each swap's heatmap strip (the one-pass
+    dump: the config has no latent blend); clip_model_path scores the
+    source and each swap, not the overlays."""
+    _, _, _, out, _ = run
+    vis = Path(out['opt']['path']['visualization'])
+    metrics = out['metrics']
+    for key in ('man_to_hermione', 'man_to_dog'):
+        assert (vis / f'{key}_attention' / 'cross_attention.png').is_file()
+        assert 0.0 <= metrics[key]['clip_score'] <= 100.0
+        assert 'clip_score' not in metrics[key + '_vispoint']
+    assert 'clip_score' in metrics['source']
+    assert 'metrics' in out['timings']

@@ -22,6 +22,10 @@ spatial-attention kernel (outputs O(1), one bf16 rounding of the
 exponentials and of the output) is held to 1e-2; the fused GroupNorm-SiLU
 convolution, whose outputs reach ~5 and whose bf16 activations are summed
 over 9 Cin products in another order, to 1e-2 of the largest |plain| entry.
+At the ED-LoRA path's batch-1 shapes (B.H = 8) the flash kernels and GEGLU
+are held to the same limits, and GEGLU's autograd gradients (the weights'
+too, which ED-LoRA's 'full' scope trains) to 2e-2 of each gradient's
+largest entry (bf16 products summed over N or 4C).
 """
 
 import numpy as np
@@ -985,3 +989,44 @@ def test_unrouted_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):
         tgc.gn_silu_conv_kernel(many, scale.expand(65536, 64),
                                 shift.expand(65536, 64), weight, bias)
+
+
+# the ED-LoRA path's shapes: one 512x512 image, 8 heads (B.H = 8), each
+# U-Net level's self-attention and cross-attention (Sk = 77) and its GEGLU
+# rows
+EDLORA_ATTN = [(s, sk, d) for s, d in ((4096, 40), (1024, 80), (256, 160),
+                                       (64, 160)) for sk in (s, 77)]
+
+
+@pytest.mark.parametrize('s,sk,d', EDLORA_ATTN)
+def test_flash_kernels_at_the_edlora_shapes(cuda, s, sk, d):
+    q = _randn((1, s, 8, d), 1).to(cuda).bfloat16()
+    k, v = (_randn((1, sk, 8, d), seed).to(cuda).bfloat16()
+            for seed in (2, 3))
+    out, _ = tfa.flash_attention_fwd(q, k, v)
+    ref, _ = tfa.flash_attention_plain(q.float(), k.float(), v.float())
+    assert (out.float() - ref).abs().max().item() < 1e-2
+    dout = _randn((1, s, 8, d), 4).to(cuda).bfloat16()
+    _backward_matches_plain(q, k, v, dout)
+
+
+@pytest.mark.parametrize('n,c', [(4096, 320), (1024, 640), (256, 1280),
+                                 (64, 1280)])
+def test_geglu_at_the_edlora_shapes(cuda, n, c):
+    """The forward by its width's route, and the autograd Function's
+    gradients, the weights' too (ED-LoRA's 'full' scope trains factors on
+    both FFN products), against autograd through the fp32 plain version,
+    relative to each gradient's largest entry."""
+    args = _geglu_args(n, c, cuda)
+    out = tgf.geglu_ffn(*args)
+    ref = tgf.geglu_ffn_plain(*(a.float() for a in args))
+    assert (out.float() - ref).abs().max().item() < 3e-2
+    xs = [a.detach().requires_grad_() for a in args]
+    dout = _randn((n, c), 5).to(cuda).bfloat16()
+    grads = torch.autograd.grad(tgf.geglu_ffn(*xs), xs, dout)
+    refs = [a.detach().float().requires_grad_() for a in args]
+    ref_grads = torch.autograd.grad(tgf.geglu_ffn_plain(*refs), refs,
+                                    dout.float())
+    for name, g, r in zip(('x', 'w1', 'b1', 'w2', 'b2'), grads, ref_grads):
+        assert g.dtype == torch.bfloat16, name
+        assert _close(g, r, 2e-2), name

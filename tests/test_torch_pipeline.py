@@ -201,9 +201,12 @@ def test_rescale_noise_cfg_matches_jax():
 def test_sample_refuses_what_is_not_ported(pipes):
     _, tpipe = pipes
     video = np.zeros((1, F, 64, 64, 3), np.float32)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
+    # visualize_attention is ported: it draws on decoded frames, so a
+    # latent output is refused before any work
+    with pytest.raises(ValueError, match="output_type must not be 'latent'"):
         tpipe.validation(video, None, 'a cat', {'visualize_attention': True,
-                                               'editing_prompts': {}})
+                                               'editing_prompts': {}},
+                         save_dir='unused', output_type='latent')
     with pytest.raises(ValueError, match='unknown sampler'):
         tpipe.sample('a cat', F, 64, 64, num_inference_steps=1,
                      sampler='euler')

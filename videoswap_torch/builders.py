@@ -32,6 +32,9 @@ that a key names and that is missing raises.
 `load_train_state` keep the adapter, the AdamW state and the step in one
 torch file (the JAX package's are flax's msgpack and a pickle).
 
+`build_clip_scorer` builds the swap CLI's CLIP scorer (both CLIP towers
+and their projections) from a local CLIP directory.
+
 `build_atlas_nets` builds the layered-neural-atlas nets of an atlas
 config's `models` block the same way; `save_atlas_checkpoint` and
 `load_atlas_checkpoint` write and read them as one torch file of flat
@@ -295,6 +298,64 @@ def build_models(opt: dict, root_path: str = '.',
         load_report.update(report)
     return dict(models, sched=schedule_from_opt(unet_opt, root_path),
                 tokenizer=load_tokenizer(pre))
+
+
+def build_clip_scorer(path: str,
+                      device: Optional[str | torch.device] = None):
+    """An openai/clip-vit-large-patch14-style directory -> a
+    `CLIPWithProjection` in eval mode, fp32 on `device` (None means
+    'cuda'). Sized from its config.json (`vision_config`, `text_config`,
+    `projection_dim`; ViT-L/14 without one); loads `pytorch_model.bin` (or
+    `model.bin`) when it is there, every key (a missing or an unused one
+    raises), else draws random weights from a CPU generator seeded with 0
+    (the same on every device) and logs that the scores are those of a
+    random model."""
+    from videoswap_torch.models.clip_vision import (CLIPVisionConfig,
+                                                    CLIPWithProjection)
+    logger = get_logger()
+    vc, tc, proj = {}, {}, 768
+    cfg_file = os.path.join(path, 'config.json')
+    if os.path.isfile(cfg_file):
+        with open(cfg_file) as f:
+            c = json.load(f)
+        vc = c.get('vision_config', {})
+        tc = c.get('text_config', {})
+        proj = c.get('projection_dim', 768)
+    vision_cfg = CLIPVisionConfig(
+        image_size=vc.get('image_size', 224),
+        patch_size=vc.get('patch_size', 14),
+        hidden_size=vc.get('hidden_size', 1024),
+        num_layers=vc.get('num_hidden_layers', 24),
+        num_heads=vc.get('num_attention_heads', 16),
+        intermediate_size=vc.get('intermediate_size', 4096),
+        projection_dim=proj)
+    text_cfg = CLIPTextConfig(
+        vocab_size=tc.get('vocab_size', 49408),
+        hidden_size=tc.get('hidden_size', 768),
+        num_layers=tc.get('num_hidden_layers', 12),
+        num_heads=tc.get('num_attention_heads', 12),
+        max_position_embeddings=tc.get('max_position_embeddings', 77),
+        intermediate_size=tc.get('intermediate_size', 3072))
+    model = CLIPWithProjection(vision_cfg, text_cfg)
+    weights = next((os.path.join(path, n) for n in ('pytorch_model.bin',
+                                                    'model.bin')
+                    if os.path.isfile(os.path.join(path, n))), None)
+    if weights is not None:
+        missing, unused = converters.load_normalized(
+            model, converters.load_torch_file(weights),
+            key_map=converters.clip_full_key_unmap)
+        if missing or unused:
+            raise KeyError(f'{weights}: {len(missing)} missing keys '
+                           f'{missing[:5]}, {len(unused)} unused keys '
+                           f'{unused[:5]}')
+        logger.info(f'loaded CLIP scorer weights from {weights}')
+    else:
+        init_weights(model, torch.Generator().manual_seed(0))
+        logger.warning(f'no CLIP weights at {path}; the scorer is '
+                       'random-init (a run without checkpoints: its scores '
+                       'are not comparable across runs)')
+    device = torch.device('cuda' if device is None else device)
+    return model.to(device).eval().requires_grad_(False)
 
 
 def build_atlas_nets(models_opt: dict,

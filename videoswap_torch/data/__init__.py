@@ -1,3 +1,4 @@
+from .concept_dataset import ConceptImageDataset
 from .frame_point_dataset import SingleVideoPointDataset
 from .transforms import build_transform
 
@@ -10,4 +11,5 @@ def build_dataset(opt: dict):
     return DATASET_REGISTRY.get(opt.pop('type'))(opt)
 
 
-__all__ = ['SingleVideoPointDataset', 'build_transform', 'build_dataset']
+__all__ = ['ConceptImageDataset', 'SingleVideoPointDataset',
+           'build_transform', 'build_dataset']

@@ -17,11 +17,14 @@ that a run trained in the JAX package continues in the port.
 
 Checkpoint files (videoswap_tpu/models/converters.py's families: the
 diffusers SD-1.5 directory, AnimateDiff's `mm_sd_v14.ckpt`, the trained
-adapter's `.pth`, ED-LoRA files) carry the same diffusers and transformers
-keys, so loading one is a key normalisation (`merge_motion_module`,
-`normalize_vae_keys`, `clip_key_unmap`) and a `load_state_dict`
-(`load_normalized`), which reports the missing and unused keys as the JAX
-package's non-strict conversion logs them.
+adapter's `.pth`, ED-LoRA files, a CLIP scorer's transformers CLIPModel
+`pytorch_model.bin`) carry the same diffusers and transformers keys, so
+loading one is a key normalisation (`merge_motion_module`,
+`normalize_vae_keys`, `clip_key_unmap`, `clip_full_key_unmap`) and a
+`load_state_dict` (`load_normalized`), which reports the missing and unused
+keys as the JAX package's non-strict conversion logs them. The ED-LoRA
+trainer's parameters have one layout in both packages
+(`edlora_train_params_from_jax`).
 """
 
 from __future__ import annotations
@@ -50,9 +53,11 @@ _EMBED_LEAVES = ('token_embedding', 'position_embedding')
 _VAE_LEGACY_ATTN = {'.query.': '.to_q.', '.key.': '.to_k.',
                     '.value.': '.to_v.', '.proj_attn.': '.to_out.0.'}
 # keys a checkpoint may carry that no module loads: the motion modules'
-# sinusoidal tables (computed, not stored), CLIP's position-id buffer,
-# BatchNorm counters (the JAX package's conversion skips the same)
-_IGNORED_SUFFIXES = ('.pe', 'position_ids', 'num_batches_tracked')
+# sinusoidal tables (computed, not stored), CLIP's position-id buffer and
+# logit scale, BatchNorm counters (the JAX package's conversion skips the
+# same)
+_IGNORED_SUFFIXES = ('.pe', 'position_ids', 'num_batches_tracked',
+                     'logit_scale')
 
 
 def flax_path_to_torch_key(path: tuple[str, ...]) -> str:
@@ -150,6 +155,37 @@ def clip_key_unmap(key: str) -> str:
         if key.startswith(prefix):
             return key[len(prefix):]
     return key
+
+
+_VISION_EMBED_PREFIXES = ('vision_model.embeddings.',
+                          'vision_model.encoder.')
+
+
+def clip_full_key_unmap(key: str) -> str:
+    """A transformers CLIPModel key -> the port's CLIPWithProjection key:
+    the text tower's through `clip_key_unmap` under 'text_model.', the
+    vision tower's with its 'embeddings.' and 'encoder.' levels dropped,
+    the projections as they are."""
+    if key.startswith('text_model.'):
+        return 'text_model.' + clip_key_unmap(key)
+    for prefix in _VISION_EMBED_PREFIXES:
+        if key.startswith(prefix):
+            return 'vision_model.' + key[len(prefix):]
+    return key
+
+
+def edlora_train_params_from_jax(train_params: Mapping) -> dict:
+    """The JAX package's ED-LoRA train params ({'concept_emb': {name:
+    [16, D]}, 'unet_lora' / 'text_lora': {torch key: {'down': [r, I],
+    'up': [O, r]}}}, numpy or JAX arrays) as fp32 tensors: the layout is
+    the same in both packages."""
+    def t(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32))
+    return {'concept_emb': {k: t(v) for k, v in
+                            train_params['concept_emb'].items()},
+            **{part: {key: {'down': t(p['down']), 'up': t(p['up'])}
+                      for key, p in train_params[part].items()}
+               for part in ('unet_lora', 'text_lora')}}
 
 
 def merge_motion_module(unet_sd: dict, motion_sd: dict) -> dict:

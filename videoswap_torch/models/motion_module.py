@@ -75,7 +75,8 @@ class TemporalTransformerBlock(nn.Module):
         if f > self.max_len:
             raise ValueError(
                 f'temporal sequence {f} exceeds positional-encoding max_len '
-                f'{self.max_len}; windowed long video is not ported yet')
+                f'{self.max_len}; windowed long video is not ported yet '
+                '(ROADMAP.md Queue 1 item 4)')
         pe = self.pe[:f].to(x.dtype)
         for attn, norm in zip(self.attention_blocks, self.norms):
             x = attn(norm(x) + pe[None]) + x

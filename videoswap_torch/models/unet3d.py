@@ -255,7 +255,8 @@ class AnimateDiffUNet3DModel(nn.Module):
         super().__init__()
         if cfg.motion_window is not None:
             raise NotImplementedError(
-                'windowed motion modules are not ported yet (ROADMAP.md)')
+                'windowed motion modules are not ported yet (ROADMAP.md '
+                'Queue 1 item 4)')
         self.cfg = cfg
         chans = tuple(cfg.block_out_channels)
         temb_dim = chans[0] * 4
@@ -311,7 +312,8 @@ class AnimateDiffUNet3DModel(nn.Module):
         if mode in ('save_flash', 'edges_sf'):
             raise NotImplementedError(
                 f'gradient_checkpointing={mode!r} needs a selective '
-                'checkpoint policy and is not ported yet (ROADMAP.md)')
+                'checkpoint policy and is not ported yet (ROADMAP.md Queue 1 '
+                'item 4)')
         if mode not in (False, True, 'edges'):
             raise ValueError(f'unknown gradient_checkpointing: {mode!r}')
         top = len(self.down_blocks) - 1

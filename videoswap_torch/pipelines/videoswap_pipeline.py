@@ -14,13 +14,16 @@ source video and stores, per step, the latents and exactly the attention
 maps the edits will read; each swap then loads its ED-LoRA concept
 (edlora.py), builds an `EditBundle` (p2p/edit.py) and runs `sample` with
 cross/self replacement inside the U-Net and latent blending after each
-step, and restores the weights.
+step, and restores the weights. With `visualize_attention`, each swap's
+cross-attention heatmaps are written beside its frames
+(`_dump_attention_maps`, p2p/visualization.py).
 """
 
 from __future__ import annotations
 
 import copy
 import functools
+import os
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
@@ -204,7 +207,8 @@ class VideoSwapPipeline:
                output_type: str = 'pil',
                sampler: str = 'ddim',
                callback: Optional[Callable[[int, torch.Tensor, torch.Tensor],
-                                           None]] = None):
+                                           None]] = None,
+               return_attn_sums: bool = False):
         """CFG DDIM sampling with point-adapter residual guidance and, with
         an `edit_bundle`, prompt-to-prompt control and latent blending (the
         reference `__call__`). `latents` (1, F, h, w, 4) start the loop
@@ -214,7 +218,9 @@ class VideoSwapPipeline:
         quantisation undone), 'uint8' (frames (F, H, W, 3)) or 'pil' (list
         of frames). sampler: 'ddim' or
         'dpmpp_2m' (DPM-Solver++(2M), schedulers/dpm.py, on the same
-        timestep grid)."""
+        timestep grid). With `return_attn_sums`, returns (output, sums):
+        the edit's stored target maps at the blend sites summed over the
+        steps, {site: (F, heads, S, 77)} (empty without an edit bundle)."""
         if sampler not in ('ddim', 'dpmpp_2m'):
             raise ValueError(f'unknown sampler {sampler!r}: ddim or '
                              'dpmpp_2m')
@@ -281,18 +287,21 @@ class VideoSwapPipeline:
             if callback is not None:
                 callback(i, t_dev, lat)
 
+        def wrap(out):
+            return (out, sums) if return_attn_sums else out
+
         if output_type == 'latent':
-            return lat
+            return wrap(lat)
         img = self.vae.decode_video(lat.float())
         # quantise on the device: a 4x smaller copy to the host
         video = torch.clamp(torch.round((img.float() + 1.0) * 127.5), 0, 255
                             ).to(torch.uint8).cpu().numpy()
         if output_type == 'np':
-            return video.astype(np.float32) / 127.5 - 1.0
+            return wrap(video.astype(np.float32) / 127.5 - 1.0)
         if output_type == 'uint8':
-            return video[0]
+            return wrap(video[0])
         from PIL import Image
-        return [Image.fromarray(f) for f in video[0]]
+        return wrap([Image.fromarray(f) for f in video[0]])
 
     def _edited_unet(self, ecfg, bundle, step, i, inp, t_dev, text, kw):
         """One U-Net call under the edit controller: (eps, this step's
@@ -322,6 +331,43 @@ class VideoSwapPipeline:
         return eps, {k: (m[f:] if ecfg.do_cfg else m)
                      for k, m in store.items()}
 
+    # ------------------------------------------------------- attention dumps
+    @torch.no_grad()
+    def _dump_attention_maps(self, prompt: str, frames, key: str,
+                             save_dir: str, attn_sums=None,
+                             num_steps: int = 50):
+        """A finished swap's cross-attention heatmaps under
+        `save_dir/<key>_attention/` (the reference's visualize_attention).
+        With `attn_sums` (the edit's stored target maps at the blend sites,
+        summed over its steps) the maps are their mean over the steps;
+        without them (a swap without stores) one U-Net pass on the encoded
+        result at t = 261 stores every cross-attention site's. Returns the
+        heatmaps' (res_y, res_x, 77) array at the blend sites' resolution,
+        or None when the latent has no blend site."""
+        from videoswap_torch.p2p import sites as p2p_sites
+        from videoswap_torch.p2p.visualization import (aggregate_attention,
+                                                       show_cross_attention)
+        pixels = torch.as_tensor(video_pixels(frames)).to(self.device,
+                                                          torch.float32)
+        h8, w8 = pixels.shape[2] // 8, pixels.shape[3] // 8
+        if attn_sums:
+            store = {name: a.float() / num_steps
+                     for name, a in attn_sums.items()}
+        else:
+            ctrl = AttnCtrl(mode='store',
+                            store_filter=lambda site, q: site.kind == 'cross')
+            text = self.encode_prompt([prompt])
+            lat = self.vae.encode_video(pixels).to(text.dtype)
+            _, store = self.unet(lat, torch.tensor(261, device=self.device),
+                                 text, ctrl=ctrl)
+        blend = p2p_sites.blend_sites(h8, w8)
+        if not blend:
+            return None
+        ry, rx = p2p_sites.site_hw(blend[0], h8, w8)
+        show_cross_attention(self.tokenizer, prompt, store, ry, rx,
+                             os.path.join(save_dir, f'{key}_attention'))
+        return aggregate_attention(store, ry, rx)
+
     # ------------------------------------------------------------ validation
     def validation(self, source_video, source_conditions, source_prompt,
                    editing_config: dict, train_dataset=None, save_dir=None,
@@ -343,17 +389,20 @@ class VideoSwapPipeline:
         the JAX package always returns PIL frames; the default is the
         same). `callback(stage, i, t, latents)` runs after every step of
         the inversion (stage 'invert') and of each swap (stage = the
-        swap's key). `visualize_attention` (the attention-map dumps) is not
-        ported yet and raises."""
+        swap's key). With `visualize_attention` and a `save_dir`, each
+        swap's cross-attention heatmaps are written under
+        `save_dir/<swap>_attention/` (`_dump_attention_maps`: the edit's
+        summed maps with `use_blend`, else one U-Net pass on the result);
+        the frames must then be decoded (`output_type` not 'latent')."""
         cfg = editing_config
         use_inv = cfg.get('use_invertion_latents', True)
         use_blend = cfg.get('use_blend', False)
         steps = cfg.get('num_inference_steps', 50)
-        if cfg.get('visualize_attention'):
-            raise NotImplementedError(
-                'visualize_attention is not ported yet: the attention-map '
-                'dumps (_dump_attention_maps, p2p/visualization.py, '
-                'sample(return_attn_sums=)) are ROADMAP.md Queue 1 item 2')
+        dump_attention = bool(cfg.get('visualize_attention')
+                              and save_dir is not None)
+        if dump_attention and output_type == 'latent':
+            raise ValueError("visualize_attention draws on the decoded "
+                             "frames: output_type must not be 'latent'")
         if cfg.get('visualize_point') and output_type != 'uint8':
             raise ValueError("visualize_point draws on uint8 frames: "
                              "output_type='uint8'")
@@ -429,7 +478,8 @@ class VideoSwapPipeline:
                         estate['src_text'] = per_step['src_text']
                         estate['inv_unet'] = (lora_ctx['unet'] if lora_ctx
                                               is not None else {})
-                results[key] = self.sample(
+                want_sums = dump_attention and edit_bundle is not None
+                frames = self.sample(
                     prompt=target_prompt, video_length=video_length,
                     height=height, width=width, num_inference_steps=steps,
                     guidance_scale=guidance_scale,
@@ -447,10 +497,19 @@ class VideoSwapPipeline:
                     sampler=swap_cfg.get('sampler',
                                          cfg.get('sampler', 'ddim')),
                     callback=(None if callback is None
-                              else functools.partial(callback, key)))
+                              else functools.partial(callback, key)),
+                    return_attn_sums=want_sums)
+                attn_sums = None
+                if want_sums:
+                    frames, attn_sums = frames
+                results[key] = frames
                 if conditions is not None and cfg.get('visualize_point'):
                     results[key + '_vispoint'] = overlay_points(
                         results[key], conditions)
+                if dump_attention:
+                    self._dump_attention_maps(target_prompt, frames, key,
+                                              save_dir, attn_sums=attn_sums,
+                                              num_steps=steps)
             finally:
                 if lora_ctx is not None:
                     restore_pipeline(self, lora_ctx)

@@ -4,17 +4,21 @@
 It loads the config, builds the dataset (a frame directory and its TAP.pth)
 and the models (the diffusers SD-1.5 directory, the AnimateDiff motion
 module, the trained adapter), registers the persistent ED-LoRA concepts,
-runs `VideoSwapPipeline.validation` over the config's editing prompts,
-writes the source video, every swap and its `_vispoint` overlay under
-`results/<name>/visualization/`, and `metrics.json` beside them. It runs on
+runs `VideoSwapPipeline.validation` over the config's editing prompts
+(with `visualize_attention`, each swap's cross-attention heatmaps under
+`<swap>_attention/`), writes the source video, every swap and its
+`_vispoint` overlay under `results/<name>/visualization/`, and
+`metrics.json` beside them: PSNR and temporal consistency, and with
+`path.clip_model_path` (a local CLIP directory) the CLIP score of the source
+against its prompt and of each swap against its target prompt. It runs on
 the GPU unless `--device cpu` is given, and logs the wall-clock of each
 stage: load, dataset, inversion, each swap (its steps and the VAE decode
-inside it) and save, and the run's peak device memory (above what the
-calling process held on the card when the run started).
+inside it), save and metrics (with the CLIP scorer's build), and the
+run's peak device memory (above what the calling process held on the card
+when the run started).
 
-Not ported: `--shard` (multi-device inference) and the CLIP scorer of
-`path.clip_model_path` (ROADMAP.md Queue 1 items 9 and 8); a config or a
-command line that asks for either is refused.
+Not ported: `--shard` (multi-device inference, ROADMAP.md Queue 1 item 9);
+a command line that asks for it is refused.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import torch
 from videoswap_torch.builders import MIXED_PRECISION, build_models
 from videoswap_torch.data import build_dataset
 from videoswap_torch.pipelines import VideoSwapPipeline
+from videoswap_torch.pipelines.videoswap_pipeline import make_target_prompt
 from videoswap_torch.utils.config import cfg_get, load_config, resolve_path
 from videoswap_torch.utils.device import cli_device
 from videoswap_torch.utils.logger import dict2str, get_logger, \
@@ -46,14 +51,72 @@ def _to_float_video(frames) -> np.ndarray:
     return frames.astype(np.float32) / 255.0
 
 
-def report_metrics(source_video, results: dict, save_dir: str) -> dict:
+class ClipScorer:
+    """CLIP(frames, prompt): 100 * max(0, cos) of each frame's image
+    embedding with the prompt's text embedding, averaged over the frames.
+    `embeds` and `score` are its two halves, so that a caller can hold the
+    embeddings and the score of one call against another device's."""
+
+    def __init__(self, model, tokenizer, device):
+        self.model, self.tokenizer, self.device = model, tokenizer, device
+
+    @torch.no_grad()
+    def embeds(self, frames, prompt: str):
+        """uint8 (F, H, W, 3) frames and a prompt -> (image embeddings
+        [F, D], text embeddings [1, D]), each of unit length."""
+        from videoswap_torch.models import clip_vision
+        pix = clip_vision.preprocess_frames(
+            _to_float_video(frames), self.model.vision_cfg.image_size,
+            self.device)
+        ids = self.tokenizer(prompt, padding='max_length', truncation=True,
+                             max_length=77).input_ids
+        # ED-LoRA concept tokens (ids >= vocab) are unknown to plain CLIP
+        ids = np.minimum(np.asarray(ids, np.int64),
+                         self.model.text_cfg.vocab_size - 1)
+        return (self.model.image_embeds(pix),
+                self.model.text_embeds(torch.as_tensor(ids,
+                                                       device=self.device)))
+
+    @staticmethod
+    def score(img, txt) -> float:
+        return float(((img @ txt[0]).clamp_min(0.0) * 100.0).mean())
+
+    def __call__(self, frames, prompt: str) -> float:
+        return self.score(*self.embeds(frames, prompt))
+
+
+def make_clip_scorer(opt: dict, root_path: str, tokenizer, device):
+    """The `ClipScorer` of `path.clip_model_path` (a local
+    openai/clip-vit-large-patch14-style directory) on `device`, or None
+    without the option; a directory that is not there logs a warning and
+    gives None."""
+    path = cfg_get(opt, 'path.clip_model_path')
+    if not path:
+        return None
+    path = resolve_path(root_path, path)
+    if not os.path.isdir(path):
+        get_logger().warning(f'clip_model_path {path} missing; skipping '
+                             'CLIP scores')
+        return None
+    from videoswap_torch.builders import build_clip_scorer
+    return ClipScorer(build_clip_scorer(path, device), tokenizer, device)
+
+
+def report_metrics(source_video, results: dict, save_dir: str,
+                   clip_scorer=None, prompts: dict | None = None) -> dict:
     """Per swap: PSNR against the source (how much of the background and
-    identity it kept) and temporal consistency (a flicker proxy: compare
-    with the source's own value). Logged and written to `metrics.json`."""
+    identity it kept), temporal consistency (a flicker proxy: compare with
+    the source's own value) and, with a `clip_scorer`, CLIP(frames, prompt)
+    for the source and each swap that `prompts` names. Logged and written
+    to `metrics.json`."""
     logger = get_logger()
+    prompts = prompts or {}
     src = _to_float_video(source_video)
     report = {'source': {
         'temporal_consistency_db': round(temporal_consistency(src), 3)}}
+    if clip_scorer is not None and 'source' in prompts:
+        report['source']['clip_score'] = round(
+            clip_scorer(source_video, prompts['source']), 3)
     for key, frames in results.items():
         edit = _to_float_video(frames)
         h, w = edit.shape[1:3]
@@ -63,6 +126,8 @@ def report_metrics(source_video, results: dict, save_dir: str) -> dict:
             psnr_v = video_psnr(src[:, :h, :w], edit)
             entry['psnr_vs_source_db'] = (
                 None if np.isinf(psnr_v) else round(psnr_v, 3))
+        if clip_scorer is not None and key in prompts:
+            entry['clip_score'] = round(clip_scorer(frames, prompts[key]), 3)
         report[key] = entry
         logger.info(f'metrics[{key}]: {entry}')
     with open(os.path.join(save_dir, 'metrics.json'), 'w') as f:
@@ -125,10 +190,6 @@ def test(root_path: str, opt_path: str, device: str | None = None,
             '--shard: multi-device inference is not ported (ROADMAP.md '
             'Queue 1 item 9)')
     opt = load_config(opt_path)
-    if cfg_get(opt, 'path.clip_model_path'):
-        raise NotImplementedError(
-            'path.clip_model_path: the CLIP scorer is not ported (ROADMAP.md '
-            'Queue 1 item 8)')
     device = cli_device(device)
     set_path_logger(root_path, opt_path, opt, is_train=False)
     logger = get_logger()
@@ -185,8 +246,20 @@ def test(root_path: str, opt_path: str, device: str | None = None,
     for key, frames in results.items():
         save_video_to_dir(frames, os.path.join(save_dir, key),
                           save_suffix=key, save_type=save_type)
-    metrics = report_metrics(source_video, results, save_dir)
     timings['save'] = clock.now() - t0
+
+    t0 = clock.now()
+    clip_scorer = make_clip_scorer(opt, root_path, pipeline.tokenizer,
+                                   device)
+    prompts = None
+    if clip_scorer is not None:
+        prompts = {'source': dataset.prompt}
+        for key, swap_cfg in opt['val']['editing_config'].get(
+                'editing_prompts', {}).items():
+            prompts[key] = make_target_prompt(dataset.prompt, swap_cfg)
+    metrics = report_metrics(source_video, results, save_dir,
+                             clip_scorer=clip_scorer, prompts=prompts)
+    timings['metrics'] = clock.now() - t0
     if clock.cuda:
         timings['peak_gib'] = (torch.cuda.max_memory_allocated(device)
                                - resident) / 2**30
