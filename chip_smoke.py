@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (videoswap_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases build,kernels,unrouted,unet,small,dpm_small,sample,train_small,train,edlora_small,edlora,blend_small,blend,recipe,clip_attn,train_recipe,semantic_points,atlas_small,atlas,atlas_recipe]
+    python3 chip_smoke.py [--phases build,kernels,unrouted,unet,small,dpm_small,sample,long_video,train_small,train,edlora_small,edlora,blend_small,blend,recipe,clip_attn,train_recipe,semantic_points,atlas_small,atlas,atlas_recipe]
 
 Phases (all by default):
 
@@ -48,7 +48,10 @@ Phases (all by default):
                the same limits; then the ED-LoRA path's flash forward and
                backward kernels and GEGLU at its shapes (edlora_shape_
                kernels: one 512x512 image, 8 heads, B.H = 8), timed beside
-               SDPA and the cuBLAS products;
+               SDPA and the cuBLAS products; then the long-video path's
+               (long_video_shape_kernels: 32 frames, temporal attention
+               over the 16-frame windows at every level, GEGLU at every
+               level's rows, the flash forward at B = 64);
 - unrouted:    the fifth slice's path, the port's counterpart of the JAX
                package's two never-routed kernels and of the scripts that
                run them (scripts/bench_spatial_attn.py,
@@ -82,6 +85,20 @@ Phases (all by default):
                width: 16 frames, 512x512, CFG 7.5, point adapter with 10
                points, 4 DDIM steps, VAE decode; the launch count of every
                forward kernel must be > 0;
+- long_video:  `sample` as the sample phase runs it but at LONG_FRAMES (32)
+               frames, beyond the motion modules' 24-frame position table,
+               on a U-Net with the sample's weights and motion window 16,
+               stride 8 (long_video_unet): the step times, the peak memory,
+               the launches by kernel (the fused temporal kernel must not
+               launch; temporal attention must run at the windows' shapes,
+               L = 2 x HW x 3 locations of 16 frames at the four levels), a
+               second run's latents bit-equal to the first's; then each
+               level's windowed motion module on seeded inputs of the
+               sample's shape (and level 0 at stride 6: a flush window,
+               frames in three windows) against its fp32 restatement with
+               the plain versions (long_module_reference, LONG_MODULE_TOL),
+               two calls bit-equal, and stride == window against the
+               window-free module run chunk by chunk (layer-wise);
 - train_small: `VideoSwapTrainer.loss_fn`, its backward and one AdamW step
                at full width, 256x256, 4 frames, the same draws on both
                sides: the loss, the flattened adapter gradient and the change
@@ -93,7 +110,14 @@ Phases (all by default):
                steps; the losses must be finite, the steps must move the
                adapter's weights and the launch count of every kernel must be
                > 0 (the recompute of the level-0 layers in the backward
-               launches the forward kernels again, and is counted);
+               launches the forward kernels again, and is counted); then the
+               recompute A/B (remat_ab): one loss and backward on the same
+               draws in True (twice), 'edges', 'save_flash' and 'edges_sf',
+               each mode's time, peak memory and flash-forward launches,
+               which must be the count flash_launches_expected derives
+               from the U-Net's layout, and the adapter gradients of
+               'save_flash' and 'edges_sf' within the spread between the
+               two True runs of True's;
 - edlora_small: the ED-LoRA trainer (videoswap_torch.edlora_train) on the
                2D SD-1.5-width models at 64x64, 128 + 48 LoRA sites, alpha
                EDLORA_ALPHA, non-zero factors, the same inputs and draws:
@@ -151,7 +175,11 @@ Phases (all by default):
                the 1009 recipe also with visualize_attention and
                path.clip_model_path (a ViT-L/14 config.json): its swap's
                heatmap strip and the CLIP scores of the source and the swap
-               written;
+               written; then the 2001 recipe at 32 frames (LONG_RECIPE: the
+               inference config with long_video_config, 5 DPM++ steps)
+               through the CLI, at the same checks, the fused temporal
+               kernel not launched, the dataset reading every other frame
+               of the 64;
 - clip_attn:   the swap CLI's CLIP scorer (make_clip_scorer: ViT-L/14,
                random weights from the seeded CPU generator) on the 1009
                recipe CLI run's source and swap, with its tokenizer, GPU
@@ -258,9 +286,9 @@ Phases (all by default):
                points' distances to source and target printed, not
                checked; the seconds of each stage and the peak memory.
 
-Launch counts are set to 0 just before the unrouted, sample, train,
-edlora, blend, recipe, train_recipe, semantic_points, atlas and atlas_recipe
-paths and read
+Launch counts are set to 0 just before the unrouted, sample, long_video,
+train, edlora, blend, recipe, train_recipe, semantic_points, atlas and
+atlas_recipe paths and read
 just after each (a recipe's run: the CLI, before the direct `validation`;
 train_recipe: each CLI run, the two summed, not the direct steps;
 semantic_points: its three CLI runs; atlas_recipe: the three CLIs, not the
@@ -271,9 +299,12 @@ phase's checks a fault on the recipe's path, train_recipe's resume
 check a resume that starts a fresh AdamW, atlas_recipe's checks five
 faults of the shape-change chain, semantic_points' checks five faults
 of its path on the card, edlora_small's checks a merge without alpha and
-one gradient clip over both groups, and clip_attn's checks CLIP
+one gradient clip over both groups, clip_attn's checks CLIP
 preprocessing without its normalisation and summed attention maps not
-divided by the step count;
+divided by the step count, long_video's module checks three faults of
+the windows (the average not divided, each window's position rows taken
+at its own frames, the flush window dropped) and the train phase's
+recompute A/B a 'save_flash' policy that recomputes the flash forward;
 scripts/profile_step.py breaks one full-width U-Net step, training step or
 atlas iteration down by device time.
 
@@ -300,13 +331,27 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ('build', 'kernels', 'unrouted', 'unet', 'small', 'dpm_small',
-          'sample', 'train_small', 'train', 'edlora_small', 'edlora',
+          'sample', 'long_video', 'train_small', 'train', 'edlora_small',
+          'edlora',
           'blend_small', 'blend', 'recipe', 'clip_attn', 'train_recipe',
           'semantic_points', 'atlas_small', 'atlas', 'atlas_recipe')
 SEED = 0
 FRAMES, SIZE, POINTS = 16, 512, 10
 STEPS = 4          # DDIM steps of the full-width sample (a smoke run's time)
 TRAIN_STEPS = 3    # AdamW steps of the full-width training run
+# the long_video phase: the sample's models, seeds and steps at LONG_FRAMES
+# frames, beyond the motion modules' 24-frame position table, through the
+# sliding windows a long_video_config turns on (window 16, stride 8: three
+# windows a location); its module check also runs level 0 at
+# LONG_FLUSH_STRIDE, where the last window is a flush window and frames lie
+# in three windows (starts 0, 6, 12 and 16). The windowed module on the card
+# (bf16 kernels) against its fp32 restatement with the plain versions,
+# relative to the largest |reference| entry: x + the module through about
+# ten bf16 roundings of its intermediates, as the fused temporal kernel
+# (TOL['fused_temporal'])
+LONG_FRAMES, LONG_WINDOW, LONG_STRIDE = 32, 16, 8
+LONG_FLUSH_STRIDE = 6
+LONG_MODULE_TOL = 1.5e-2
 # the slice's tuning (scripts/bench_train.py of the JAX package)
 TRAIN_TUNE = {'drop_rate': 0.2, 'min_timestep': 0.5, 'loss_type': 'global'}
 TRAIN_LR = 1e-5
@@ -396,6 +441,24 @@ RECIPES = {
                  'so that the point overlay\'s selection runs (the shipped '
                  '3004 and 3009 configs select points so)', _SYNTHETIC]},
 }
+
+# the recipe phase's long-video run: the 2001 DPM++ recipe at LONG_FRAMES
+# of the clip's 64 frames (stride 2), its U-Net windowed by an inference
+# config with long_video_config (long_video_inference: the shipped
+# options/model_cfg/inference.yml with the block added), its cuts on '#'
+# lines as RECIPES'
+LONG_RECIPE = dict(RECIPES['2001'], values={
+    **RECIPES['2001']['values'], 'name': '2001_catheadturn_dpmpp20_long',
+    'datasets.num_frames': LONG_FRAMES,
+    'val.editing_config.num_inference_steps': 5},
+    cuts=[f'not a cut: num_frames 16 -> {LONG_FRAMES} (every other frame '
+          'of the 64), the long-video path',
+          'not a cut: inference_config_path -> long_video_inference.yml, '
+          'the shipped inference.yml with long_video_config {window: '
+          f'{LONG_WINDOW}, stride: {LONG_STRIDE}}} under '
+          'motion_module_kwargs',
+          'cut: num_inference_steps 20 -> 5 (the fewest that open the '
+          'latent-blend window)', *RECIPES['2001']['cuts']])
 
 # the train_recipe phase: the shipped training config through the train CLI
 # (videoswap_torch.train) in the recipe phase's tree, run for 2 steps, then
@@ -1126,6 +1189,30 @@ def edlora_shape_kernels(report, gen) -> None:
             _flash_backward(fa, gen, 1, 8, s, sk, d, report)
 
 
+def long_video_shape_kernels(report, gen) -> None:
+    """The long-video path's kernels against their plain versions at its
+    shapes (LONG_FRAMES frames at 512x512, CFG batch 2, windows of
+    LONG_WINDOW frames LONG_STRIDE apart): temporal attention over the
+    windows at every level (L = 2 x HW x the window count), GEGLU at every
+    level's 2 x LONG_FRAMES x HW rows (the motion modules' FFN runs
+    layer-wise at C <= 640 too) and the flash forward at B = 2 x
+    LONG_FRAMES, self and cross (Sk = 77), at the limits of the benchmark
+    shapes. Raises PhaseError at the first that disagrees."""
+    tag = ' (long video)'
+    nwin = len(window_starts(LONG_FRAMES, LONG_WINDOW, LONG_STRIDE))
+    same = True
+    for hw, c in ((4096, 320), (1024, 640), (256, 1280), (64, 1280)):
+        same = _temporal_case(report, gen, 2 * hw * nwin, LONG_WINDOW, c,
+                              tag) and same
+        _geglu_case(report, gen, 2 * LONG_FRAMES * hw, c, tag)
+    for s, d in ((4096, 40), (1024, 80), (256, 160), (64, 160)):
+        for sk in (s, 77):
+            _flash_case(report, gen, 2 * LONG_FRAMES, 8, s, sk, d, tag)
+    if not same:
+        raise PhaseError('temporal_attention (long-video shapes): two calls '
+                         'on the same inputs differ')
+
+
 def phase_kernels(report):
     import torch
     from videoswap_torch.ops import flash_attention as fa
@@ -1221,6 +1308,7 @@ def phase_kernels(report):
     _hash_kernels(report, gen)
     recipe_shape_kernels(report, gen)
     edlora_shape_kernels(report, gen)
+    long_video_shape_kernels(report, gen)
 
 
 def _fused_inputs(gen, b, hw, c, include_ffn, f=FRAMES):
@@ -1903,14 +1991,7 @@ def phase_sample(report, state):
     import numpy as np
     import torch
     pipe = state['pipe']
-    kw = dict(prompt='a <catA1> <catA2> with a red bell sitting on a '
-                     'wooden floor',
-              video_length=FRAMES, height=SIZE, width=SIZE,
-              num_inference_steps=STEPS, guidance_scale=7.5,
-              negative_prompt='worst quality, low quality, deformed',
-              conditions=conditions(FRAMES, SIZE), t2i_guidance_scale=0.5,
-              t2i_start=0.0, t2i_end=0.5, output_type='np',
-              generator=torch.Generator(device='cuda').manual_seed(SEED))
+    kw = sample_kwargs(FRAMES)
     marks, last = [], []
 
     def on_step(i, t, latents):
@@ -1974,6 +2055,272 @@ def phase_sample(report, state):
     if not torch.equal(lat4, main_lat):
         raise PhaseError(f'FT_4D sample latents differ from the row '
                          f'layout\'s: max abs diff {diff:.3e}')
+
+
+# -------------------------------------------------------------- long video
+def long_video_unet(unet, window=LONG_WINDOW, stride=LONG_STRIDE):
+    """A U-Net of `unet`'s config with a motion window (the config's
+    long_video_config), holding `unet`'s own weights: the window adds no
+    parameter, so the state dict loads strictly and is shared, not copied."""
+    import torch
+    from videoswap_torch.models import AnimateDiffUNet3DModel
+    p = next(unet.parameters())
+    cfg = unet.cfg._replace(motion_window=window,
+                            motion_window_stride=stride)
+    with torch.device(p.device):
+        long = AnimateDiffUNet3DModel(cfg).to(p.dtype)
+    long.load_state_dict(unet.state_dict(), strict=True, assign=True)
+    return long.to(device=p.device).requires_grad_(False).eval()
+
+
+def sample_kwargs(frames: int) -> dict:
+    """The sample phase's `sample` arguments at `frames` frames: 512x512,
+    CFG 7.5, the adapter's POINTS points, STEPS DDIM steps, SEED."""
+    import torch
+    return dict(prompt='a <catA1> <catA2> with a red bell sitting on a '
+                       'wooden floor',
+                video_length=frames, height=SIZE, width=SIZE,
+                num_inference_steps=STEPS, guidance_scale=7.5,
+                negative_prompt='worst quality, low quality, deformed',
+                conditions=conditions(frames, SIZE), t2i_guidance_scale=0.5,
+                t2i_start=0.0, t2i_end=0.5, output_type='np',
+                generator=torch.Generator(device='cuda').manual_seed(SEED))
+
+
+def long_video_modules(unet) -> dict:
+    """{level: the first motion module of the level's down block}."""
+    return {lvl: block.motion_modules[0]
+            for lvl, block in enumerate(unet.down_blocks)
+            if block.motion_modules is not None}
+
+
+def window_starts(f: int, w: int, stride: int) -> list:
+    """The windows' first frames, stated apart from
+    motion_module.window_index: every stride-th start that leaves a whole
+    window, and the last whole window (flush to the end)."""
+    starts = [s for s in range(0, f, stride) if s + w <= f]
+    return starts if starts[-1] == f - w else starts + [f - w]
+
+
+def long_module_reference(module, x, window: int, stride: int):
+    """A VanillaTemporalModule with a `window` at `stride` on x (B, F, H,
+    W, C), restated in fp32 on x's device from its weights with the plain
+    versions of its kernels (temporal_attention_plain on the windows,
+    geglu_ffn_plain on the FFN): per-frame GroupNorm, proj_in; per attention
+    sublayer LayerNorm, each window with the position table's first
+    `window` rows, attention, the windows' outputs summed over each frame
+    and divided by the frame's window count, residual; the FFN once a
+    frame; proj_out, residual."""
+    import torch
+    import torch.nn.functional as F
+    from videoswap_torch.models.layers import group_norm
+    from videoswap_torch.models.motion_module import \
+        sinusoidal_position_table
+    from videoswap_torch.ops.geglu_ffn import geglu_ffn_plain
+    from videoswap_torch.ops.temporal_attention import \
+        temporal_attention_plain
+    tt = module.temporal_transformer
+    w32 = {k: v.float() for k, v in tt.state_dict().items()}
+    b, f, hh, ww, c = x.shape
+    xf = x.float()
+    gn = group_norm(xf.reshape(b * f, hh, ww, c), tt.norm.num_groups,
+                    w32['norm.weight'], w32['norm.bias'], tt.norm.eps)
+    h = F.linear(gn.reshape(x.shape), w32['proj_in.weight'],
+                 w32['proj_in.bias'])
+    h = h.permute(0, 2, 3, 1, 4).reshape(b * hh * ww, f, c)
+    starts = window_starts(f, window, stride)
+    cover = torch.zeros(f, device=x.device)
+    for s in starts:
+        cover[s:s + window] += 1
+    pe = torch.from_numpy(sinusoidal_position_table(window, c)).to(x.device)
+    for i, blk in enumerate(tt.transformer_blocks):
+        pre = f'transformer_blocks.{i}.'
+        for j, attn in enumerate(blk.attention_blocks):
+            a = f'{pre}attention_blocks.{j}.'
+            ln = F.layer_norm(h, (c,), w32[f'{pre}norms.{j}.weight'],
+                              w32[f'{pre}norms.{j}.bias'],
+                              blk.norms[j].eps)
+            total = torch.zeros_like(h)
+            for s in starts:
+                win = (ln[:, s:s + window] + pe).reshape(-1, c)
+                q, k, v = (F.linear(win, w32[f'{a}to_{n}.weight'])
+                           for n in 'qkv')
+                o = temporal_attention_plain(q, k, v, attn.heads, window)
+                o = F.linear(o, w32[f'{a}to_out.0.weight'],
+                             w32[f'{a}to_out.0.bias'])
+                total[:, s:s + window] += o.reshape(-1, window, c)
+            h = total / cover[None, :, None] + h
+        ln = F.layer_norm(h, (c,), w32[f'{pre}ff_norm.weight'],
+                          w32[f'{pre}ff_norm.bias'], blk.ff_norm.eps)
+        h = geglu_ffn_plain(
+            ln.reshape(-1, c), w32[f'{pre}ff.net.0.proj.weight'],
+            w32[f'{pre}ff.net.0.proj.bias'], w32[f'{pre}ff.net.2.weight'],
+            w32[f'{pre}ff.net.2.bias']).reshape(h.shape) + h
+    h = h.reshape(b, hh, ww, f, c).permute(0, 3, 1, 2, 4)
+    return F.linear(h, w32['proj_out.weight'], w32['proj_out.bias']) + xf
+
+
+def _module_like(module, c, window, stride):
+    """A VanillaTemporalModule of `module`'s width and weights with another
+    window and stride, on its device and in its dtype."""
+    import torch
+    from videoswap_torch.models.motion_module import VanillaTemporalModule
+    p = next(module.parameters())
+    tt = module.temporal_transformer
+    with torch.device(p.device):
+        m = VanillaTemporalModule(c, heads=tt.heads,
+                                  norm_groups=tt.norm.num_groups,
+                                  window=window, stride=stride).to(p.dtype)
+    m.load_state_dict(module.state_dict(), strict=True)
+    return m.to(device=p.device).requires_grad_(False).eval()
+
+
+def long_video_module_errors(unet) -> dict:
+    """The long-video U-Net's windowed motion modules on the card: each
+    level's first module (window LONG_WINDOW, stride LONG_STRIDE) on seeded
+    bf16 inputs of the long sample's shape (CFG batch 2, LONG_FRAMES
+    frames), and level 0's at stride LONG_FLUSH_STRIDE (a flush window and
+    frames in three windows), against long_module_reference (fp32, the
+    plain versions), relative to the largest |reference| entry, each run
+    twice (`repeat_equal`: the same bits); and level 0 at stride ==
+    window against the window-free module run on each chunk, layer-wise
+    too (FT_DISABLE): the same function."""
+    import torch
+    gen = torch.Generator(device='cuda').manual_seed(SEED + 11)
+    h8 = SIZE // 8
+    out, repeat = {}, True
+    cases = [(lvl, m, LONG_STRIDE)
+             for lvl, m in long_video_modules(unet).items()]
+    level0 = cases[0][1]
+    c0 = level0.temporal_transformer.proj_in.in_features
+    cases.append((0, _module_like(level0, c0, LONG_WINDOW,
+                                  LONG_FLUSH_STRIDE), LONG_FLUSH_STRIDE))
+    with torch.no_grad():
+        for lvl, m, stride in cases:
+            c = m.temporal_transformer.proj_in.in_features
+            side = h8 >> lvl
+            x = _rand(gen, (2, LONG_FRAMES, side, side, c))
+            y = m(x)
+            repeat = repeat and torch.equal(y, m(x))
+            ref = long_module_reference(m, x, LONG_WINDOW, stride)
+            err = float((y.float() - ref).abs().max() / ref.abs().max())
+            out[f'level {lvl} C={c} stride {stride}'] = (
+                err if bool(torch.isfinite(y).all()) else math.inf)
+            del x, y, ref
+        chunked_m = _module_like(level0, c0, LONG_WINDOW, LONG_WINDOW)
+        plain_m = _module_like(level0, c0, None, None)
+        x = _rand(gen, (2, LONG_FRAMES, h8, h8, c0))
+        y = chunked_m(x)
+        os.environ['FT_DISABLE'] = '1'
+        try:
+            ref = torch.cat([plain_m(x[:, s:s + LONG_WINDOW])
+                             for s in range(0, LONG_FRAMES, LONG_WINDOW)],
+                            dim=1)
+        finally:
+            del os.environ['FT_DISABLE']
+    out['chunked'] = float((y.float() - ref.float()).abs().max()
+                           / ref.float().abs().max())
+    out['chunked_bit_equal'] = bool(torch.equal(y, ref))
+    out['repeat_equal'] = repeat
+    return out
+
+
+def long_video_fails(errs) -> list:
+    return ([k for k, v in errs.items() if isinstance(v, float)
+             and not v <= LONG_MODULE_TOL]
+            + ([] if errs['repeat_equal'] else ['repeat_equal']))
+
+
+def phase_long_video(report, state):
+    import numpy as np
+    import torch
+    from videoswap_torch.ops import attention as attn_ops
+    from videoswap_torch.pipelines import VideoSwapPipeline
+    pipe = state['pipe']
+    t0 = time.perf_counter()
+    unet = long_video_unet(pipe.unet)
+    lpipe = VideoSwapPipeline(unet=unet, vae=pipe.vae,
+                              text_encoder=pipe.text_encoder,
+                              tokenizer=pipe.tokenizer, sched=pipe.sched,
+                              adapter=pipe.adapter)
+    log(f'# long_video: U-Net with motion_window {LONG_WINDOW} stride '
+        f'{LONG_STRIDE} on the sample\'s weights in '
+        f'{time.perf_counter() - t0:.2f} s')
+    kw = sample_kwargs(LONG_FRAMES)
+    marks, last = [], []
+
+    def on_step(i, t, latents):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        last[:] = [latents]
+
+    # the temporal kernel's (locations, frames, width) at each launch
+    shapes = {}
+    real = attn_ops.temporal_attention
+
+    def recording(q, k, v, heads, frames):
+        key = (q.shape[0] // frames, frames, q.shape[1])
+        shapes[key] = shapes.get(key, 0) + 1
+        return real(q, k, v, heads, frames)
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    attn_ops.temporal_attention = recording
+    try:
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            video = lpipe.sample(callback=on_step, **kw)
+        t_total = time.perf_counter() - t0
+    finally:
+        attn_ops.temporal_attention = real
+    counts = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps_s = np.diff([t0] + marks)
+    first = last[0]
+    marks.clear()
+    with torch.no_grad():
+        again = lpipe.sample(callback=on_step, **dict(
+            kw, output_type='latent',
+            generator=torch.Generator(device='cuda').manual_seed(SEED)))
+    same = torch.equal(again, first)
+    log(f'# long_video sample {LONG_FRAMES}x{SIZE}x{SIZE} CFG+adapter '
+        f'{STEPS} DDIM steps, window {LONG_WINDOW} stride {LONG_STRIDE}: '
+        f'total {t_total:.2f} s (text, adapter, steps, VAE decode); per '
+        f'U-Net step (s): {" ".join(f"{s:.3f}" for s in steps_s)}; peak '
+        f'memory {peak:.2f} GiB; a second run\'s latents bit-equal {same}')
+    log(f'# long_video kernel launches: {json.dumps(counts)}; temporal '
+        'attention (locations, frames, C): launches '
+        + json.dumps({str(k): v for k, v in sorted(shapes.items())}))
+    errs = long_video_module_errors(unet)
+    fails = long_video_fails(errs)
+    log(f'# long_video modules on the card vs the fp32 restatement with the '
+        f'plain versions (/max|reference|, tol {LONG_MODULE_TOL:g}): '
+        f'{json.dumps(errs)} {"FAIL " + str(fails) if fails else "ok"}')
+    report['launches']['long_video'] = counts
+    report['long_video'] = dict(step_s=[float(s) for s in steps_s],
+                                peak_gib=peak, total_s=t_total,
+                                temporal_shapes={str(k): v for k, v in
+                                                 shapes.items()},
+                                bit_equal=same, modules=errs)
+    nwin = len(window_starts(LONG_FRAMES, LONG_WINDOW, LONG_STRIDE))
+    want = {(2 * (SIZE // 8 >> lvl) ** 2 * nwin, LONG_WINDOW, c)
+            for lvl, c in enumerate((320, 640, 1280, 1280))}
+    if video.shape != (1, LONG_FRAMES, SIZE, SIZE, 3) \
+            or not np.isfinite(video).all():
+        fails.append(f'output {video.shape}')
+    if counts['fused_temporal'] or counts['fused_temporal_bfhw']:
+        fails.append('fused temporal kernel launched')
+    fails += [f'{n} not launched' for n in FORWARD_KERNELS
+              if n != 'fused_temporal' and counts[n] <= 0]
+    if set(shapes) != want:
+        fails.append(f'temporal shapes {sorted(shapes)}, want '
+                     f'{sorted(want)}')
+    if not same:
+        fails.append('two runs differ')
+    if fails:
+        raise PhaseError(f'long_video: {fails}')
 
 
 # ---------------------------------------------------------------- training
@@ -2087,17 +2434,122 @@ def phase_train_small(report, state):
                          f'moved {moved:.6f}')
 
 
-def phase_train(report, state):
+# the train phase's recompute A/B: one loss and backward in each mode on
+# the same batch and draws, True twice (the spread between two runs of one
+# mode is the limit of the others' adapter gradients against True's)
+REMAT_MODES = (True, True, 'edges', 'save_flash', 'edges_sf')
+
+
+def flash_launches_expected(unet, h8: int) -> dict:
+    """The flash forward's launches in one training loss and backward at
+    h8 x h8 latents, by recompute mode, worked out from the U-Net's layout:
+    the forward launches it once at each site (every cross-attention, Sk =
+    77, and every self-attention over more than 32 tokens; 32 or fewer
+    take the temporal kernel); a block that recomputes every op launches
+    it again at each of its sites in the backward, unless nothing in the
+    block needs a gradient: the level-0 down block, which comes before the
+    adapter's first residual. 'save_flash' keeps the forward's outputs."""
+    top = len(unet.down_blocks) - 1
+    blocks = ([(b, i, i > 0) for i, b in enumerate(unet.down_blocks)]
+              + [(unet.mid_block, top, True)]
+              + [(b, top - i, True) for i, b in enumerate(unet.up_blocks)])
+    sites, again = 0, {True: 0, 'edges': 0}
+    for block, level, grad in blocks:
+        tokens = (h8 >> level) ** 2
+        n = sum(len(t.transformer_blocks)
+                for t in getattr(block, 'attentions', None) or ())
+        per = n * (1 + (tokens > 32))
+        sites += per
+        again[True] += per if grad else 0
+        again['edges'] += per if grad and level == 0 else 0
+    return {True: sites + again[True], 'edges': sites + again['edges'],
+            'save_flash': sites, 'edges_sf': sites}
+
+
+def remat_ab(trainer, batch, draws) -> dict:
+    """One loss and backward in each of REMAT_MODES on `batch` and
+    `draws`: each mode's seconds, peak GiB, flash-forward launches and
+    flattened adapter gradient; the trainer's mode is put back."""
     import torch
-    trainer = make_trainer(state['pipe'])
-    dev = trainer.device
-    batch = {k: v.to(dev) for k, v in
+    mode0 = trainer.unet.gradient_checkpointing
+    runs = []
+    for mode in REMAT_MODES:
+        trainer.unet.set_gradient_checkpointing(mode)
+        trainer.adapter.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        trainer.loss_fn(batch, draws).backward()
+        torch.cuda.synchronize()
+        runs.append({'mode': mode, 's': time.perf_counter() - t0,
+                     'peak_gib': torch.cuda.max_memory_allocated() / 2 ** 30,
+                     'flash_launches': read_launches()['flash_attention_fwd'],
+                     'grad': torch.cat([p.grad.float().flatten().cpu()
+                                        for p in trainer.adapter.parameters()
+                                        ])})
+    trainer.unet.set_gradient_checkpointing(mode0)
+    trainer.adapter.zero_grad(set_to_none=True)
+    return runs
+
+
+def remat_ab_readings(runs, expected) -> dict:
+    """Each mode's readings (the gradient against the first True run's,
+    relative L2) and the spread between the two True runs."""
+    import torch
+    ref = runs[0]['grad']
+    out = {'spread': rel_err(runs[1]['grad'], ref), 'modes': []}
+    for r in runs:
+        out['modes'].append({
+            'mode': r['mode'], 's': r['s'], 'peak_gib': r['peak_gib'],
+            'flash_launches': r['flash_launches'],
+            'expected_launches': expected[r['mode']],
+            'grad_vs_true': rel_err(r['grad'], ref),
+            'grad_bit_equal_true': bool(torch.equal(r['grad'], ref))})
+    return out
+
+
+def remat_ab_fails(readings) -> list:
+    """The launches of every mode as derived from the layout, and the
+    'save_flash' / 'edges_sf' adapter gradients within the spread between
+    the two True runs of True's."""
+    fails = [f'{m["mode"]!r} launches {m["flash_launches"]} (expected '
+             f'{m["expected_launches"]})' for m in readings['modes']
+             if m['flash_launches'] != m['expected_launches']]
+    fails += [f'{m["mode"]!r} gradient {m["grad_vs_true"]:.3e} (spread '
+              f'{readings["spread"]:.3e})' for m in readings['modes']
+              if m['mode'] in ('save_flash', 'edges_sf')
+              and not m['grad_vs_true'] <= readings['spread']]
+    return fails
+
+
+def full_train_batch(trainer) -> dict:
+    """The train phase's batch (16 frames at 512x512, POINTS points, from
+    SEED + 5) on the trainer's device, with cached VAE moments in place of
+    the pixels, as the training CLI encodes the video once."""
+    import torch
+    batch = {k: v.to(trainer.device) for k, v in
              train_batch(FRAMES, SIZE, SEED + 5).items()}
-    # cached VAE moments, as the training CLI encodes the video once
     with torch.no_grad():
         mean, logvar = trainer.vae.encode_video_moments(
             batch.pop('pixels').bfloat16())
     batch.update(latent_mean=mean, latent_logvar=logvar)
+    return batch
+
+
+def remat_draws(trainer, batch) -> dict:
+    """The recompute A/B's draws, from SEED + 6 on the trainer's device."""
+    import torch
+    return trainer.make_draws(batch, torch.Generator(
+        device=trainer.device).manual_seed(SEED + 6))
+
+
+def phase_train(report, state):
+    import torch
+    trainer = make_trainer(state['pipe'])
+    dev = trainer.device
+    batch = full_train_batch(trainer)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     before = adapter_weights(trainer)
     torch.cuda.synchronize()
@@ -2141,6 +2593,22 @@ def phase_train(report, state):
     if missing:
         raise PhaseError(f'kernels not launched on the train path: '
                          f'{missing}')
+    # the recompute modes on one step's loss and backward, the same draws
+    ab = remat_ab_readings(remat_ab(trainer, batch,
+                                    remat_draws(trainer, batch)),
+                           flash_launches_expected(trainer.unet, SIZE // 8))
+    fails = remat_ab_fails(ab)
+    for m in ab['modes']:
+        log(f"# train recompute {m['mode']!r}: loss + backward "
+            f"{m['s']:.3f} s, peak {m['peak_gib']:.2f} GiB, flash forward "
+            f"launches {m['flash_launches']} (derived from the layout: "
+            f"{m['expected_launches']}), adapter gradient vs True's rel L2 "
+            f"{m['grad_vs_true']:.3e} (bit-equal {m['grad_bit_equal_true']})")
+    log(f"# train recompute A/B: spread between two True runs "
+        f"{ab['spread']:.3e}; {'FAIL ' + str(fails) if fails else 'ok'}")
+    report['train_remat'] = ab
+    if fails:
+        raise PhaseError(f'train recompute A/B: {fails}')
 
 
 # ----------------------------------------------------------------- ED-LoRA
@@ -3199,20 +3667,34 @@ def recipe_config(root: Path, name: str, tree: Path, recipe=None,
     return out
 
 
+def long_video_inference(tree: Path) -> Path:
+    """options/model_cfg/inference.yml with long_video_config {window:
+    LONG_WINDOW, stride: LONG_STRIDE} under motion_module_kwargs, written
+    into `tree`."""
+    out = tree / 'long_video_inference.yml'
+    out.write_text(rewrite_yaml(
+        (ROOT / 'options/model_cfg/inference.yml').read_text(),
+        {'unet_additional_kwargs.motion_module_kwargs.long_video_config':
+            f'{{window: {LONG_WINDOW}, stride: {LONG_STRIDE}}}'}, {}))
+    return out
+
+
 def recipe_run(name: str, tree: Path, written: dict,
-               device: str = 'cuda') -> dict:
-    """One recipe through the CLI (`videoswap_torch.test.test`) on the
-    card (or `device`), then `validation` called directly on the CLI's
-    models with the same inputs: the readings of the phase's checks and
-    the stage times."""
+               device: str = 'cuda', recipe=None, extra=None,
+               suffix: str = '') -> dict:
+    """One recipe (RECIPES[name], or `recipe` with the `extra` values)
+    through the CLI (`videoswap_torch.test.test`) on the card (or
+    `device`), then `validation` called directly on the CLI's models with
+    the same inputs: the readings of the phase's checks and the stage
+    times."""
     import numpy as np
     import torch
     from videoswap_torch.pipelines.videoswap_pipeline import \
         make_target_prompt
     from videoswap_torch.test import test
     from videoswap_torch.utils.config import load_config
-    recipe = RECIPES[name]
-    yml = recipe_config(ROOT, name, tree)
+    recipe = recipe or RECIPES[name]
+    yml = recipe_config(ROOT, name, tree, recipe, extra, suffix)
     opt = load_config(str(yml))
     swap = recipe['swap']
     if list(opt['val']['editing_config']['editing_prompts']) != [swap]:
@@ -3257,6 +3739,9 @@ def recipe_run(name: str, tree: Path, written: dict,
             'clip_score' in out['metrics'][k] for k in ('source', swap))
     return {'load': load, 'rel_err': err,
             'bit_equal': bool(np.array_equal(frames, ref)),
+            'select_id': list(ds.select_id),
+            'motion_window': [pipe.unet.cfg.motion_window,
+                              pipe.unet.cfg.motion_window_stride],
             'vispoint': vis, 'files': files, 'launches': counts,
             'timings': out['timings'], 'direct_s': t_direct,
             'resident_gib': resident,
@@ -3269,16 +3754,46 @@ def recipe_run(name: str, tree: Path, written: dict,
                     swap])}}
 
 
-def recipe_fails(r) -> list:
+def recipe_fails(r, windowed: bool = False) -> list:
+    """The recipe checks that `r` fails; `windowed`: the long-video run,
+    whose motion modules run layer-wise (no fused temporal launch)."""
     fails = [f'load {n}' for n in load_fails(r['load'])]
     if r['rel_err'] > RECIPE_REL_TOL:
         fails.append('frames vs direct validation')
     if vispoint_fails(r['vispoint']):
         fails.append('vispoint')
     fails += [f'file {k}' for k, ok in r['files'].items() if not ok]
+    fused = 'fused_temporal'
     fails += [f'launches {k}' for k in FORWARD_KERNELS
-              if r['launches'][k] <= 0]
+              if r['launches'][k] <= 0 and not (windowed and k == fused)]
+    if windowed and r['launches'][fused]:
+        fails.append(f'launches {fused} (windowed)')
     return fails
+
+
+def log_recipe(name: str, recipe: dict, r: dict, fails: list) -> None:
+    tm = r['timings']
+    stages = {k: (round(v['s'], 3) if isinstance(v, dict)
+                  else round(v, 3)) for k, v in tm.items()}
+    swap = recipe['swap']
+    log(f'# recipe {name} ({recipe["path"]}; '
+        f'{"; ".join(recipe["cuts"])}): frames '
+        f'{r["shape"]}, stages (s; the CLI run\'s peak GiB above the '
+        f'{r["resident_gib"]:.3f} GiB this script holds) '
+        f'{json.dumps(stages)}; '
+        f'{swap} steps (s) '
+        f'{" ".join(f"{v:.3f}" for v in tm[swap]["step_s"])}, VAE '
+        f'decode {tm[swap]["decode_s"]:.3f} s; inversion steps (s) '
+        f'{" ".join(f"{v:.3f}" for v in tm["inversion"]["step_s"])}; '
+        f'direct validation {r["direct_s"]:.2f} s')
+    log(f'# recipe {name} checks: load {json.dumps(r["load"])}; CLI '
+        f'frames vs direct validation rel L2 {r["rel_err"]:.3e} (tol '
+        f'{RECIPE_REL_TOL:.0e}), bit-equal {r["bit_equal"]}; '
+        f'vispoint (index_list {r["index_list"]}) '
+        f'{json.dumps(r["vispoint"])}; files {json.dumps(r["files"])}'
+        f'; metrics {json.dumps(r["metrics"])}; launches '
+        f'{json.dumps(r["launches"])} '
+        f'{"FAIL " + str(fails) if fails else "ok"}')
 
 
 def make_recipe_tree(pipe, tree: Path) -> dict:
@@ -3326,30 +3841,31 @@ def phase_recipe(report, state):
         report['recipe'][name] = r
         report['launches'][f'recipe_{name}'] = r['launches']
         fails = recipe_fails(r)
-        tm = r['timings']
-        stages = {k: (round(v['s'], 3) if isinstance(v, dict)
-                      else round(v, 3)) for k, v in tm.items()}
-        swap = RECIPES[name]['swap']
-        log(f'# recipe {name} ({RECIPES[name]["path"]}; '
-            f'{"; ".join(RECIPES[name]["cuts"])}): frames '
-            f'{r["shape"]}, stages (s; the CLI run\'s peak GiB above the '
-            f'{r["resident_gib"]:.3f} GiB this script holds) '
-            f'{json.dumps(stages)}; '
-            f'{swap} steps (s) '
-            f'{" ".join(f"{v:.3f}" for v in tm[swap]["step_s"])}, VAE '
-            f'decode {tm[swap]["decode_s"]:.3f} s; inversion steps (s) '
-            f'{" ".join(f"{v:.3f}" for v in tm["inversion"]["step_s"])}; '
-            f'direct validation {r["direct_s"]:.2f} s')
-        log(f'# recipe {name} checks: load {json.dumps(r["load"])}; CLI '
-            f'frames vs direct validation rel L2 {r["rel_err"]:.3e} (tol '
-            f'{RECIPE_REL_TOL:.0e}), bit-equal {r["bit_equal"]}; '
-            f'vispoint (index_list {r["index_list"]}) '
-            f'{json.dumps(r["vispoint"])}; files {json.dumps(r["files"])}'
-            f'; metrics {json.dumps(r["metrics"])}; launches '
-            f'{json.dumps(r["launches"])} '
-            f'{"FAIL " + str(fails) if fails else "ok"}')
+        log_recipe(name, RECIPES[name], r, fails)
         if fails:
             raise PhaseError(f'recipe {name}: {fails}')
+    # the 2001 recipe at LONG_FRAMES frames through the long-video path
+    torch.cuda.empty_cache()
+    r = recipe_run('2001', tree, written, recipe=LONG_RECIPE, extra={
+        'models.unet.inference_config_path': long_video_inference(tree)},
+        suffix='_long')
+    for k in ('frames', 'source_frames', 'prompts', 'opt', 'tokenizer'):
+        r.pop(k)
+    torch.cuda.empty_cache()
+    report['recipe']['2001_long'] = r
+    report['launches']['recipe_2001_long'] = r['launches']
+    fails = recipe_fails(r, windowed=True)
+    if r['shape'] != [LONG_FRAMES, SIZE, SIZE, 3]:
+        fails.append(f'frames {r["shape"]}')
+    if r['select_id'] != list(range(0, 2 * LONG_FRAMES, 2)):
+        fails.append(f'frames read {r["select_id"]}')
+    if r['motion_window'] != [LONG_WINDOW, LONG_STRIDE]:
+        fails.append(f'motion window {r["motion_window"]}')
+    log_recipe('2001_long', LONG_RECIPE, r, fails)
+    log(f'# recipe 2001_long: the dataset read frames {r["select_id"]}; '
+        f'the U-Net\'s motion window and stride {r["motion_window"]}')
+    if fails:
+        raise PhaseError(f'recipe 2001_long: {fails}')
 
 
 
@@ -5299,7 +5815,8 @@ def main() -> None:
                     state['cpu'] = cpu_copy(state['pipe'])
                 {'unrouted': phase_unrouted, 'unet': phase_unet,
                  'small': phase_small, 'dpm_small': phase_dpm_small,
-                 'sample': phase_sample, 'train_small': phase_train_small,
+                 'sample': phase_sample, 'long_video': phase_long_video,
+                 'train_small': phase_train_small,
                  'train': phase_train, 'edlora_small': phase_edlora_small,
                  'edlora': phase_edlora, 'blend_small': phase_blend_small,
                  'blend': phase_blend, 'recipe': phase_recipe,

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Control run for the model-level limits of chip_smoke.py.
 
-    python3 scripts/fault_control.py
+    python3 scripts/fault_control.py [--only long_video]
 
 Plants one fault at a time, in a kernel's wrapper (a chunk of the kernel's
 work skipped), in the trainer, in the blended swap, on the recipe's path
@@ -204,6 +204,29 @@ CLI's CLIP scorer's embeddings and scores of a synthetic 16-frame clip):
                       clip_attn's check of the summed maps (probabilities
                       whose rows sum to 1).
 
+The long-video path's and the recompute modes' faults, each run against
+the check named for it (chip_smoke.py's long_video module checks on a
+windowed U-Net holding the smoke pipeline's weights: each level's module on
+the card against its fp32 restatement with the plain versions, level 0 also
+at a stride with a flush window, stride == window against the chunked
+window-free module, two runs; and the train phase's recompute A/B):
+
+- window_average_undivided: the windows' sum is not divided by each
+                      frame's window count (the average divided by 1):
+                      long_video's module check;
+- window_pe_shifted:  each window adds the position table's rows of its
+                      own frames, pe[s:s+w], in place of pe[:w]:
+                      long_video's module check and its stride == window
+                      identity;
+- window_flush_dropped: window_index drops the last window where it is a
+                      flush window (its start not a stride after the one
+                      before): the frames after the last whole stride have
+                      no window (long_video's module check at
+                      LONG_FLUSH_STRIDE: not finite);
+- save_flash_recomputes: the 'save_flash' policy recomputes the flash
+                      forward too (it saves nothing): the recompute A/B's
+                      launch count, which must be the layout's.
+
 The last three of the kernel faults are faults of the unrouted kernels,
 which no model path runs:
 the unrouted limits catch them, beside the kernel limit.
@@ -237,7 +260,9 @@ recipe passes atlas_recipe's checks and each of its faults fails the check
 named for it; the sound semantic_points run passes its checks and each
 semantic-point fault fails the check named for it; the sound ED-LoRA,
 CLIP and attention checks pass and each of their faults fails the check
-named for it.
+named for it; the sound long-video and recompute checks pass and each of
+their faults fails the check named for it. `--only long_video` runs that
+group alone (about two minutes).
 """
 
 from __future__ import annotations
@@ -813,6 +838,97 @@ def _attn_sums_not_divided():
         yield
 
 
+@contextlib.contextmanager
+def _window_average_undivided():
+    import numpy as np
+
+    from videoswap_torch.models import motion_module as mm
+    with mock.patch.object(mm, 'window_weights',
+                           lambda idx, f: np.ones((f,), np.float32)):
+        yield
+
+
+@contextlib.contextmanager
+def _window_pe_shifted():
+    import torch
+
+    from videoswap_torch.models import motion_module as mm
+
+    def faulted(self, h, starts, w):
+        table = torch.from_numpy(mm.sinusoidal_position_table(
+            h.shape[1], h.shape[-1])).to(h.device, h.dtype)
+        hw = torch.stack([h[:, s:s + w] + table[s:s + w] for s in starts],
+                         dim=1)
+        return hw.reshape(-1, w, h.shape[-1])
+    with mock.patch.object(mm.TemporalTransformerBlock, 'windows', faulted):
+        yield
+
+
+@contextlib.contextmanager
+def _window_flush_dropped():
+    from videoswap_torch.models import motion_module as mm
+    real = mm.window_index
+
+    def faulted(f, window, stride):
+        idx = real(f, window, stride)
+        flush = len(idx) > 1 and idx[-1, 0] - idx[-2, 0] != stride
+        return idx[:-1] if flush else idx
+    with mock.patch.object(mm, 'window_index', faulted):
+        yield
+
+
+@contextlib.contextmanager
+def _save_flash_recomputes():
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    from videoswap_torch.models import unet3d
+    with mock.patch.object(unet3d, '_save_flash_policy',
+                           lambda *a, **k: CheckpointPolicy.PREFER_RECOMPUTE):
+        yield
+
+
+# the long-video and recompute faults -> context managers planting them,
+# and the check that must catch each
+LONG_VIDEO_FAULTS = {
+    'sound': (contextlib.nullcontext, None),
+    'window_average_undivided': (_window_average_undivided, 'long_video'),
+    'window_pe_shifted': (_window_pe_shifted, 'long_video'),
+    'window_flush_dropped': (_window_flush_dropped, 'long_video'),
+    'save_flash_recomputes': (_save_flash_recomputes, 'train_remat'),
+}
+
+
+def long_video_rows(pipe) -> dict:
+    """The sound run, then each fault of LONG_VIDEO_FAULTS, against the
+    long_video phase's module checks (the windowed modules of a U-Net on
+    `pipe`'s weights against their fp32 restatement, the stride == window
+    identity, two runs) and the train phase's recompute A/B (launches
+    against the layout's, gradients against True's): {fault: readings and
+    the checks that failed}."""
+    import torch
+    unet = cs.long_video_unet(pipe.unet)
+    trainer = cs.make_trainer(pipe)
+    batch = cs.full_train_batch(trainer)
+    draws = cs.remat_draws(trainer, batch)
+    expected = cs.flash_launches_expected(trainer.unet, cs.SIZE // 8)
+    rows = {}
+    for name, (plant, _) in LONG_VIDEO_FAULTS.items():
+        with plant():
+            errs = cs.long_video_module_errors(unet)
+            ab = cs.remat_ab_readings(cs.remat_ab(trainer, batch, draws),
+                                      expected)
+        torch.cuda.empty_cache()
+        fails = ((['long_video'] if cs.long_video_fails(errs) else [])
+                 + (['train_remat'] if cs.remat_ab_fails(ab) else []))
+        rows[name] = {'long_video': errs, 'train_remat': {
+            'spread': ab['spread'],
+            'modes': [{k: m[k] for k in ('mode', 'flash_launches',
+                                         'expected_launches', 'grad_vs_true')}
+                      for m in ab['modes']]}, 'fails': fails}
+        cs.log(f'# long_video/remat {name}: {json.dumps(rows[name])}')
+    return rows
+
+
 # the ED-LoRA, CLIP and attention faults -> context managers planting
 # them, and the check that must catch each
 EDLORA_FAULTS = {
@@ -1157,15 +1273,37 @@ def kernel_error(fault: str) -> float:
     return float((out.float() - ref).abs().max())
 
 
+def long_video_caught(rows: dict) -> tuple[bool, dict]:
+    """(the sound run passed, {fault: caught by the check named for it})."""
+    rows = dict(rows)
+    sound = rows.pop('sound')
+    return (not sound['fails'],
+            {name: LONG_VIDEO_FAULTS[name][1] in row['fails']
+             for name, row in rows.items()})
+
+
 def main() -> None:
+    import argparse
     import tempfile
 
     import torch
+    ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    ap.add_argument('--only', choices=['long_video'],
+                    help='run only this group of faults')
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         cs.die('no CUDA device: this script runs only on a GPU')
     cs.full_fp32()
     cs.log(f'# nvidia-smi: {cs.card()}')
     pipe = cs.build_pipeline('cuda', torch.bfloat16)
+    if args.only == 'long_video':
+        rows = long_video_rows(pipe)
+        sound_ok, caught = long_video_caught(rows)
+        ok = sound_ok and all(caught.values())
+        print(json.dumps({'ok': ok, 'long_video_tol': cs.LONG_MODULE_TOL,
+                          'long_video_faults': rows, 'caught': caught}),
+              flush=True)
+        sys.exit(0 if ok else 1)
     cpu = cs.cpu_copy(pipe)
     ref_unet, ref_small = cs.unet_forward(cpu.unet), cs.small_sample(cpu)
     cpu_trainer = cs.make_trainer(cpu, remat=False)
@@ -1229,6 +1367,8 @@ def main() -> None:
     lora_dir.cleanup()
     edlora = edlora_clip_attn_rows(pipe)
     edlora_sound = edlora.pop('sound')
+    long_video = long_video_rows(pipe)
+    long_video_sound_ok, long_video_caught_ = long_video_caught(long_video)
     recipe = recipe_rows(pipe, cpu)
     atlas_recipe = atlas_recipe_rows()
     atlas_recipe_sound = atlas_recipe.pop('sound')
@@ -1291,6 +1431,7 @@ def main() -> None:
         caught[name] = SP_FAULTS[name][1] in row['semantic_points_fails']
     for name, row in edlora.items():
         caught[name] = EDLORA_FAULTS[name][1] in row['fails']
+    caught.update(long_video_caught_)
     ok = not any(v for k, v in sound.items() if k.endswith('_fails')) \
         and not sound['recipe_shapes_error'] \
         and not recipe_sound['dpm_small_fails'] \
@@ -1299,6 +1440,7 @@ def main() -> None:
         and not atlas_recipe_sound['atlas_recipe_fails'] \
         and not sp_sound['semantic_points_fails'] \
         and not edlora_sound['fails'] \
+        and long_video_sound_ok \
         and all(caught.values())
     print(json.dumps({'ok': ok, 'unet_tol': cs.MODEL_REL_TOL,
                       'small_tol': cs.SAMPLE_REL_TOL,
@@ -1345,6 +1487,8 @@ def main() -> None:
                                       'attn_row': cs.ATTN_ROW_TOL},
                       'edlora_sound': edlora_sound,
                       'edlora_faults': edlora,
+                      'long_video_tol': cs.LONG_MODULE_TOL,
+                      'long_video_faults': long_video,
                       'caught': caught}), flush=True)
     sys.exit(0 if ok else 1)
 

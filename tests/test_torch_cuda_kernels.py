@@ -1030,3 +1030,79 @@ def test_geglu_at_the_edlora_shapes(cuda, n, c):
     for name, g, r in zip(('x', 'w1', 'b1', 'w2', 'b2'), grads, ref_grads):
         assert g.dtype == torch.bfloat16, name
         assert _close(g, r, 2e-2), name
+
+
+# ------------------------------------------------------------- long video
+def _seeded(module, seed, device):
+    """`module` with seeded weights (non-zero vectors too), bf16 on
+    `device`, frozen."""
+    from videoswap_torch.utils.init import init_weights
+    gen = torch.Generator().manual_seed(seed)
+    init_weights(module, gen)
+    with torch.no_grad():
+        for p in module.parameters():
+            if p.dim() == 1:
+                p.add_(torch.randn(p.shape, generator=gen), alpha=0.1)
+    return module.to(device, torch.bfloat16).requires_grad_(False).eval()
+
+
+@pytest.mark.parametrize('c,stride', [(320, 8), (320, 6), (640, 8),
+                                      (1280, 8)])
+def test_windowed_motion_module_matches_plain(cuda, c, stride):
+    """32 frames through windows of 16 (stride 6: a flush window and
+    frames in three windows): layer-wise on the card (temporal attention
+    on the windows, GEGLU on the FFN, no fused launch), against the same
+    module in fp32 on the CPU (the plain versions), relative to the
+    largest |plain| entry as the fused module's (5e-2: x + the module
+    through about ten bf16 roundings), and the same bits twice."""
+    from videoswap_torch.models.motion_module import VanillaTemporalModule
+    module = _seeded(VanillaTemporalModule(c, window=16, stride=stride), 0,
+                     cuda)
+    x = _randn((2, 32, 4, 4, c), 1).to(cuda).bfloat16()
+    before = (tft.launches, tta.launches, tgf.launches + tgf.gate_launches)
+    with torch.no_grad():
+        out = module(x)
+        again = module(x)
+        ref = module.to('cpu', torch.float32)(x.float().cpu())
+    assert tft.launches == before[0]
+    assert tta.launches > before[1] and \
+        tgf.launches + tgf.gate_launches > before[2]
+    assert torch.equal(out, again)
+    err = (out.float().cpu() - ref).abs().max() / ref.abs().max()
+    assert err.item() < 5e-2
+
+
+@pytest.mark.parametrize('mode', [False, True, 'edges', 'save_flash',
+                                  'edges_sf'])
+def test_recompute_modes_launch_the_flash_forward(cuda, mode):
+    """A small U-Net on the card with a sample that needs a gradient (so
+    every block recomputes under True): one forward and backward launches
+    the flash forward once a site, twice at the recomputed sites under
+    True ('edges': the level-0 blocks'), once under the save_flash
+    policies, whose gradients equal True's."""
+    from videoswap_torch.models import AnimateDiffUNet3DModel, UNet3DConfig
+    cfg = UNet3DConfig(block_out_channels=(64, 64, 128, 128),
+                       attention_head_dim=8, cross_attention_dim=64,
+                       motion_heads=8)
+    unet = _seeded(AnimateDiffUNet3DModel(cfg), 2, cuda)
+    x = _randn((1, 2, 16, 16, 4), 3).to(cuda).bfloat16()
+    text = _randn((1, 77, 64), 4).to(cuda).bfloat16()
+
+    def run(m):
+        unet.set_gradient_checkpointing(m)
+        xs = x.clone().requires_grad_()
+        before = tfa.launches
+        out = unet(xs, torch.tensor([500], device=cuda), text)
+        sites = tfa.launches - before
+        out.float().square().mean().backward()
+        return sites, tfa.launches - before, xs.grad
+
+    sites, _, ref_grad = run(True)
+    level0 = sum(2 * len(t.transformer_blocks)
+                 for b in (unet.down_blocks[0], unet.up_blocks[-1])
+                 for t in b.attentions)
+    _, total, grad = run(mode)
+    expected = {False: sites, True: 2 * sites, 'edges': sites + level0,
+                'save_flash': sites, 'edges_sf': sites}[mode]
+    assert total == expected, (mode, total, sites, level0)
+    assert torch.equal(grad, ref_grad)

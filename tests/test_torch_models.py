@@ -389,32 +389,16 @@ def test_registries_are_separate():
     assert JREG.get('AnimateDiffUNet3DModel') is JUNet
 
 
-def _too_many_frames():
-    from videoswap_torch.models.motion_module import TemporalTransformerBlock
-    TemporalTransformerBlock(16, heads=2, max_len=4)(torch.zeros((1, 5, 16)))
-
-
 def _edlora_shard():
     from videoswap_torch.train_edlora import train
     train('.', type('A', (), {'opt': 'unused.yml', 'shard': 2})())
 
 
 @pytest.mark.parametrize('refused, error, item', [
-    (lambda: AnimateDiffUNet3DModel(UNet3DConfig(
-        block_out_channels=(8, 8, 16, 16), norm_num_groups=4,
-        motion_window=4)), NotImplementedError, 4),
-    (lambda: AnimateDiffUNet3DModel(UNet3DConfig(
-        block_out_channels=(8, 8, 16, 16), norm_num_groups=4),
-        gradient_checkpointing='save_flash'), NotImplementedError, 4),
-    (lambda: AnimateDiffUNet3DModel(UNet3DConfig(
-        block_out_channels=(8, 8, 16, 16), norm_num_groups=4),
-        gradient_checkpointing='edges_sf'), NotImplementedError, 4),
-    (_too_many_frames, ValueError, 4),
     (_edlora_shard, NotImplementedError, 9),
-], ids=['motion_window', 'save_flash', 'edges_sf', 'long_video',
-        'train_edlora_shard'])
+], ids=['train_edlora_shard'])
 def test_unported_features_name_their_queue_item(refused, error, item):
     """Each refusal of a feature the port lacks names its ROADMAP.md Queue 1
-    item (4: the U-Net leftovers; 9: multi-device runs)."""
+    item (9: multi-device runs)."""
     with pytest.raises(error, match=f'ROADMAP.md Queue 1 item {item}\\)'):
         refused()

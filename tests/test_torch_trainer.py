@@ -10,6 +10,7 @@ apart from bf16 models training the adapter with fp32 weights.
 """
 
 import math
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -35,6 +36,7 @@ from videoswap_torch.builders import build_models
 from videoswap_torch.models.adapter import local_loss_mask
 from videoswap_torch.models.converters import jax_params_to_state_dict
 from videoswap_torch.models.vae import AutoencoderKL
+from videoswap_torch.ops import flash_attention as tfa
 from videoswap_torch.pipelines import VideoSwapTrainer, sample_biased_timestep
 from videoswap_torch.utils.init import init_weights
 
@@ -304,7 +306,7 @@ def remat_case(trainers):
     return batch, draws, grads
 
 
-@pytest.mark.parametrize('mode', [True, 'edges'])
+@pytest.mark.parametrize('mode', [True, 'edges', 'save_flash', 'edges_sf'])
 def test_remat_gives_the_same_gradient(trainers, remat_case, mode):
     _, _, tr = trainers
     batch, draws, plain = remat_case
@@ -318,11 +320,49 @@ def test_remat_gives_the_same_gradient(trainers, remat_case, mode):
                                    rtol=1e-6, atol=1e-9, err_msg=name)
 
 
-def test_remat_refuses_what_is_not_ported(trainers):
+@pytest.mark.parametrize('mode', [False, True, 'edges', 'save_flash',
+                                  'edges_sf'])
+def test_flash_forward_runs_once_a_site_when_saved(trainers, remat_case,
+                                                   mode):
+    """The flash forward's calls in a loss and its backward: once a site
+    without recompute and under the save_flash policies; True adds one at
+    every recomputed site (every block's but the level-0 down block's,
+    which comes before the first adapter residual: nothing there needs a
+    gradient), 'edges' one at the level-0 up block's."""
     _, _, tr = trainers
-    for mode in ('save_flash', 'edges_sf'):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            tr.unet.set_gradient_checkpointing(mode)
+    batch, draws, _ = remat_case
+    unet = tr.unet
+    calls, marks = [0], {}
+
+    def counting(*args, **kwargs):
+        calls[0] += 1
+        return plain(*args, **kwargs)
+
+    def mark(name):
+        return lambda *_: marks.setdefault(name, []).append(calls[0])
+
+    plain = tfa.flash_attention_plain
+    hooks = [unet.down_blocks[0].register_forward_pre_hook(mark('down0')),
+             unet.down_blocks[0].register_forward_hook(mark('down0')),
+             unet.up_blocks[-1].register_forward_pre_hook(mark('up0')),
+             unet.up_blocks[-1].register_forward_hook(mark('up0'))]
+    try:
+        unet.set_gradient_checkpointing(mode)
+        tr.adapter.zero_grad(set_to_none=True)
+        with mock.patch.object(tfa, 'flash_attention_plain', counting):
+            loss = tr.loss_fn(batch, draws)
+            sites = calls[0]
+            loss.backward()
+    finally:
+        for h in hooks:
+            h.remove()
+        unet.set_gradient_checkpointing('edges')
+    down0 = marks['down0'][1] - marks['down0'][0]
+    up0 = marks['up0'][1] - marks['up0'][0]
+    assert sites > down0 > 0 and up0 > 0
+    expected = {False: sites, True: 2 * sites - down0, 'edges': sites + up0,
+                'save_flash': sites, 'edges_sf': sites}[mode]
+    assert calls[0] == expected, (mode, calls[0], sites, down0, up0)
 
 
 def test_step_with_a_fixed_draw_lowers_the_loss():

@@ -17,7 +17,8 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from videoswap_torch.p2p import NO_CTRL, AttnCtrl
 from videoswap_torch.utils.registry import MODEL_REGISTRY
@@ -43,7 +44,10 @@ class UNet3DConfig(NamedTuple):
     motion_heads: int = 8
     motion_num_transformer_block: int = 1
     motion_max_len: int = 24
-    motion_window: Optional[int] = None          # not ported yet
+    # long video: sliding-window temporal attention for clips longer than
+    # motion_max_len frames (the config's long_video_config). None = full
+    # attention
+    motion_window: Optional[int] = None
     motion_window_stride: Optional[int] = None
 
 
@@ -51,7 +55,8 @@ def _motion(cfg: UNet3DConfig, ch: int) -> VanillaTemporalModule:
     return VanillaTemporalModule(
         ch, heads=cfg.motion_heads,
         num_transformer_block=cfg.motion_num_transformer_block,
-        max_len=cfg.motion_max_len, norm_groups=cfg.norm_num_groups)
+        max_len=cfg.motion_max_len, norm_groups=cfg.norm_num_groups,
+        window=cfg.motion_window, stride=cfg.motion_window_stride)
 
 
 def _resnet(cfg: UNet3DConfig, cin: int, cout: int) -> ResnetBlock3D:
@@ -70,17 +75,35 @@ def _transformer(cfg, ch, cross_layer_idx, place, attn_index):
                               attn_index=attn_index)
 
 
+def _save_flash_policy(ctx, op, *args, **kwargs):
+    """Keep the flash forward's out and lse through a recompute (the JAX
+    package's `save_only_these_names('flash_out', 'flash_lse')`), recompute
+    everything else."""
+    if op is torch.ops.videoswap.flash_fwd.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _save_flash_context():
+    return create_selective_checkpoint_contexts(_save_flash_policy)
+
+
 class _Block(nn.Module):
     """A U-Net block whose ResnetBlock3D and Transformer3DModel layers (the
     two the JAX package wraps in `nn.remat`) are recomputed in the backward
-    pass when `remat` is set and a graph is being recorded."""
+    pass when `remat` is set and a graph is being recorded: every op
+    (`remat` True), or every op but the flash forward, whose outputs are
+    kept (`remat` 'save_flash')."""
 
-    remat = False
+    remat: bool | str = False
 
     def _run(self, layer, *args, **kwargs):
-        if self.remat and torch.is_grad_enabled():
-            return checkpoint(layer, *args, use_reentrant=False, **kwargs)
-        return layer(*args, **kwargs)
+        if not (self.remat and torch.is_grad_enabled()):
+            return layer(*args, **kwargs)
+        if self.remat == 'save_flash':
+            return checkpoint(layer, *args, use_reentrant=False,
+                              context_fn=_save_flash_context, **kwargs)
+        return checkpoint(layer, *args, use_reentrant=False, **kwargs)
 
 
 class CrossAttnDownBlock3D(_Block):
@@ -253,10 +276,6 @@ class AnimateDiffUNet3DModel(nn.Module):
     def __init__(self, cfg: UNet3DConfig = UNet3DConfig(),
                  gradient_checkpointing: bool | str = False):
         super().__init__()
-        if cfg.motion_window is not None:
-            raise NotImplementedError(
-                'windowed motion modules are not ported yet (ROADMAP.md '
-                'Queue 1 item 4)')
         self.cfg = cfg
         chans = tuple(cfg.block_out_channels)
         temb_dim = chans[0] * 4
@@ -304,24 +323,29 @@ class AnimateDiffUNet3DModel(nn.Module):
         self.set_gradient_checkpointing(gradient_checkpointing)
 
     def set_gradient_checkpointing(self, mode: bool | str) -> None:
-        """False: keep every activation for the backward. True: recompute
-        the resnet and spatial-transformer layers of every block. 'edges':
-        recompute them only in the full-resolution (level 0) blocks, whose
-        activations are the largest, and keep everything deeper (the
-        training default)."""
-        if mode in ('save_flash', 'edges_sf'):
-            raise NotImplementedError(
-                f'gradient_checkpointing={mode!r} needs a selective '
-                'checkpoint policy and is not ported yet (ROADMAP.md Queue 1 '
-                'item 4)')
-        if mode not in (False, True, 'edges'):
+        """The recompute in the backward pass of the resnet and
+        spatial-transformer layers, by block. False: keep every activation.
+        True: recompute every block. 'edges': recompute only the
+        full-resolution (level 0) blocks, whose activations are the
+        largest, and keep everything deeper (the adapter trainer's
+        default). 'save_flash': recompute every block but keep each flash
+        site's out and lse (a selective-checkpoint policy on the
+        `videoswap::flash_fwd` op), so that the backward does not run the
+        flash forward again. 'edges_sf': 'save_flash' in the level-0
+        blocks, everything kept deeper."""
+        if mode not in (False, True, 'edges', 'save_flash', 'edges_sf'):
             raise ValueError(f'unknown gradient_checkpointing: {mode!r}')
         top = len(self.down_blocks) - 1
         levels = ([(b, i) for i, b in enumerate(self.down_blocks)]
                   + [(self.mid_block, top)]
                   + [(b, top - i) for i, b in enumerate(self.up_blocks)])
         for block, level in levels:
-            block.remat = level == 0 if mode == 'edges' else bool(mode)
+            if mode == 'edges':
+                block.remat = level == 0
+            elif mode == 'edges_sf':
+                block.remat = 'save_flash' if level == 0 else False
+            else:
+                block.remat = mode
         self.gradient_checkpointing = mode
 
     def forward(self, sample: torch.Tensor, timesteps,

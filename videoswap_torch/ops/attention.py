@@ -56,8 +56,10 @@ def attention_with_probs(
 ):
     """Returns (out (B, Sq, D), probs (B, heads, Sq, Sk) before any edit)."""
     qh, kh, vh = (_split_heads(t, heads) for t in (q, k, v))
+    # the scale on q, not on the larger logits; the same arithmetic as
+    # flash_attention_plain, so that a site gives the same bits on either
     scale = qh.shape[-1] ** -0.5
-    logits = torch.einsum('bqhd,bkhd->bhqk', qh.float(), kh.float()) * scale
+    logits = torch.einsum('bqhd,bkhd->bhqk', qh.float() * scale, kh.float())
     probs = torch.softmax(logits, dim=-1)
     used = edit_fn(probs) if edit_fn is not None else probs
     out = torch.einsum('bhqk,bkhd->bqhd', used.to(v.dtype), vh)

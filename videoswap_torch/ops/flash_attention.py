@@ -19,6 +19,13 @@ them. On CPU tensors `flash_attention_bwd_plain`.
 the `FlashAttention` autograd Function, which saves q, k, v, out and lse
 and takes `flash_attention_bwd` as its backward (no graph is recorded when
 nothing needs a gradient).
+
+The forward is the operator `torch.ops.videoswap.flash_fwd(q, k, v) ->
+(out, lse)` (`flash_attention_fwd` calls it): its CUDA implementation is
+`flash_attention_kernel`, its CPU implementation `flash_attention_plain`.
+As an operator it is seen by a selective-checkpoint policy, which can keep
+its outputs through a recompute (the U-Net's 'save_flash' mode; the JAX
+package's `checkpoint_name(out, 'flash_out')` / `'flash_lse'` tags).
 """
 
 from __future__ import annotations
@@ -43,17 +50,23 @@ HEAD_DIMS = (8, 16, 24, 32, 40, 48, 56, 64, 72, 80, 88, 96, 120, 128, 152,
 
 
 def flash_attention_plain(q, k, v, batch_chunk: int | None = None):
-    """Materialised-softmax statement of the same function. `batch_chunk`
-    bounds the (chunk, H, Sq, Sk) fp32 logits at large shapes."""
+    """Materialised-softmax statement of the same function, with the
+    arithmetic of `ops.attention.attention_with_probs` (the controlled
+    sites' route), so that a site gives the same bits on either.
+    `batch_chunk` bounds the (chunk, H, Sq, Sk) fp32 logits at large
+    shapes."""
     b, sq, h, d = q.shape
     chunk = batch_chunk or b
     outs, lses = [], []
     for i in range(0, b, chunk):
         qc, kc, vc = q[i:i + chunk], k[i:i + chunk], v[i:i + chunk]
-        logits = torch.einsum('bqhd,bkhd->bhqk', qc.float(),
-                              kc.float()) * d ** -0.5
-        lses.append(torch.logsumexp(logits, dim=-1).reshape(-1, sq))
+        logits = torch.einsum('bqhd,bkhd->bhqk', qc.float() * d ** -0.5,
+                              kc.float())
         probs = torch.softmax(logits, dim=-1)
+        # the largest probability is exp(max - lse): the logsumexp from two
+        # reads of the logits-sized tensors, not four passes of its own
+        lse = logits.amax(dim=-1) - probs.amax(dim=-1).log()
+        lses.append(lse.reshape(-1, sq))
         outs.append(torch.einsum('bhqk,bkhd->bqhd', probs.to(v.dtype), vc))
     return torch.cat(outs).to(q.dtype), torch.cat(lses)
 
@@ -190,11 +203,28 @@ def flash_attention_bwd_kernel(q, k, v, out, lse, dout, need_q=True,
     return dq, dk, dv
 
 
+@torch.library.custom_op('videoswap::flash_fwd', mutates_args=(),
+                         device_types='cpu')
+def flash_fwd(q: torch.Tensor, k: torch.Tensor,
+              v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    return flash_attention_plain(q, k, v)
+
+
+@flash_fwd.register_kernel('cuda')
+def _flash_fwd_cuda(q, k, v):
+    return flash_attention_kernel(q, k, v)
+
+
+@flash_fwd.register_fake
+def _flash_fwd_fake(q, k, v):
+    b, sq, h, _ = q.shape
+    return (q.new_empty(q.shape),
+            q.new_empty((b * h, sq), dtype=torch.float32))
+
+
 def flash_attention_fwd(q, k, v):
     """q: (B, Sq, H, D); k, v: (B, Sk, H, D) -> (out, lse (B*H, Sq))."""
-    if q.is_cuda:
-        return flash_attention_kernel(q, k, v)
-    return flash_attention_plain(q, k, v)
+    return torch.ops.videoswap.flash_fwd(q, k, v)
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, need_q=True,

@@ -45,7 +45,9 @@ def temporal_attention_plain(q2, k2, v2, heads: int, f: int):
     n, c = q2.shape
     d = c // heads
     qh, kh, vh = (t.reshape(n // f, f, heads, d).float() for t in (q2, k2, v2))
-    s = torch.einsum('lfhd,lghd->lhfg', qh, kh) * d ** -0.5
+    # the scale on q, as ops.attention.attention_with_probs and
+    # flash_attention_plain take it: a site gives the same bits on any
+    s = torch.einsum('lfhd,lghd->lhfg', qh * d ** -0.5, kh)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum('lhfg,lghd->lfhd', p, vh)
     return out.reshape(n, c).to(q2.dtype)
