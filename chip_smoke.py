@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (videoswap_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases build,kernels,unrouted,unet,small,dpm_small,sample,long_video,train_small,train,edlora_small,edlora,blend_small,blend,recipe,clip_attn,train_recipe,semantic_points,atlas_small,atlas,atlas_recipe]
+    python3 chip_smoke.py [--phases build,kernels,unrouted,unet,small,dpm_small,sample,long_video,train_small,train,edlora_small,edlora,blend_small,blend,recipe,sharded,clip_attn,train_recipe,semantic_points,atlas_small,atlas,atlas_recipe]
 
 Phases (all by default):
 
@@ -141,7 +141,8 @@ Phases (all by default):
                window): inversion with attention stores, one swap with a
                synthetic ED-LoRA file, cross and self replacement 0.5 and
                latent blending, in both recompute-self tiers; GPU bf16 latents
-               against the CPU fp32 pipeline, the merged weights restored,
+               against the CPU fp32 pipeline (one CPU run, the recompute
+               tier's, since PR 18), the merged weights restored,
                and, in a third GPU run at blend threshold BLEND_CHECK_TH, the
                blend seen (BlendCheck: at each blended step, the share of
                latents equal to the inversion's bit for bit, which is where
@@ -180,6 +181,25 @@ Phases (all by default):
                through the CLI, at the same checks, the fused temporal
                kernel not launched, the dataset reading every other frame
                of the 64;
+- sharded:     the eighteenth slice's path, the sharded swap
+               (videoswap_torch/parallel/): SHARD_WORLD (4) spawned ranks of
+               one gloo world time-share cuda:0 (NCCL refuses two ranks on
+               one GPU), each builds the full-width models from SEED and
+               runs the sample phase's `sample` (16 frames, 512x512, CFG
+               7.5, adapter, 4 DDIM steps) at the layouts (1, 2, 1),
+               (1, 1, 2) and (1, 2, 2), each on a sub-group: per layout and
+               rank the step times, peak memory, each collective's bytes a
+               step and the launches of flash forward, GEGLU (fused and
+               gate), temporal attention and fused temporal, which must
+               equal the unsharded run's (one a site a step), the latents
+               against the unsharded run in this process (SHARD_REL_TOL;
+               its noise floor printed beside), the blend masks' tp head
+               sum on seeded maps against every head's; then the 1009
+               recipe as the recipe phase cuts it (without the CLIP
+               scorer) through `torchrun --nproc_per_node 4 -m
+               videoswap_torch.test --shard 1,2,2`: its frames against the
+               recipe phase's unsharded ones (SHARD_CLI_TOL), and rank 0's
+               files alone written. Needs the recipe phase before it;
 - clip_attn:   the swap CLI's CLIP scorer (make_clip_scorer: ViT-L/14,
                random weights from the seeded CPU generator) on the 1009
                recipe CLI run's source and swap, with its tokenizer, GPU
@@ -270,7 +290,8 @@ Phases (all by default):
                annotation/TAP_duck.pth; then the checks: the flows' medians
                on the disk and the background against the known motion,
                the CLI's flow file against a direct call, the card's flow
-               against the CPU's on two pairs (ATLAS_FLOW_OFF_SHARE,
+               against the CPU's on one pair (two before PR 18's cut;
+               ATLAS_FLOW_OFF_SHARE,
                ATLAS_FLOW_MEDIAN_TOL) and its box filter alone
                (ATLAS_BOX_FILTER_TOL), the CLI's logged losses bit-equal
                to an AtlasTrainer driven directly from the same seed, one
@@ -317,6 +338,7 @@ the repository, or when any phase fails. Its last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import functools
 import json
@@ -333,7 +355,8 @@ ROOT = Path(__file__).resolve().parent
 PHASES = ('build', 'kernels', 'unrouted', 'unet', 'small', 'dpm_small',
           'sample', 'long_video', 'train_small', 'train', 'edlora_small',
           'edlora',
-          'blend_small', 'blend', 'recipe', 'clip_attn', 'train_recipe',
+          'blend_small', 'blend', 'recipe', 'sharded', 'clip_attn',
+          'train_recipe',
           'semantic_points', 'atlas_small', 'atlas', 'atlas_recipe')
 SEED = 0
 FRAMES, SIZE, POINTS = 16, 512, 10
@@ -1056,29 +1079,33 @@ def _grad_check(name, fn, plain, args, dout):
         raise PhaseError(f'{name} gradient: error {max(errs):.3e}')
 
 
-def _geglu_case(report, gen, n, c, tag=''):
+def _geglu_case(report, gen, n, c, tag='', hid=None):
     """GEGLU at N rows and width C by its width's route (the fused kernel
     at C <= 640, above it the split route, whose gate pass is checked and
-    timed alone too). No single PyTorch call computes the FFN: the two
+    timed alone too), with `hid` hidden units (4C, or a tensor-parallel
+    rank's 4C / tp). No single PyTorch call computes the FFN: the two
     cuBLAS products alone on inputs of the same shapes stand in the library
     column."""
     import torch.nn.functional as F
     from videoswap_torch.ops import geglu_ffn as gf
+    h = hid or 4 * c
     f32 = (lambda ts: [t.float() for t in ts])
-    args = [_rand(gen, (n, c)), _rand(gen, (8 * c, c), c ** -0.5),
-            _rand(gen, (8 * c,), 0.1), _rand(gen, (c, 4 * c),
-                                             (4 * c) ** -0.5),
+    args = [_rand(gen, (n, c)), _rand(gen, (2 * h, c), c ** -0.5),
+            _rand(gen, (2 * h,), 0.1), _rand(gen, (c, h), h ** -0.5),
             _rand(gen, (c,), 0.1)]
-    g_in = _rand(gen, (n, 4 * c))
+    g_in = _rand(gen, (n, h))
     route = 'fused' if gf.takes_fused_route(c) else 'split'
-    _compare('geglu_ffn', f'N={n} C={c} ({route}){tag}',
+    width = f' H={h}' if hid else ''
+    _compare('geglu_ffn', f'N={n} C={c}{width} ({route}){tag}',
              lambda: gf.geglu_ffn(*args),
              lambda: gf.geglu_ffn_plain(*args),
              lambda: gf.geglu_ffn_plain(*f32(args)), report,
-             (24 * n * c * c, 2 * (2 * n * c + 12 * c * c + 9 * c)),
+             (6 * n * c * h, 2 * (2 * n * c + 3 * c * h + 2 * h + c)),
              lambda: cuda_time_ms(lambda: (
                  F.linear(args[0], args[1], args[2]),
                  F.linear(g_in, args[3], args[4])), 10), route=route)
+    if hid:
+        return
     if route == 'fused':
         # the split route at this width, for the choice of route (the
         # JAX package's gate fixes it at MAX_KERNEL_WIDTH)
@@ -1226,6 +1253,11 @@ def phase_kernels(report):
     report['kernels']['geglu_ffn']['library_is'] = (
         'the two cuBLAS products alone (F.linear(x, w1, b1), '
         'F.linear(g, w2, b2))')
+    # a tensor-parallel rank's shard (the sharded phase's tp = 2 and 4):
+    # H = 4C / tp hidden units at levels 0 and 1
+    for tp in SHARD_TP_WIDTHS:
+        for n, c in ((131072, 320), (32768, 640)):
+            _geglu_case(report, gen, n, c, f' (tp={tp})', hid=4 * c // tp)
 
     # temporal attention: L locations x F=16 frames, 8 heads, at the U-Net
     # levels' shapes (the swap launches it at C = 1280: 2 x 16 x 16 and
@@ -3232,21 +3264,26 @@ def phase_blend_small(report, state):
     with tempfile.TemporaryDirectory() as d:
         lora = os.path.join(d, 'edlora_hermione.pth')
         edlora_file(pipe, lora)
+        # one CPU reference, the recompute tier's, for both GPU tiers: the
+        # CPU's two tiers agree to 1e-5 (tests/test_torch_blend.py); since
+        # PR 18, to keep the script inside its time (the second CPU run
+        # took ~55 s)
+        t0 = time.perf_counter()
+        ref, _ = blend_small_run(cpu, lora, True)
+        t_cpu = time.perf_counter() - t0
         for tier in (False, True):
             t0 = time.perf_counter()
             out, _ = blend_small_run(pipe, lora, tier)
             torch.cuda.synchronize()
             t_gpu = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            ref, _ = blend_small_run(cpu, lora, tier)
-            t_cpu = time.perf_counter() - t0
             err = rel_err(out, ref)
             errs[tier] = err
             ok = bool(torch.isfinite(out).all()) and err <= BLEND_REL_TOL
             log(f'# blend_small 256x256 2 frames {BLEND_STEPS} steps, '
                 f'ED-LoRA swap, recompute_self {tier}: GPU bf16 vs CPU fp32 '
-                f'latents rel L2 err {err:.3e} (tol {BLEND_REL_TOL:g}); GPU '
-                f'{t_gpu:.2f} s, CPU {t_cpu:.1f} s {"ok" if ok else "FAIL"}')
+                f'(recompute tier) latents rel L2 err {err:.3e} (tol '
+                f'{BLEND_REL_TOL:g}); GPU {t_gpu:.2f} s, CPU {t_cpu:.1f} s '
+                f'{"ok" if ok else "FAIL"}')
             if not ok:
                 raise PhaseError(f'blend_small (recompute_self {tier}) GPU '
                                  f'vs CPU: rel err {err:.3e}')
@@ -3867,6 +3904,468 @@ def phase_recipe(report, state):
     if fails:
         raise PhaseError(f'recipe 2001_long: {fails}')
 
+
+
+# ---------------------------------------------------------------- sharded
+# the sharded swap on the one card: SHARD_WORLD ranks of one gloo world
+# (NCCL refuses two ranks on one GPU) time-share cuda:0, each layout of
+# SHARD_LAYOUTS on a sub-group of it
+SHARD_WORLD = 4
+SHARD_LAYOUTS = (((1, 2, 1), (0, 1)), ((1, 1, 2), (0, 1)),
+                 ((1, 2, 2), (0, 1, 2, 3)))
+SHARD_TP_WIDTHS = (2, 4)
+SHARD_CLI = (1, 2, 2)
+SHARD_KERNELS = ('flash_attention_fwd', 'geglu_ffn', 'geglu_gate',
+                 'temporal_attention', 'fused_temporal')
+# sharded against unsharded, both bf16 on the card, rel L2 of the sample's
+# latents after 4 steps: the ranks run the same kernels on other batch
+# compositions, so what differs is bf16 rounding (cuBLAS's products of
+# other row counts, the tp partial products rounded to bf16 and summed),
+# amplified through 4 steps of CFG 7.5 by random weights. The sound
+# readings (PR 18 calls 2 and 4, the partial products summed in fp32) were
+# 2.90e-2 to 3.16e-2 at the three layouts, the size of the phase's own
+# noise floor: the unsharded run with the CFG prefix dedup off (the same
+# arithmetic on a batch of 2 rows; 3.06e-2, printed as `floor`). The limit
+# is twice that; the bf16 sum's readings are in PERF.md (PR 18)
+SHARD_REL_TOL = 6e-2
+# the 1009 recipe through `torchrun --shard 1,2,2` against the recipe
+# phase's unsharded CLI frames (uint8), rel L2: sound 4.51e-2 (calls 2 and
+# 4), the latents' noise after the inversion and 5 edit steps through the
+# VAE decode; the limit is twice that. (A latent comparison of a blended
+# swap at the blend threshold of BlendCheck, 0.99, is ill-conditioned: a
+# bf16 rounding flips mask entries, 0.62 rel L2 sound, call 2.)
+SHARD_CLI_TOL = 9e-2
+# the sharded building blocks at full width on the (1, 2, 2) mesh against
+# the same module run whole on the rank (shard_block_errs), rel L2: the
+# resnet GroupNorm in fp32 (its sums in another order: ~1e-7), the level-0
+# attention and GEGLU FFN in bf16 (the tp partial products rounded to bf16
+# and summed: a few bf16 ulps), the all-to-all round trip bit-equal
+SHARD_BLOCK_TOLS = {'group_norm': 1e-4, 'attn_self': 2e-2,
+                    'attn_cross': 2e-2, 'ffn': 2e-2, 'round_trip': 0.0}
+
+
+def sharded_rank(rank: int, world: int, init: str, plant, q,
+                 blocks_only: bool = False):
+    """One rank of the sharded phase's world on cuda:0: the sample at each
+    layout of SHARD_LAYOUTS that holds it (ranks not in a layout wait at a
+    barrier), then the blend masks' tp head sum (shard_mask_differ) and the
+    building blocks (shard_block_errs; `blocks_only`: these alone); its
+    readings into `q`."""
+    import traceback
+    try:
+        import torch
+        sys.path.insert(0, str(ROOT))
+        torch.cuda.set_device(0)
+        torch.set_num_threads(2)        # four ranks on the host's cores
+        full_fp32()
+        from videoswap_torch.parallel import dist as vdist
+        from videoswap_torch.parallel import make_mesh, shard_pipeline
+        from videoswap_torch.parallel import sharding
+        backend = vdist.initialize('cuda', init, rank, world)
+        ctx = contextlib.nullcontext()
+        if plant:
+            ctx = _fault_control().SHARD_FAULTS[plant][0]()
+        out = {'backend': backend, 'layouts': {}}
+        with ctx:
+            t0 = time.perf_counter()
+            pipe = build_pipeline('cuda', torch.bfloat16)
+            out['build_s'] = time.perf_counter() - t0
+            layouts = SHARD_LAYOUTS[-1:] if blocks_only else SHARD_LAYOUTS
+            meshes = [(shape, make_mesh(shape, ranks))
+                      for shape, ranks in layouts]
+            if not blocks_only:
+                # every rank's first U-Net call (the libraries' set-up)
+                t0 = time.perf_counter()
+                unet_forward(pipe.unet)
+                torch.cuda.synchronize()
+                out['warmup_s'] = time.perf_counter() - t0
+                for shape, mesh in meshes:
+                    if mesh.member:
+                        out['layouts'][str(shape)] = shard_sample_run(
+                            shard_pipeline(pipe, mesh), mesh)
+                        torch.cuda.empty_cache()
+                    vdist.barrier()
+                out['mask_differ'] = shard_mask_differ(meshes[-1][1])
+            out['blocks'] = shard_block_errs(pipe.unet, meshes[-1][1])
+        vdist.shutdown()
+        q.put((rank, True, out))
+    except BaseException:      # noqa: BLE001 - reported to the phase
+        q.put((rank, False, traceback.format_exc()))
+
+
+def shard_sample_run(pipe, mesh) -> dict:
+    """`sample` on a sharded pipeline: per-step seconds (host clock, the
+    card synchronised), peak memory, each collective's bytes a step, the
+    launches by kernel, and the last latents (on the mesh's first rank)."""
+    import numpy as np
+    import torch
+    from videoswap_torch.parallel import sharding
+    marks, last = [], []
+
+    def on_step(i, t, latents):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        last[:] = [latents]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    sharding.reset_moved()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        video = pipe.sample(callback=on_step, **sample_kwargs(FRAMES))
+    return {'step_s': [float(v) for v in np.diff([t0] + marks)],
+            'peak_gib': torch.cuda.max_memory_allocated() / 2 ** 30,
+            'moved_per_step': {k: v / STEPS
+                               for k, v in sharding.moved.items()},
+            'launches': read_launches(),
+            'latents': (last[0].float().cpu() if mesh.index == 0 else None),
+            'video_ok': bool(video.shape == (1, FRAMES, SIZE, SIZE, 3)
+                             and np.isfinite(video).all())}
+
+
+def shard_mask_differ(mesh) -> int:
+    """blend_mask on seeded maps whose heads 0-3 and 4-7 attend to the
+    two halves of a 16x16 map (so that the mean over every head is high on
+    both), the rank holding its tp heads under the mesh, against the mask
+    of every head computed on the rank: the entries that differ."""
+    import torch
+    from videoswap_torch.p2p import blend
+    from videoswap_torch.parallel import sharding
+    gen = torch.Generator().manual_seed(SEED)
+    maps = torch.rand((2, FRAMES, 8, 256, 77), generator=gen) * 0.1
+    maps[:, :, :4, :128] += 1.0
+    maps[:, :, 4:, 128:] += 1.0
+    alpha = (torch.rand((2, 77), generator=gen) > 0.8).float()
+    maps, alpha = maps.cuda(), alpha.cuda()
+    whole = blend.blend_mask([maps], alpha, 0.5, (64, 64), SIZE, SIZE)
+    h = 8 // mesh.tp
+    t = mesh.coord[2]
+    with sharding.mesh_scope(mesh):
+        local = blend.blend_mask([maps[:, :, t * h:(t + 1) * h]], alpha, 0.5,
+                                 (64, 64), SIZE, SIZE)
+    return int((local != whole).sum())
+
+
+def shard_block_errs(unet, mesh) -> dict:
+    """The sharded building blocks on `mesh` (sp and tp > 1) against the
+    same module run whole on this rank, on seeded inputs (the same on every
+    rank): the level-0 resnet's norm1 with the frames over sp, on a video
+    whose frames differ in mean and scale (so that a shard's own statistics
+    are wrong), in fp32; the level-0 spatial transformer's self- and
+    cross-attention and GEGLU FFN over tp, with biases drawn nonzero (the
+    seeded weights hold zero biases, under which a bias added on every tp
+    rank would not show), in bf16; and the motion modules' all-to-all
+    round trip on the rank's frames. Rel L2 each (the round trip: max abs)."""
+    import torch
+    from videoswap_torch.parallel import sharding
+    dev = next(unet.parameters()).device
+    blk0 = unet.down_blocks[0]
+    gn, whole = blk0.resnets[0].norm1, copy.deepcopy(
+        blk0.attentions[0].transformer_blocks[0])
+    c = gn.num_channels
+    gen = torch.Generator().manual_seed(SEED + 7)
+    h8 = SIZE // 8
+    ramp = torch.arange(FRAMES, dtype=torch.float32).view(1, -1, 1, 1, 1)
+    x = (torch.randn((1, FRAMES, h8, h8, c), generator=gen) * (1 + ramp / 4)
+         + ramp).to(dev)
+    tokens = torch.randn((2, h8 * h8, c), generator=gen).to(dev, torch.bfloat16)
+    ctx = torch.randn((2, 77, whole.attn2.to_k.weight.shape[1]),
+                      generator=gen).to(dev, torch.bfloat16)
+    with torch.no_grad():
+        for lin in (whole.attn1.to_out[0], whole.attn2.to_out[0],
+                    whole.ff.net[0].proj, whole.ff.net[2]):
+            lin.bias.copy_(torch.randn(lin.bias.shape, generator=gen))
+        ref = {'group_norm': gn(x), 'attn_self': whole.attn1(tokens),
+               'attn_cross': whole.attn2(tokens, ctx),
+               'ffn': whole.ff(tokens)}
+        part = copy.deepcopy(whole)
+        sharding.shard_unet(part, mesh)
+        lay = sharding.layout_for(1, FRAMES, mesh)
+        f0, f1 = lay.frames
+        out = {}
+        with sharding.video_run(sharding.VideoRun(mesh, lay, lay)):
+            out['group_norm'] = rel_err(gn(lay.take(x)),
+                                        ref['group_norm'][:, f0:f1])
+            both = lay.take(x).reshape(1, f1 - f0, h8 * h8, c).to(
+                torch.bfloat16)
+            split = sharding.location_split()
+            loc, el = sharding.frames_to_locations(both, split)
+            out['round_trip'] = float((sharding.locations_to_frames(
+                loc, split, el) - both).abs().max())
+        out['attn_self'] = rel_err(part.attn1(tokens), ref['attn_self'])
+        out['attn_cross'] = rel_err(part.attn2(tokens, ctx),
+                                    ref['attn_cross'])
+        out['ffn'] = rel_err(part.ff(tokens), ref['ffn'])
+    return out
+
+
+def _fault_control():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        'fault_control', ROOT / 'scripts' / 'fault_control.py')
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        return s.getsockname()[1]
+
+
+def run_shard_world(plant=None, timeout: float = 600.0,
+                    blocks_only: bool = False) -> list:
+    """SHARD_WORLD ranks of sharded_rank, spawned; their readings in rank
+    order. A rank that fails fails the phase; every rank is stopped."""
+    import queue
+
+    import torch.multiprocessing as mp
+    ctx = mp.get_context('spawn')
+    q = ctx.Queue()
+    init = f'tcp://127.0.0.1:{free_port()}'
+    procs = [ctx.Process(target=sharded_rank,
+                         args=(r, SHARD_WORLD, init, plant, q,
+                               blocks_only))
+             for r in range(SHARD_WORLD)]
+    for p in procs:
+        p.start()
+    out = {}
+    try:
+        for _ in procs:
+            rank, ok, value = q.get(timeout=timeout)
+            if not ok:
+                raise PhaseError(f'sharded: rank {rank} failed:\n{value}')
+            out[rank] = value
+    except queue.Empty:
+        raise PhaseError(f'sharded: the world timed out after {timeout} s')
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+    return [out[r] for r in range(SHARD_WORLD)]
+
+
+def sharded_cli_command(yml: Path, shape) -> list:
+    """The swap CLI under torchrun, one rank a mesh position."""
+    return [sys.executable, '-m', 'torch.distributed.run', '--standalone',
+            '--nproc_per_node', str(int(shape[0] * shape[1] * shape[2])),
+            '-m', 'videoswap_torch.test', '-opt', str(yml), '--shard',
+            ','.join(str(v) for v in shape)]
+
+
+def sharded_cli_run(tree: Path, root: Path, name: str = '1009') -> dict:
+    """RECIPES[name] through `sharded_cli_command` with `root` as the
+    working directory, without the CLIP scorer (whose random ViT-L/14 draw
+    on the CPU took 10.7 s of the run; the recipe phase's CLI run scores):
+    the command's seconds, its output's tail, the frames of the recipe's
+    swap and what the run wrote."""
+    import numpy as np
+    from PIL import Image
+    from videoswap_torch.utils.config import load_config
+    recipe = dict(RECIPES[name], clip=False)
+    yml = recipe_config(ROOT, name, tree, recipe, suffix='_sharded')
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS='2')
+    t0 = time.perf_counter()
+    res = subprocess.run(sharded_cli_command(yml, SHARD_CLI), cwd=root,
+                         env=env, capture_output=True, text=True,
+                         timeout=900)
+    r = {'seconds': time.perf_counter() - t0, 'code': res.returncode,
+         'tail': (res.stdout + res.stderr)[-3000:]}
+    exp = root / 'results' / load_config(str(yml))['name']
+    vis = exp / 'visualization'
+    swap = recipe['swap']
+    files = sorted((vis / swap / f'frames_{swap}').glob('*.png'))
+    r['frames'] = (np.stack([np.asarray(Image.open(f)) for f in files])
+                   if files else None)
+    r['written'] = {
+        'results': sorted(p.name for p in (root / 'results').iterdir())
+        if (root / 'results').is_dir() else [],
+        'logs': len(list(exp.glob('*.log'))),
+        'visualization': sorted(p.name for p in vis.iterdir())
+        if vis.is_dir() else []}
+    log_lines = [ln for ln in r['tail'].splitlines()
+                 if 'stage ' in ln or 'sharded' in ln or 'backend' in ln]
+    r['log'] = log_lines[-16:]
+    return r
+
+
+def sharded_readings(ranks: list, ref: dict) -> dict:
+    """The world's readings against the unsharded `ref` ('latents',
+    'counts', 'blend'): each layout's rel L2 and launches by rank, the
+    blend's rel L2."""
+    out = {'backend': sorted({r['backend'] for r in ranks}),
+           'build_s': [round(r['build_s'], 3) for r in ranks],
+           'warmup_s': [round(r['warmup_s'], 3) for r in ranks],
+           'floor': ref['floor'], 'layouts': {}}
+    for shape, group in SHARD_LAYOUTS:
+        key = str(shape)
+        runs = {rk: ranks[rk]['layouts'][key] for rk in group}
+        first = runs[group[0]]
+        out['layouts'][key] = {
+            'rel_err': rel_err(first['latents'], ref['latents']),
+            'video_ok': all(v['video_ok'] for v in runs.values()),
+            'by_rank': {rk: {'step_s': [round(s, 4) for s in v['step_s']],
+                             'peak_gib': round(v['peak_gib'], 3),
+                             'moved_per_step': v['moved_per_step'],
+                             'launches': {k: v['launches'][k]
+                                          for k in SHARD_KERNELS}}
+                        for rk, v in runs.items()}}
+    out['expected_launches'] = {k: ref['counts'][k] for k in SHARD_KERNELS}
+    out['mask_differ'] = [r['mask_differ'] for r in ranks]
+    out['blocks'] = [r['blocks'] for r in ranks]
+    return out
+
+
+def shard_block_fails(blocks: list) -> list:
+    return [f'blocks: {k} rank {rk}' for rk, errs in enumerate(blocks)
+            for k, tol in SHARD_BLOCK_TOLS.items() if not errs[k] <= tol]
+
+
+def sharded_fails(r) -> list:
+    fails = []
+    if r['backend'] != ['gloo']:
+        fails.append(f'backend {r["backend"]}')
+    for key, lay in r['layouts'].items():
+        if not lay['rel_err'] <= SHARD_REL_TOL:
+            fails.append(f'sample {key}')
+        if not lay['video_ok']:
+            fails.append(f'video {key}')
+        for rk, v in lay['by_rank'].items():
+            for k, n in v['launches'].items():
+                if n <= 0 or n != r['expected_launches'][k]:
+                    fails.append(f'launches {key} rank {rk} {k}')
+    if any(r['mask_differ']):
+        fails.append('mask: tp heads')
+    return fails + shard_block_fails(r['blocks'])
+
+
+def sharded_cli_fails(c, ref_frames) -> list:
+    import numpy as np
+    fails = []
+    if c['code'] != 0:
+        return [f'cli exit {c["code"]}']
+    w = c['written']
+    if len(w['results']) != 1 or w['logs'] != 1 or any(
+            'archived' in n for n in w['results']):
+        fails.append(f'cli files {w}')
+    if c['frames'] is None or c['frames'].shape != ref_frames.shape:
+        return fails + ['cli frames']
+    c['rel_err'] = float(np.linalg.norm(c['frames'].astype(np.float64)
+                                        - ref_frames)
+                         / np.linalg.norm(ref_frames.astype(np.float64)))
+    if not c['rel_err'] <= SHARD_CLI_TOL:
+        fails.append('cli frames vs unsharded')
+    return fails
+
+
+def _last_latents(pipe) -> 'torch.Tensor':
+    import torch
+    last = []
+    with torch.no_grad():
+        pipe.sample(callback=lambda i, t, lat: last.__setitem__(
+            slice(None), [lat]), **sample_kwargs(FRAMES))
+    return last[0].float().cpu()
+
+
+def _dedup_off(unet):
+    """The U-Net with the CFG prefix run on both halves (dedup off)."""
+    import torch
+    from unittest import mock
+    real = unet.forward
+
+    def forward(sample, timesteps, encoder_hidden_states,
+                adapter_residuals=None, cfg_prefix_dedup=False, **kw):
+        if cfg_prefix_dedup:
+            sample = torch.cat([sample, sample])
+        return real(sample, timesteps, encoder_hidden_states,
+                    adapter_residuals, False, **kw)
+    return mock.patch.object(unet, 'forward', forward)
+
+
+def sharded_reference(pipe) -> dict:
+    """The unsharded run of the phase's sample on the card: latents,
+    launches by kernel, and the noise floor (`floor`: the latents with the
+    CFG prefix dedup off against them, rel L2)."""
+    reset_launches()
+    lat = _last_latents(pipe)
+    counts = read_launches()
+    with _dedup_off(pipe.unet):
+        floor = rel_err(_last_latents(pipe), lat)
+    return {'latents': lat, 'counts': counts, 'floor': floor}
+
+
+def sharded_run(state, plant=None) -> tuple:
+    """The sharded phase's runs and checks (with `plant`, a fault of
+    scripts/fault_control.py's SHARD_FAULTS, entered in every rank of the
+    world): (readings, the CLI's run, the checks that failed)."""
+    import tempfile
+
+    import torch
+    from videoswap_torch.ops import _build
+    _build.library()              # built once, before the ranks start
+    if 'recipe_output' not in state:
+        raise PhaseError('sharded: the recipe phase must run first (its '
+                         'unsharded 1009 frames are the CLI\'s yardstick)')
+    tree, _ = recipe_tree(state)
+    sec = {}
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        ref = sharded_reference(state['pipe'])
+        sec['unsharded reference'] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = run_shard_world(plant)
+        sec['world (4 ranks)'] = time.perf_counter() - t0
+        r = sharded_readings(ranks, ref)
+        root = Path(d) / 'cli'
+        root.mkdir()
+        t0 = time.perf_counter()
+        cli = sharded_cli_run(tree, root)
+        sec['torchrun CLI'] = time.perf_counter() - t0
+    fails = sharded_fails(r) + sharded_cli_fails(
+        cli, state['recipe_output']['frames'])
+    r['cli'] = {k: cli.get(k) for k in ('seconds', 'code', 'written',
+                                        'rel_err', 'log')}
+    r['seconds'] = sec
+    r['launches'] = ranks[0]['layouts'][str(SHARD_LAYOUTS[-1][0])][
+        'launches']
+    return r, cli, fails
+
+
+def phase_sharded(report, state):
+    r, cli, fails = sharded_run(state)
+    sec = r['seconds']
+    report['sharded'] = r
+    report['launches']['sharded'] = r.pop('launches')
+    for key, lay in r['layouts'].items():
+        log(f'# sharded sample {key} ({FRAMES}x{SIZE}x{SIZE} CFG+adapter '
+            f'{STEPS} steps, backend {r["backend"]}): latents vs unsharded '
+            f'rel L2 {lay["rel_err"]:.3e} (tol {SHARD_REL_TOL:g}); by rank '
+            f'{json.dumps(lay["by_rank"])}')
+    log(f'# sharded: noise floor (unsharded, CFG prefix dedup off vs on) '
+        f'rel L2 {r["floor"]:.3e}; expected launches a rank (one a site a '
+        f'step, every layout: the unsharded run\'s) '
+        f'{json.dumps(r["expected_launches"])}; blend mask with tp heads '
+        f'vs every head (1, 2, 2): entries differing by rank '
+        f'{r["mask_differ"]}; building blocks (1, 2, 2) vs whole by rank '
+        f'{json.dumps(r["blocks"])} (tols {json.dumps(SHARD_BLOCK_TOLS)}); '
+        f'build s {r["build_s"]}, warm-up s '
+        f'{r["warmup_s"]}; stage s '
+        f'{json.dumps({k: round(v, 2) for k, v in sec.items()})}')
+    log(f'# sharded CLI (1009 recipe, torchrun --shard '
+        f'{",".join(map(str, SHARD_CLI))}): {cli["seconds"]:.1f} s, exit '
+        f'{cli["code"]}, frames vs the recipe phase\'s unsharded rel L2 '
+        f'{cli.get("rel_err", float("nan")):.3e} (tol {SHARD_CLI_TOL:g}), '
+        f'written {json.dumps(cli["written"])}; log {json.dumps(cli["log"])}'
+        f' {"FAIL " + str(fails) if fails else "ok"}')
+    if cli['code'] != 0:
+        log(f'# sharded CLI output: {cli["tail"]}')
+    if fails:
+        raise PhaseError(f'sharded: {fails}')
 
 
 # ---------------------------------------------------- CLIP and attention
@@ -4578,8 +5077,9 @@ ATLAS_RECIPE = {
 # the clip as written: frames, height, width (DAVIS 480p)
 ATLAS_RECIPE_CLIP = (72, 480, 854)
 # frames of the full evaluation run after training (of ATLAS_RECIPE_CLIP's
-# 72: all 72 took 160.5 s on the H100's host, most of it writing gifs)
-ATLAS_FULL_EVAL_FRAMES = 8
+# 72: all 72 took 160.5 s on the H100's host, most of it writing gifs; 8
+# until PR 18, which cut it to 4 to keep the script inside its time)
+ATLAS_FULL_EVAL_FRAMES = 4
 # the drag of the keyframe's points, pixels (x, y), at res_x x res_y
 ATLAS_DRAG = (20, 10)
 # named points on the disk at frame 0, offsets from its centre (x, y);
@@ -4912,8 +5412,9 @@ def atlas_recipe_run(tree: Path) -> dict:
         np.load(tree / 'flows' / '00000.npy'),
         compute_bidirectional_flow(f0, f1, 'matching'))
     t0 = time.perf_counter()
-    r['flow_device'] = flow_device_errors(tree / 'frames',
-                                          (0, (frames - 1) // 2))
+    # one pair since PR 18 (two before: (0, (frames - 1) // 2)), to keep
+    # the script inside its time
+    r['flow_device'] = flow_device_errors(tree / 'frames', (0,))
     times['flow card vs CPU'] = time.perf_counter() - t0
 
     # the CLI's losses against a direct trainer
@@ -5820,6 +6321,7 @@ def main() -> None:
                  'train': phase_train, 'edlora_small': phase_edlora_small,
                  'edlora': phase_edlora, 'blend_small': phase_blend_small,
                  'blend': phase_blend, 'recipe': phase_recipe,
+                 'sharded': phase_sharded,
                  'clip_attn': phase_clip_attn,
                  'train_recipe': phase_train_recipe,
                  'semantic_points': phase_semantic_points}[phase](

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Control run for the model-level limits of chip_smoke.py.
 
-    python3 scripts/fault_control.py [--only long_video]
+    python3 scripts/fault_control.py [--only long_video|sharded|shard_blocks]
 
 Plants one fault at a time, in a kernel's wrapper (a chunk of the kernel's
 work skipped), in the trainer, in the blended swap, on the recipe's path
@@ -106,6 +106,37 @@ once):
 - vispoint_ignores_index_list: the point overlay draws every point, not the
                       swap's selection: the recipe's `_vispoint` check (the
                       2001 run's swap selects two points).
+
+The sharded swap's faults, each planted in every rank of chip_smoke.py's
+sharded phase (its spawned world and its torchrun CLI, whose ranks this
+script starts under the plant with `--child-plant`) and run against that
+phase's checks (`--only sharded` runs these alone, after one sound recipe
+phase; `--only shard_blocks` runs the phase's building-block check alone,
+sound and under each fault):
+
+- gn_shard_stats:     the resnets' GroupNorm takes each rank's own frames'
+                      statistics (no sum over sp): the phase's building
+                      blocks (norm1 on a video whose frames differ in mean
+                      and scale; the sample puts CFG halves, not frames, on
+                      sp, and on the CLI's inversion of a clip whose frames
+                      look alike it took the frames' rel L2 against the
+                      unsharded run from 4.51e-2 to 4.56e-2, inside the
+                      limit);
+- tp_bias_every_rank: the row-parallel out-projections (to_out.0, net.2)
+                      add their bias on every tp rank: the phase's building
+                      blocks (biases drawn nonzero: the seeded weights
+                      hold zero biases, so the sample cannot see it);
+- w1_contiguous_split: net.0.proj's rows are cut as contiguous blocks of the
+                      8C rows (rank 0 all of `a`, rank 1 all of the gate),
+                      not as [a | gate] pairs: the sample at the tp layouts;
+- blend_heads_unreduced: the blend masks' head mean is taken over the
+                      rank's tp heads alone: the phase's mask check (seeded
+                      maps whose heads attend to different halves; at the
+                      swaps' blend threshold a random model's mask is 1
+                      everywhere, so no swap of the phase can see it);
+- a2a_frames_reversed: the motion modules' inverse all-to-all puts the
+                      frames back in reverse order: the sample (tp splits
+                      the locations) and the sharded CLI.
 
 The train CLI's fault, run against the checks of chip_smoke.py's
 train_recipe phase (the 2001 training config, 2 steps, then --resume to 4,
@@ -887,6 +918,122 @@ def _save_flash_recomputes():
         yield
 
 
+@contextlib.contextmanager
+def _gn_shard_stats():
+    from videoswap_torch.parallel import sharding
+    with mock.patch.object(sharding, 'stats_group', lambda: None):
+        yield
+
+
+@contextlib.contextmanager
+def _tp_bias_every_rank():
+    from videoswap_torch.parallel import sharding
+    with mock.patch.object(sharding, 'bias_on_rank', lambda b, t: b):
+        yield
+
+
+@contextlib.contextmanager
+def _w1_contiguous_split():
+    import torch
+
+    from videoswap_torch.parallel import sharding
+
+    def faulted(inner, t, tp):
+        n = 2 * inner // tp
+        return torch.arange(t * n, (t + 1) * n)
+    with mock.patch.object(sharding, 'geglu_rows', faulted):
+        yield
+
+
+@contextlib.contextmanager
+def _blend_heads_unreduced():
+    from videoswap_torch.parallel import sharding
+    with mock.patch.object(sharding, 'head_sum',
+                           lambda x, dim: (x.float().sum(dim), x.shape[dim])):
+        yield
+
+
+@contextlib.contextmanager
+def _a2a_frames_reversed():
+    from videoswap_torch.parallel import sharding
+    real = sharding.locations_to_frames
+    with mock.patch.object(sharding, 'locations_to_frames',
+                           lambda y, split, el: real(y.flip(1), split, el)):
+        yield
+
+
+# the sharded swap's faults -> context managers planting them (in every
+# rank), and the check of chip_smoke.py's sharded phase that must catch each
+SHARD_FAULTS = {
+    'sound': (contextlib.nullcontext, None),
+    'gn_shard_stats': (_gn_shard_stats, 'blocks:'),
+    'tp_bias_every_rank': (_tp_bias_every_rank, 'blocks:'),
+    'w1_contiguous_split': (_w1_contiguous_split, 'sample'),
+    'blend_heads_unreduced': (_blend_heads_unreduced, 'mask:'),
+    'a2a_frames_reversed': (_a2a_frames_reversed, 'sample'),
+}
+
+
+def shard_cli_command(plant: str):
+    """chip_smoke.sharded_cli_command with `plant` entered in every rank
+    (this script's --child-plant mode runs the swap CLI under it)."""
+    real = cs.sharded_cli_command     # before shard_rows patches it
+
+    def command(yml, shape):
+        cmd = real(yml, shape)
+        i = cmd.index('-m', 3)
+        return cmd[:i] + [str(Path(__file__).resolve()), '--child-plant',
+                          plant] + cmd[i + 2:]
+    return command
+
+
+def shard_rows(state) -> dict:
+    """The sound sharded phase, then each fault of SHARD_FAULTS planted in
+    every rank of its world and of its torchrun CLI: {fault: readings and
+    the checks that failed ('sample', 'mask:', 'cli')}."""
+    import torch
+    rows = {}
+    for name, (_, check) in SHARD_FAULTS.items():
+        plant = None if name == 'sound' else name
+        cmd = (cs.sharded_cli_command if plant is None
+               else shard_cli_command(plant))
+        with mock.patch.object(cs, 'sharded_cli_command', cmd):
+            r, cli, fails = cs.sharded_run(state, plant)
+        torch.cuda.empty_cache()
+        kinds = sorted({f.split(' ')[0] for f in fails})
+        rows[name] = {'sample_rel_err': {k: v['rel_err'] for k, v in
+                                         r['layouts'].items()},
+                      'mask_differ': r['mask_differ'],
+                      'cli_rel_err': cli.get('rel_err'),
+                      'fails': fails, 'checks': kinds}
+        cs.log(f'# sharded {name}: {json.dumps(rows[name])}')
+    return rows
+
+
+def shard_block_rows() -> dict:
+    """chip_smoke.py's sharded building blocks alone (a world of its
+    ranks), sound and under each fault of SHARD_FAULTS: {fault: the errors
+    by rank and the checks that failed}."""
+    rows = {}
+    for name in SHARD_FAULTS:
+        plant = None if name == 'sound' else name
+        blocks = [r['blocks'] for r in
+                  cs.run_shard_world(plant, blocks_only=True)]
+        fails = cs.shard_block_fails(blocks)
+        rows[name] = {'blocks': blocks, 'fails': fails,
+                      'checks': sorted({f.split(' ')[0] for f in fails})}
+        cs.log(f'# sharded blocks {name}: {json.dumps(rows[name])}')
+    return rows
+
+
+def shard_caught(rows: dict) -> tuple[bool, dict]:
+    rows = dict(rows)
+    sound = rows.pop('sound')
+    return (not sound['fails'],
+            {name: SHARD_FAULTS[name][1] in row['checks']
+             for name, row in rows.items()})
+
+
 # the long-video and recompute faults -> context managers planting them,
 # and the check that must catch each
 LONG_VIDEO_FAULTS = {
@@ -1282,20 +1429,63 @@ def long_video_caught(rows: dict) -> tuple[bool, dict]:
              for name, row in rows.items()})
 
 
+def child_plant(argv: list) -> None:
+    """`--child-plant NAME <swap CLI arguments>`: one rank of the sharded
+    CLI under SHARD_FAULTS[NAME] (torchrun starts this script in each)."""
+    from videoswap_torch.test import main as swap_main
+    with SHARD_FAULTS[argv[0]][0]():
+        swap_main(argv[1:])
+
+
+def sharded_state(pipe) -> dict:
+    """The sharded phase's state: the recipe phase run once, sound, for its
+    unsharded 1009 frames and its tree."""
+    state = {'pipe': pipe}
+    cs.phase_recipe({'launches': {}}, state)
+    return state
+
+
 def main() -> None:
     import argparse
     import tempfile
 
     import torch
+    if sys.argv[1:2] == ['--child-plant']:
+        child_plant(sys.argv[2:])
+        return
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    ap.add_argument('--only', choices=['long_video'],
+    ap.add_argument('--only', choices=['long_video', 'sharded',
+                                       'shard_blocks'],
                     help='run only this group of faults')
     args = ap.parse_args()
     if not torch.cuda.is_available():
         cs.die('no CUDA device: this script runs only on a GPU')
     cs.full_fp32()
     cs.log(f'# nvidia-smi: {cs.card()}')
+    if args.only == 'shard_blocks':
+        from videoswap_torch.ops import _build
+        _build.library()
+        rows = shard_block_rows()
+        sound_ok = not rows['sound']['fails']
+        caught = {name: 'blocks:' in row['checks']
+                  for name, row in rows.items() if name != 'sound'}
+        must = [n for n, (_, check) in SHARD_FAULTS.items()
+                if check == 'blocks:']
+        ok = sound_ok and all(caught[n] for n in must)
+        print(json.dumps({'ok': ok, 'block_tols': cs.SHARD_BLOCK_TOLS,
+                          'shard_block_faults': rows, 'caught': caught,
+                          'must_catch': must}), flush=True)
+        sys.exit(0 if ok else 1)
     pipe = cs.build_pipeline('cuda', torch.bfloat16)
+    if args.only == 'sharded':
+        rows = shard_rows(sharded_state(pipe))
+        sound_ok, caught = shard_caught(rows)
+        ok = sound_ok and all(caught.values())
+        print(json.dumps({'ok': ok, 'sharded_tols': {
+            'sample': cs.SHARD_REL_TOL, 'cli': cs.SHARD_CLI_TOL},
+            'sharded_faults': rows,
+            'caught': caught}), flush=True)
+        sys.exit(0 if ok else 1)
     if args.only == 'long_video':
         rows = long_video_rows(pipe)
         sound_ok, caught = long_video_caught(rows)
@@ -1369,6 +1559,8 @@ def main() -> None:
     edlora_sound = edlora.pop('sound')
     long_video = long_video_rows(pipe)
     long_video_sound_ok, long_video_caught_ = long_video_caught(long_video)
+    sharded = shard_rows(sharded_state(pipe))
+    sharded_sound_ok, sharded_caught_ = shard_caught(sharded)
     recipe = recipe_rows(pipe, cpu)
     atlas_recipe = atlas_recipe_rows()
     atlas_recipe_sound = atlas_recipe.pop('sound')
@@ -1432,6 +1624,7 @@ def main() -> None:
     for name, row in edlora.items():
         caught[name] = EDLORA_FAULTS[name][1] in row['fails']
     caught.update(long_video_caught_)
+    caught.update(sharded_caught_)
     ok = not any(v for k, v in sound.items() if k.endswith('_fails')) \
         and not sound['recipe_shapes_error'] \
         and not recipe_sound['dpm_small_fails'] \
@@ -1441,6 +1634,7 @@ def main() -> None:
         and not sp_sound['semantic_points_fails'] \
         and not edlora_sound['fails'] \
         and long_video_sound_ok \
+        and sharded_sound_ok \
         and all(caught.values())
     print(json.dumps({'ok': ok, 'unet_tol': cs.MODEL_REL_TOL,
                       'small_tol': cs.SAMPLE_REL_TOL,
@@ -1489,6 +1683,9 @@ def main() -> None:
                       'edlora_faults': edlora,
                       'long_video_tol': cs.LONG_MODULE_TOL,
                       'long_video_faults': long_video,
+                      'sharded_tols': {'sample': cs.SHARD_REL_TOL,
+                                       'cli': cs.SHARD_CLI_TOL},
+                      'sharded_faults': sharded,
                       'caught': caught}), flush=True)
     sys.exit(0 if ok else 1)
 

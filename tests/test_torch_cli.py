@@ -218,12 +218,12 @@ def test_cli_writes_frames_and_metrics(run):
 
 
 @pytest.mark.parametrize('argv, match', [
-    (['--shard', '1,1,8'], 'Queue 1 item 9'),
     (['--device', 'cuda'], 'no CUDA device'),
 ])
 def test_cli_refuses_what_is_not_ported(tmp_path, argv, match):
-    """`--shard` and, here, the default device are refused with a message,
-    before any work."""
+    """Here, on the CPU, the default device is refused with a message,
+    before any work (the sharded CLI's refusal of a world that is not its
+    mesh: tests/test_torch_parallel.py)."""
     yml = tmp_path / 'x.yml'
     yml.write_text('name: x\n')
     res = subprocess.run(

@@ -85,6 +85,23 @@ def test_geglu_kernel_matches_plain(cuda, n, c):
     assert (out.float() - ref).abs().max().item() < 3e-2
 
 
+@pytest.mark.parametrize('tp', [2, 4])
+@pytest.mark.parametrize('c', [64, 320, 640])
+def test_geglu_kernel_at_a_tensor_parallel_width_matches_plain(cuda, c, tp):
+    """A tp rank's shard: H = 4C / tp hidden units, W1's rows as the
+    [a | gate] pairs of those units (parallel/sharding.py), through the
+    fused kernel."""
+    x, w1, b1, w2, b2 = _geglu_args(1000, c, cuda)
+    rows = torch.cat([torch.arange(c // tp * 4), 4 * c
+                      + torch.arange(c // tp * 4)]).to(cuda)
+    args = (x, w1[rows], b1[rows], w2[:, :4 * c // tp].contiguous(), b2)
+    before = tgf.launches
+    out = tgf.geglu_ffn(*args)
+    assert tgf.launches == before + 1
+    ref = tgf.geglu_ffn_plain(*(a.float() for a in args))
+    assert (out.float() - ref).abs().max().item() < 3e-2
+
+
 @pytest.mark.parametrize('c', [320, 640, 1280])
 def test_geglu_kernel_is_bitwise_repeatable(cuda, c):
     args = _geglu_args(300, c, cuda)

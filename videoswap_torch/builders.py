@@ -58,6 +58,7 @@ from videoswap_torch.models import (AdapterConfig, AnimateDiffUNet3DModel,
                                     converters)
 from videoswap_torch.models.clip_text import CLIPTextConfig, CLIPTextModel
 from videoswap_torch.models.vae import AutoencoderKL
+from videoswap_torch.parallel.dist import is_main_process
 from videoswap_torch.schedulers import make_schedule
 from videoswap_torch.utils.config import load_config, resolve_path
 from videoswap_torch.utils.init import init_weights
@@ -158,7 +159,10 @@ def load_adapter_checkpoint(path: str, adapter: SparsePointAdapter):
 
 def _save_atomic(obj, path: str) -> None:
     """torch.save to a temporary name beside `path`, then rename: a run
-    killed mid-save leaves the previous file whole."""
+    killed mid-save leaves the previous file whole. Only the main process
+    of a multi-process run writes (the reference's is_main_process gate)."""
+    if not is_main_process():
+        return
     os.makedirs(os.path.dirname(path) or '.', exist_ok=True)
     tmp = f'{path}.tmp-{os.getpid()}'
     torch.save(obj, tmp)

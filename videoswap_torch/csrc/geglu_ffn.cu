@@ -6,8 +6,10 @@
 // 640, the elementwise pass of `_xla_reference` between its two products.
 //
 // Computes out = (a * gelu_fast(gate)) @ W2^T + b2 with
-// [a | gate] = x @ W1^T + b1, for x (N, C) bf16, W1 (8C, C), W2 (C, 4C) in
-// the torch Linear layout, all bf16.
+// [a | gate] = x @ W1^T + b1, for x (N, C) bf16, W1 (2H, C), W2 (C, H) in
+// the torch Linear layout, all bf16. H, the hidden width, is 4C, or 4C / tp
+// for a tensor-parallel rank's shard (a multiple of 32: the fused kernel's
+// chunk); below, 4C stands for H.
 //
 // What bounds it on the H100: 24*N*C^2 operations (0.326 ms at the bf16
 // peak at N*C^2 = 1.34e10, every U-Net level) against 4*N*C + 24*C^2 bytes
@@ -129,7 +131,6 @@ struct Ffn {
   static constexpr int NI = CW > 160 ? CW / 2 : CW;  // N of an out product
   static constexpr int NH = kSplit ? 32 : 64;     // N of the first product
   static constexpr int NCH = C / 64;              // 128-byte column chunks
-  static constexpr int NJ = 4 * C / kChunk;       // intermediate chunks
   static constexpr int X_BYTES = NCH * BM * kAtomBytes;
   static constexpr int W1_BYTES = NCH * 2 * kChunk * kAtomBytes;
   static constexpr int W2_BYTES = C * kChunk * 2;
@@ -151,13 +152,15 @@ geglu_ffn_kernel(const __grid_constant__ CUtensorMap tx,
                  const __grid_constant__ CUtensorMap tw1,
                  const __grid_constant__ CUtensorMap tw2,
                  const bf16* __restrict__ b1, const bf16* __restrict__ b2,
-                 bf16* __restrict__ out, int n) {
+                 bf16* __restrict__ out, int n, int hid) {
   using F = Ffn<C>;
   constexpr int ST1 = F::ST1, ST2 = F::ST2;
   constexpr int NH = F::NH;
   constexpr int NO = F::CW / 2;         // out accumulators a thread
   constexpr int NG = NH / 4;            // G values a thread (a chunk)
   constexpr bool kPingPong = !F::kSplit;
+  // hidden units H (4C, or 4C / tp for a tensor-parallel shard), in chunks
+  const int nj = hid / kChunk;
   extern __shared__ unsigned char smem_raw[];
   // the 128-byte swizzle pattern repeats every 1024 bytes
   unsigned char* base =
@@ -191,7 +194,7 @@ geglu_ffn_kernel(const __grid_constant__ CUtensorMap tx,
     mbar_expect_tx(full1 + s, F::W1_BYTES);
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      const int src = (q & 1) * 4 * C + j * kChunk + (q >> 1) * 16;
+      const int src = (q & 1) * hid + j * kChunk + (q >> 1) * 16;
 #pragma unroll
       for (int c = 0; c < F::NCH; ++c)
         tma_load_2d(dst + c * 2 * kChunk * kAtomBytes + q * 16 * kAtomBytes,
@@ -233,8 +236,8 @@ geglu_ffn_kernel(const __grid_constant__ CUtensorMap tx,
 #pragma unroll
     for (int c = 0; c < F::NCH; ++c)
       tma_load_2d(x_s + c * F::BM * kAtomBytes, &tx, full_x, c * 64, row0);
-    for (int j = 0; j < ST1; ++j) load_w1(j);
-    for (int j = 0; j < ST2; ++j) load_w2(j);
+    for (int j = 0; j < ST1 && j < nj; ++j) load_w1(j);
+    for (int j = 0; j < ST2 && j < nj; ++j) load_w2(j);
   }
   __syncwarp();
 
@@ -250,7 +253,7 @@ geglu_ffn_kernel(const __grid_constant__ CUtensorMap tx,
   // ping-pong (C <= 320): the warpgroups issue their products in turns, so
   // that one computes its gate while the other's products run. A turn is a
   // sync on the own barrier and then an arrival on the other's: warpgroup 1
-  // gives warpgroup 0 the first turn, each takes NJ + 1 turns, and
+  // gives warpgroup 0 the first turn, each takes nj + 1 turns, and
   // warpgroup 0's last sync takes warpgroup 1's last arrival. A warpgroup
   // arrives again only after the other's turn, so no barrier phase sees two
   // arrivals of one warpgroup. Within a turn a warpgroup waits only for W2
@@ -290,7 +293,7 @@ geglu_ffn_kernel(const __grid_constant__ CUtensorMap tx,
 
   mbar_wait(full_x, 0);
   if (kPingPong && wg == 1) named_arrive(2, kThreadsFfn);
-  for (int j = 0; j < F::NJ; ++j) {
+  for (int j = 0; j < nj; ++j) {
     // ---- h = x . W1_chunk^T, then out += G(j-1) . W2^T
     const int s = j % ST1;
     const uint32_t ph = (j / ST1) & 1;
@@ -308,7 +311,7 @@ geglu_ffn_kernel(const __grid_constant__ CUtensorMap tx,
       wgmma_wait<0>();
     fence_regs(h);
     release(empty1 + s);
-    if (producer && j + ST1 < F::NJ) {
+    if (producer && j + ST1 < nj) {
       mbar_wait(empty1 + s, ph);
       load_w1(j + ST1);
     }
@@ -323,8 +326,8 @@ geglu_ffn_kernel(const __grid_constant__ CUtensorMap tx,
       const int am = F::kSplit ? m : (m >> 1) * 4 + (m & 1);
       const int col = j * kChunk + (F::kSplit ? wg * 16 : 0) + 8 * m + 2 * t;
       const float ba[2] = {bf16_at(b1 + col), bf16_at(b1 + col + 1)};
-      const float bg[2] = {bf16_at(b1 + 4 * C + col),
-                           bf16_at(b1 + 4 * C + col + 1)};
+      const float bg[2] = {bf16_at(b1 + hid + col),
+                           bf16_at(b1 + hid + col + 1)};
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         gv[4 * m + e] = (h[4 * am + e] + ba[e & 1]) *
@@ -336,7 +339,7 @@ geglu_ffn_kernel(const __grid_constant__ CUtensorMap tx,
       fence_regs(o);
       if constexpr (!F::kSplit) fence_regs(p);
       release(empty2 + (j - 1) % ST2);
-      if (producer && j - 1 + ST2 < F::NJ) {
+      if (producer && j - 1 + ST2 < nj) {
         mbar_wait(empty2 + (j - 1) % ST2, ((j - 1) / ST2) & 1);
         load_w2(j - 1 + ST2);
       }
@@ -362,7 +365,7 @@ geglu_ffn_kernel(const __grid_constant__ CUtensorMap tx,
     }
   }
   if (kPingPong) named_sync(my_bar, kThreadsFfn);
-  second(F::NJ - 1);
+  second(nj - 1);
   if (kPingPong) named_arrive(other_bar, kThreadsFfn);
   wgmma_wait<0>();
   fence_regs(o);
@@ -390,15 +393,15 @@ geglu_ffn_kernel(const __grid_constant__ CUtensorMap tx,
 template <int C>
 cudaError_t launch_ffn(const bf16* x, const bf16* w1, const bf16* b1,
                        const bf16* w2, const bf16* b2, bf16* out, int n,
-                       cudaStream_t stream) {
+                       int hid, cudaStream_t stream) {
   using F = Ffn<C>;
   CUtensorMap tx, tw1, tw2;
   cudaError_t err;
   if ((err = make_map_2d(&tx, x, C, n, 64, F::BM,
                          CU_TENSOR_MAP_SWIZZLE_128B)) != cudaSuccess ||
-      (err = make_map_2d(&tw1, w1, C, 8 * C, 64, 16,
+      (err = make_map_2d(&tw1, w1, C, 2 * hid, 64, 16,
                          CU_TENSOR_MAP_SWIZZLE_128B)) != cudaSuccess ||
-      (err = make_map_2d(&tw2, w2, 4 * C, C, kChunk, 64,
+      (err = make_map_2d(&tw2, w2, hid, C, kChunk, 64,
                          CU_TENSOR_MAP_SWIZZLE_64B)) != cudaSuccess)
     return err;
   err = cudaFuncSetAttribute(geglu_ffn_kernel<C>,
@@ -407,7 +410,7 @@ cudaError_t launch_ffn(const bf16* x, const bf16* w1, const bf16* b1,
   if (err != cudaSuccess) return err;
   const dim3 grid((n + F::BM - 1) / F::BM);
   geglu_ffn_kernel<C><<<grid, kThreadsFfn, F::SMEM, stream>>>(
-      tx, tw1, tw2, b1, b2, out, n);
+      tx, tw1, tw2, b1, b2, out, n, hid);
   return cudaGetLastError();
 }
 
@@ -444,8 +447,8 @@ geglu_gate_kernel(const bf16* __restrict__ h, bf16* __restrict__ g,
 // Returns a cudaError_t code: 0 when the launch was accepted.
 extern "C" int vs_geglu_ffn(const void* x, const void* w1, const void* b1,
                             const void* w2, const void* b2, void* out, int n,
-                            int c, void* stream) {
-  if (n <= 0) return (int)cudaErrorInvalidValue;
+                            int c, int hid, void* stream) {
+  if (n <= 0 || hid <= 0 || hid % kChunk) return (int)cudaErrorInvalidValue;
   const auto* xb = static_cast<const bf16*>(x);
   const auto* w1b = static_cast<const bf16*>(w1);
   const auto* b1b = static_cast<const bf16*>(b1);
@@ -456,7 +459,7 @@ extern "C" int vs_geglu_ffn(const void* x, const void* w1, const void* b1,
   switch (c) {
 #define VS_FFN_CASE(C) \
   case C:              \
-    return (int)launch_ffn<C>(xb, w1b, b1b, w2b, b2b, ob, n, s);
+    return (int)launch_ffn<C>(xb, w1b, b1b, w2b, b2b, ob, n, hid, s);
     VS_FFN_CASE(64)
     VS_FFN_CASE(128)
     VS_FFN_CASE(192)

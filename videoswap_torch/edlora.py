@@ -84,10 +84,13 @@ def _eligible(key: str, names) -> bool:
 
 
 def merge_lora_into_params(params: dict, lora_sd: dict, model_type: str,
-                           alpha: float, key_map=None) -> tuple[dict, int]:
+                           alpha: float, key_map=None,
+                           slicers=None) -> tuple[dict, int]:
     """params: {state-dict key: weight}. Returns ({key: W + alpha * up @
     down} for every eligible weight `lora_sd` has a LoRA for, count); the
-    sum is taken in fp32 and rounded once to W's dtype."""
+    sum is taken in fp32 and rounded once to W's dtype. `slicers` {key:
+    full -> local} cut the deltas of a tensor-parallel U-Net's weights to
+    this rank's shards (`parallel.sharding.shard_unet`)."""
     eligible = _UNET_LORA if model_type == 'unet' else _TEXT_LORA
     out = {}
     for key, w in params.items():
@@ -103,6 +106,8 @@ def merge_lora_into_params(params: dict, lora_sd: dict, model_type: str,
         delta = (up.reshape(up.shape[0], -1).float()
                  @ down.reshape(down.shape[0], -1).float())       # [O, I]
         delta = delta.reshape(*delta.shape, *(1,) * (w.dim() - 2))
+        if slicers and key in slicers:
+            delta = slicers[key](delta)
         out[key] = (w.float() + alpha * delta.to(w.device)).to(w.dtype)
     return out, len(out)
 
@@ -112,7 +117,8 @@ def _merge_into(module, lora_sd, model_type, alpha, key_map=None) -> dict:
     """Merge in place; returns the original weights of what changed."""
     params = dict(module.named_parameters())
     merged, n = merge_lora_into_params(params, lora_sd, model_type, alpha,
-                                       key_map)
+                                       key_map,
+                                       getattr(module, 'tp_slicers', None))
     saved = {}
     for key, w in merged.items():
         saved[key] = params[key].detach().clone()

@@ -10,7 +10,9 @@ call fills) and whether they are rewritten (p2p/ctrl.py).
 CFG-prefix dedup (`forward(..., cfg_expand=True)`): x enters as the single
 shared CFG half and is doubled to [uncond; cond] right before the first
 cross-attention, where text (the only difference between the halves) first
-enters.
+enters. In a sharded U-Net call the doubling keeps this rank's part of the
+doubled batch (`parallel.sharding.double_cfg`), and stored maps are
+gathered over the ranks' rows and frames (`gather_folded`).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from videoswap_torch.p2p import NO_CTRL, AttnCtrl, SiteKey
+from videoswap_torch.parallel import sharding
 
 from .layers import Attention, FeedForward, GroupNorm
 
@@ -28,8 +31,8 @@ def _run_attn(attn, h, context, site: SiteKey, tokens: int, ctrl: AttnCtrl,
               store):
     edit_fn = ctrl.get_edit_fn(site, tokens)
     if ctrl.wants_store(site, tokens):
-        out, store[site.name] = attn(h, context, edit_fn=edit_fn,
-                                     want_probs=True)
+        out, probs = attn(h, context, edit_fn=edit_fn, want_probs=True)
+        store[site.name] = sharding.gather_folded(probs)
         return out
     return attn(h, context, edit_fn=edit_fn)
 
@@ -60,7 +63,7 @@ class BasicTransformerBlock(nn.Module):
         x = _run_attn(self.attn1, self.norm1(x), None, self.site_self, tokens,
                       ctrl, store) + x
         if cfg_expand:
-            x = torch.cat([x, x], dim=0)
+            x = sharding.double_cfg(x)
         x = _run_attn(self.attn2, self.norm2(x), text, self.site_cross,
                       tokens, ctrl, store) + x
         return self.ff(self.norm3(x)) + x
@@ -91,7 +94,8 @@ class Transformer3DModel(nn.Module):
         # x: (B, F, H, W, C); text: (B', 77, D), B' = 2B under cfg_expand
         b, f, hh, ww, c = x.shape
         residual = x
-        text = text.repeat_interleave(f, dim=0)       # per-frame text
+        f_out = sharding.frames_after_expand(f) if cfg_expand else f
+        text = text.repeat_interleave(f_out, dim=0)   # per-frame text
         h = self.norm(x.reshape(b * f, hh, ww, c))    # per-frame statistics
         h = F.linear(h, self.proj_in.weight.flatten(1), self.proj_in.bias)
         h = h.reshape(b * f, hh * ww, -1)
@@ -100,7 +104,8 @@ class Transformer3DModel(nn.Module):
                       store=store)
         bf_out = h.shape[0]                           # b*f, or 2*b*f
         h = F.linear(h, self.proj_out.weight.flatten(1), self.proj_out.bias)
-        h = h.reshape(bf_out // f, f, hh, ww, c)
-        if h.shape[0] != residual.shape[0]:
-            residual = torch.cat([residual, residual], dim=0)
+        h = h.reshape(bf_out // f_out, f_out, hh, ww, c)
+        if cfg_expand:
+            residual = sharding.double_cfg(residual)
+            sharding.finish_cfg_expand()
         return h + residual

@@ -15,11 +15,13 @@ import math
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from videoswap_torch.ops import attention_with_probs, dot_product_attention
 from videoswap_torch.ops.geglu_ffn import geglu_ffn
+from videoswap_torch.parallel import sharding
 
 
 def timestep_sinusoidal(timesteps: torch.Tensor, dim: int) -> torch.Tensor:
@@ -53,7 +55,17 @@ class Attention(nn.Module):
     probabilities are materialised (`attention_with_probs`; the controllers
     use it only at sites below 32^2 tokens); `edit_fn` rewrites them before
     the value contraction, and `want_probs` returns (out, probs before the
-    edit)."""
+    edit).
+
+    Tensor parallel (`parallel.sharding.shard_unet` sets `tp_group`): the
+    module holds `heads` of the heads and the matching rows of to_q, to_k,
+    to_v and columns of to_out.0; the out-projection's partial sums are
+    all-reduced over the tp group in their own dtype, its bias held by tp
+    rank 0 alone. (The partials are rounded to bf16 on the card already,
+    and where ranks share a card gloo stages every byte through the host:
+    a bf16 sum moves half the bytes of an fp32 one; PERF.md, PR 18.)"""
+
+    tp_group = None
 
     def __init__(self, query_dim: int, heads: int = 8, dim_head: int = 64,
                  cross_attention_dim: Optional[int] = None):
@@ -75,11 +87,17 @@ class Attention(nn.Module):
         k = self.to_k(ctx)
         v = self.to_v(ctx)
         if edit_fn is None and not want_probs:
-            return self.to_out[0](dot_product_attention(q, k, v, self.heads))
+            return self._out(dot_product_attention(q, k, v, self.heads))
         out, probs = attention_with_probs(q, k, v, self.heads,
                                           edit_fn=edit_fn)
-        out = self.to_out[0](out)
+        out = self._out(out)
         return (out, probs) if want_probs else out
+
+    def _out(self, h: torch.Tensor) -> torch.Tensor:
+        y = self.to_out[0](h)
+        if self.tp_group is None:
+            return y
+        return sharding.all_reduce_sum(y, self.tp_group, y.dtype)
 
 
 class _GEGLUProj(nn.Module):
@@ -90,7 +108,13 @@ class _GEGLUProj(nn.Module):
 
 class FeedForward(nn.Module):
     """GEGLU feed-forward, diffusers layout (net.0.proj, net.2), run through
-    the fused GEGLU kernel (ops/geglu_ffn.py)."""
+    the fused GEGLU kernel (ops/geglu_ffn.py). Tensor parallel (`tp_group`
+    set): the module holds H = 4C / tp hidden units, net.0.proj's rows as
+    [a | gate] of those units, and the kernel's partial result is
+    all-reduced in its own dtype, as Attention's (net.2's bias on tp rank 0
+    alone)."""
+
+    tp_group = None
 
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
@@ -104,6 +128,8 @@ class FeedForward(nn.Module):
         proj, out = self.net[0].proj, self.net[2]
         y = geglu_ffn(x.reshape(-1, c).contiguous(), proj.weight, proj.bias,
                       out.weight, out.bias)
+        if self.tp_group is not None:
+            y = sharding.all_reduce_sum(y, self.tp_group, y.dtype)
         return y.reshape(*x.shape[:-1], self.dim)
 
 
@@ -119,10 +145,31 @@ def group_norm(x: torch.Tensor, groups: int, weight: torch.Tensor,
     return (y * weight.float() + bias.float()).to(x.dtype)
 
 
+def group_norm_reduced(x: torch.Tensor, groups: int, weight: torch.Tensor,
+                       bias: torch.Tensor, eps: float, group) -> torch.Tensor:
+    """`group_norm` of a tensor whose non-batch axes are split over the
+    ranks of `group` (equal parts): the mean, then the variance about it,
+    each summed in fp32 over the ranks."""
+    n, c = x.shape[0], x.shape[-1]
+    xf = x.float().reshape(n, -1, groups, c // groups)
+    count = xf.shape[1] * xf.shape[3] * dist.get_world_size(group)
+    mean = sharding.all_reduce_sum(xf.sum(dim=(1, 3)), group) / count
+    d = xf - mean[:, None, :, None]
+    var = sharding.all_reduce_sum((d * d).sum(dim=(1, 3)), group) / count
+    y = (d * torch.rsqrt(var + eps)[:, None, :, None]).reshape(x.shape)
+    return (y * weight.float() + bias.float()).to(x.dtype)
+
+
 class GroupNorm(nn.GroupNorm):
-    """nn.GroupNorm's parameters, applied to channels-last input."""
+    """nn.GroupNorm's parameters, applied to channels-last input. A video
+    (B, F, H, W, C) whose frames are sharded over sp in a sharded U-Net call
+    takes its statistics over every rank's frames."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        group = sharding.stats_group() if x.dim() == 5 else None
+        if group is not None:
+            return group_norm_reduced(x, self.num_groups, self.weight,
+                                      self.bias, self.eps, group)
         return group_norm(x, self.num_groups, self.weight, self.bias, self.eps)
 
 

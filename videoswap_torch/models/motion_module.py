@@ -25,6 +25,14 @@ modules, and every module on the CPU, run layer-wise, the attention
 through the temporal-attention kernel and the FFN through the GEGLU
 kernel. `FT_DISABLE` forces the layer-wise path and `FT_4D` the fused
 kernel's frame-major layout, as in the JAX package.
+
+Sharded (a sharded U-Net call whose frames are split over sp, or tp > 1):
+after the per-frame GroupNorm, x and its norm go from frame sharding to
+location sharding through an all-to-all over sp (Ulysses), each rank runs
+its chunk of the locations, split over the whole (sp, tp) group, with every
+frame, and the result goes back the inverse way
+(`parallel.sharding.frames_to_locations`). The weights stay replicated over
+tp, and a windowed block sees every frame, so its windows stay local.
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ from torch import nn
 from videoswap_torch.ops.fused_temporal import (
     ffn_tail, flat_params, fused_temporal_transformer,
     fused_temporal_transformer_bfhw)
+from videoswap_torch.parallel import sharding
 
 from .layers import Attention, FeedForward, GroupNorm
 
@@ -166,6 +175,20 @@ class TemporalTransformer3DModel(nn.Module):
         # x: (B, F, H, W, C); GroupNorm statistics per FRAME
         b, f, hh, ww, c = x.shape
         gn = self.norm(x.reshape(b * f, hh, ww, c)).reshape(x.shape)
+        split = sharding.location_split()
+        if split is None:
+            return self._run(x, gn)
+        # frames -> locations: this rank's chunk of the locations, with
+        # every frame, as a (b, F, q, 1, c) video
+        both = torch.cat([x, gn], dim=-1).reshape(b, f, hh * ww, 2 * c)
+        loc, el = sharding.frames_to_locations(both, split)
+        loc = loc.unsqueeze(3)
+        out = self._run(loc[..., :c].contiguous(),
+                        loc[..., c:].contiguous()).squeeze(3)
+        return sharding.locations_to_frames(out, split, el).reshape(x.shape)
+
+    def _run(self, x: torch.Tensor, gn: torch.Tensor) -> torch.Tensor:
+        b, f, hh, ww, c = x.shape
         if use_fused(x, c, f, self.num_layers, self.max_len, self.window):
             return self._fused(x, gn)
         return self._layerwise(x, gn)

@@ -8,6 +8,12 @@ static index; CFG-prefix dedup (see `AnimateDiffUNet3DModel.forward`);
 prompt-to-prompt attention control through every spatial transformer
 (`ctrl`, p2p/ctrl.py); gradient checkpointing per level
 (`set_gradient_checkpointing`). Submodule names follow the diffusers keys.
+
+Sharded (`mesh` set by `parallel.sharding.shard_pipeline`): the forward
+takes and returns whole tensors; inside, each rank runs the rows and frames
+its layout gives it (`parallel.sharding.video_spec`, the JAX package's
+`constrain_frames`), the CFG-deduplicated prefix replicated, and the
+result is gathered over (dp, sp) at the end.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from videoswap_torch.p2p import NO_CTRL, AttnCtrl
+from videoswap_torch.parallel import sharding
 from videoswap_torch.utils.registry import MODEL_REGISTRY
 
 from .attention_blocks import Transformer3DModel
@@ -271,7 +278,10 @@ class AnimateDiffUNet3DModel(nn.Module):
 
     Every spatial self- and cross-attention site runs flash attention; the
     motion modules' frame axis runs temporal attention (ops/attention.py).
-    `gradient_checkpointing`: see `set_gradient_checkpointing`."""
+    `gradient_checkpointing`: see `set_gradient_checkpointing`. `mesh`:
+    the sharded layout's mesh (None: one device)."""
+
+    mesh = None
 
     def __init__(self, cfg: UNet3DConfig = UNet3DConfig(),
                  gradient_checkpointing: bool | str = False):
@@ -368,6 +378,32 @@ class AnimateDiffUNet3DModel(nn.Module):
         {name: (B, F, h, w, C)} (`up_block_<i>`, the DIFT taps the JAX
         package sows into its 'features' collection); the forward stops
         after the last block asked for."""
+        mesh = self.mesh
+        if mesh is None or mesh.size == 1:
+            return self._forward(sample, timesteps, encoder_hidden_states,
+                                 adapter_residuals, cfg_prefix_dedup, ctrl,
+                                 features)
+        b, f = sample.shape[:2]
+        after = sharding.layout_for(2 * b if cfg_prefix_dedup else b, f,
+                                    mesh)
+        run = sharding.VideoRun(mesh, sharding.layout_for(
+            b, f, mesh, replicate=True) if cfg_prefix_dedup else after,
+            after)
+        res = (None if adapter_residuals is None
+               else [after.take(r) for r in adapter_residuals])
+        with sharding.video_run(run):
+            out = self._forward(
+                run.layout.take(sample), timesteps,
+                after.take_rows(encoder_hidden_states), res,
+                cfg_prefix_dedup, ctrl, features)
+        if features:
+            return {k: after.gather(v) for k, v in out.items()}
+        if ctrl.stores:
+            return after.gather(out[0]), out[1]
+        return after.gather(out)
+
+    def _forward(self, sample, timesteps, encoder_hidden_states,
+                 adapter_residuals, cfg_prefix_dedup, ctrl, features):
         cfg = self.cfg
         taps, wanted = {}, set(features or ())
         unknown = wanted - {f'up_block_{i}'
@@ -375,13 +411,17 @@ class AnimateDiffUNet3DModel(nn.Module):
         if unknown:
             raise ValueError(f'unknown feature taps: {sorted(unknown)}')
         dtype = self.conv_in.weight.dtype
-        if cfg_prefix_dedup and \
+        run = sharding.active()
+        if cfg_prefix_dedup and run is None and \
                 encoder_hidden_states.shape[0] != 2 * sample.shape[0]:
             raise ValueError('cfg_prefix_dedup expects text with both CFG '
                              'halves and sample with one')
 
         timesteps = torch.as_tensor(timesteps, device=sample.device)
-        timesteps = timesteps.reshape(-1).expand(sample.shape[0])
+        timesteps = timesteps.reshape(-1)
+        if run is not None and timesteps.shape[0] > 1:
+            timesteps = run.layout.take_rows(timesteps)
+        timesteps = timesteps.expand(sample.shape[0])
         t_feat = timestep_sinusoidal(timesteps, cfg.block_out_channels[0])
         temb = self.time_embedding(t_feat.to(dtype))
 
@@ -393,7 +433,7 @@ class AnimateDiffUNet3DModel(nn.Module):
         # with dedup the conv_in skip is consumed at full CFG batch; temb
         # (batch 1 under dedup) broadcasts over the doubled batch
         store = {} if ctrl.stores else None
-        skips = [torch.cat([x, x]) if cfg_prefix_dedup else x]
+        skips = [sharding.double_cfg(x) if cfg_prefix_dedup else x]
         for i, block in enumerate(self.down_blocks):
             if isinstance(block, CrossAttnDownBlock3D):
                 x, s = block(x, temb, text, res[i],

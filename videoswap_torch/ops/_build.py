@@ -33,7 +33,7 @@ _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 # C entry point -> argument types; every entry point returns a cudaError_t,
 # but those in _RESTYPES
 _SIGNATURES = {
-    'vs_geglu_ffn': [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    'vs_geglu_ffn': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     'vs_geglu_gate': [_P, _P, _I, _I, _P],
     'vs_temporal_attention': [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     'vs_temporal_attention_plan': [_I, _I, _I, ctypes.POINTER(_I)],

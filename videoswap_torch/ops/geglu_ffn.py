@@ -2,8 +2,10 @@
 versions.
 
 `geglu_ffn(x, w1, b1, w2, b2)` computes `(a * gelu_fast(gate)) @ w2.T + b2`
-with `[a | gate] = x @ w1.T + b1`, for x (N, C), w1 (8C, C), w2 (C, 4C) in
-the torch `Linear` layout. The result has x's dtype.
+with `[a | gate] = x @ w1.T + b1`, for x (N, C), w1 (2H, C), w2 (C, H) in
+the torch `Linear` layout: H = 4C hidden units, or a tensor-parallel rank's
+4C / tp (parallel/sharding.py), a multiple of 32 for the fused kernel. The
+result has x's dtype.
 
 A CUDA tensor (bf16 only) takes one of two routes, chosen by width alone as
 the JAX package's `geglu_ffn` chooses between its Pallas kernel and XLA:
@@ -46,6 +48,8 @@ _ERF_HORNER = (1.4207271411, -8.8140112788, 24.913610011, -43.054002726,
 # the JAX package's gate (videoswap_tpu/ops/geglu_ffn.py): wider FFNs take
 # the split route
 MAX_KERNEL_WIDTH = 640
+# the fused kernel walks the hidden units in chunks of this many
+FUSED_CHUNK = 32
 
 
 def takes_fused_route(c: int) -> bool:
@@ -93,7 +97,7 @@ def _gelu_fast_and_grad(x: torch.Tensor):
 
 
 def geglu_gate_plain(h: torch.Tensor) -> torch.Tensor:
-    """h (N, 8C) -> a * gelu_fast(gate) (N, 4C), in h's dtype: in bf16
+    """h (N, 2H) -> a * gelu_fast(gate) (N, H), in h's dtype: in bf16
     gate / sqrt(2) is rounded before the polynomial, then gelu_fast(gate)
     and the product, as the JAX package's `_xla_reference` rounds them
     (which scales by 1/sqrt(2) rounded to bf16)."""
@@ -124,7 +128,11 @@ def _check_kernel_args(x, w1, b1, w2, b2):
     if not takes_fused_route(c) and c % 2:
         raise ValueError(f'geglu_ffn: the gate pass (C > {MAX_KERNEL_WIDTH})'
                          f' needs an even C; got C={c}')
-    shapes = ((8 * c, c), (8 * c,), (c, 4 * c), (c,))
+    hid = w2.shape[1]
+    if takes_fused_route(c) and (hid <= 0 or hid % FUSED_CHUNK):
+        raise ValueError('geglu_ffn: the fused kernel needs a hidden width '
+                         f'that is a multiple of {FUSED_CHUNK}; got {hid}')
+    shapes = ((2 * hid, c), (2 * hid,), (c, hid), (c,))
     for t, shape in zip(tensors[1:], shapes):
         if tuple(t.shape) != shape:
             raise ValueError(f'geglu_ffn: expected {shape}, got '
@@ -183,7 +191,7 @@ def geglu_ffn_kernel(x, w1, b1, w2, b2):
     stream = torch.cuda.current_stream(x.device).cuda_stream
     status = lib.vs_geglu_ffn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
                               w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-                              n, c, stream)
+                              n, c, w2.shape[1], stream)
     _build.check(status, 'vs_geglu_ffn')
     launches += 1
     return out
@@ -240,5 +248,6 @@ class GegluFFN(torch.autograd.Function):
 
 
 def geglu_ffn(x, w1, b1, w2, b2):
-    """x: (N, C); w1: (8C, C); b1: (8C,); w2: (C, 4C); b2: (C,)."""
+    """x: (N, C); w1: (2H, C); b1: (2H,); w2: (C, H); b2: (C,), with H =
+    4C, or 4C / tp on a tensor-parallel rank."""
     return GegluFFN.apply(x, w1, b1, w2, b2)

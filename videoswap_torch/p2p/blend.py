@@ -8,13 +8,17 @@ target masks. Masks gate latent blending x = x_src + m * (x_tgt - x_src)
 and masked self-attention replacement.
 
 Maps are per-frame batched: (P, F, heads, S, 77), P = 1 (source) or 2
-(source, running sum of the target's).
+(source, running sum of the target's). In a sharded swap the maps hold this
+rank's tp heads: the head mean sums them over tp
+(`parallel.sharding.head_sum`).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from videoswap_torch.parallel import sharding
 
 
 def reshape_maps(maps: torch.Tensor, height: int,
@@ -46,7 +50,8 @@ def blend_mask(site_maps: list[torch.Tensor], alpha_layers: torch.Tensor,
     stacked = torch.cat([reshape_maps(m.float(), height, width)
                          for m in site_maps], dim=2)    # (P,F,H*,rh,rw,77)
     alpha = alpha_layers[:, None, None, None, None, :].float()
-    maps = max_pool_3x3((stacked * alpha).sum(-1).mean(2))   # (P, F, rh, rw)
+    total, count = sharding.head_sum((stacked * alpha).sum(-1), 2)
+    maps = max_pool_3x3(total / count)                 # (P, F, rh, rw)
     # jax.image.resize's 'nearest' samples at half-pixel centres
     mask = F.interpolate(maps, size=tuple(out_hw), mode='nearest-exact')
     denom = mask.amax(dim=(-2, -1), keepdim=True)

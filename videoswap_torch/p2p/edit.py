@@ -14,6 +14,12 @@ functions each sampling step applies (the port of videoswap_tpu/p2p/edit.py).
 
 The JAX package's `lax.cond` on the step's self-replacement gate is a
 Python condition here, and its scan inputs are indexed per step.
+
+In a sharded U-Net call an edit function sees this rank's rows and frames
+(and tp heads) of the probabilities: it edits the cond rows it holds, with
+the stores' (every frame, this rank's heads) maps cut to its frames. The
+source and target rows that an edit mixes are the stored inversion maps
+and the cond row, so every edit is local to a rank.
 """
 
 from __future__ import annotations
@@ -23,6 +29,8 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from videoswap_torch.parallel import sharding
 
 from . import blend, ptp_utils, seq_aligner, sites
 from .ctrl import AttnCtrl, SiteKey
@@ -238,15 +246,31 @@ def inversion_store_filter(editing_config: dict, tokenizer, height: int,
 # --------------------------------------------------------------------------
 
 def _cond_half(probs: torch.Tensor, f: int, do_cfg: bool):
-    if do_cfg:
+    """(uncond rows, cond rows) of the probabilities, None for a half this
+    rank does not hold (rows [uncond; cond] under CFG, one video)."""
+    if not do_cfg:
+        return None, probs
+    rows, frames = sharding.local_rows(), sharding.local_frames()
+    if rows is None:
         return probs[:f], probs[f:]
-    return None, probs
+    fl = frames[1] - frames[0]           # rows 0 (uncond) and 1 (cond)
+    uncond = probs[:fl] if rows[0] == 0 else None
+    cond = probs[fl if rows[0] == 0 else 0:] if rows[1] == 2 else None
+    return uncond, cond
 
 
-def _join(uncond, cond, do_cfg: bool):
-    if do_cfg:
-        return torch.cat([uncond, cond.to(uncond.dtype)])
-    return cond
+def _join(uncond, cond, do_cfg: bool, dtype):
+    if not do_cfg:
+        return cond
+    if uncond is None:
+        return cond.to(dtype)
+    return torch.cat([uncond, cond.to(dtype)])
+
+
+def _frames(t: torch.Tensor) -> torch.Tensor:
+    """A store's (F, ...) maps cut to this rank's frames."""
+    frames = sharding.local_frames()
+    return t if frames is None else t[frames[0]:frames[1]]
 
 
 def make_edit_fn(cfg: EditConfig, static_state: dict):
@@ -255,7 +279,9 @@ def make_edit_fn(cfg: EditConfig, static_state: dict):
 
     def edit_cross(probs, state, name):
         uncond, cond = _cond_half(probs, f, cfg.do_cfg)
-        base = state['base'][name].float()                   # (F,h,s,77)
+        if cond is None:
+            return probs
+        base = _frames(state['base'][name]).float()          # (F,h,s,77)
         cond32 = cond.float()
         if cfg.refine:
             alphas = static_state['alphas']
@@ -265,20 +291,23 @@ def make_edit_fn(cfg: EditConfig, static_state: dict):
             base_rep = torch.einsum('fhsw,wn->fhsn', base,
                                     static_state['mapper_mat'])
         aw = state['alpha_words']                            # (77,)
-        return _join(uncond, base_rep * aw + cond32 * (1 - aw), cfg.do_cfg)
+        return _join(uncond, base_rep * aw + cond32 * (1 - aw), cfg.do_cfg,
+                     probs.dtype)
 
     def edit_self(probs, state, name, q_tokens):
         uncond, cond = _cond_half(probs, f, cfg.do_cfg)
+        if cond is None:
+            return probs
         cond32 = cond.float()
         if not state['self_on']:
-            return _join(uncond, cond32, cfg.do_cfg)
-        base = state['base_self'][name].float()
+            return _join(uncond, cond32, cfg.do_cfg, probs.dtype)
+        base = _frames(state['base_self'][name]).float()
         if cfg.blend_self:
-            mask = state['self_mask'][str(q_tokens)]         # (F,1,s,1)
+            mask = _frames(state['self_mask'][str(q_tokens)])  # (F,1,s,1)
             new = mask * cond32 + (1 - mask) * base
         else:
             new = base.expand_as(cond32)
-        return _join(uncond, new, cfg.do_cfg)
+        return _join(uncond, new, cfg.do_cfg, probs.dtype)
 
     def edit_fn(site: SiteKey, q_tokens: int, state):
         name = site.name

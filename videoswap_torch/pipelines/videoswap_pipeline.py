@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import copy
 import functools
+import logging
 import os
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
@@ -39,12 +40,24 @@ from videoswap_torch.p2p.edit import (EditBundle, inversion_store_filter,
                                       make_store_edit_ctrl,
                                       self_masks_for_step,
                                       want_recompute_self)
+from videoswap_torch.parallel import sharding
+from videoswap_torch.parallel.dist import is_main_process
 from videoswap_torch.schedulers import (DiffusionSchedule, ddim_inverse_step,
                                         ddim_inverse_timesteps, ddim_step,
                                         ddim_timesteps, dpm_pp_2m_step)
 from videoswap_torch.utils.image import video_geometry, video_pixels
 from videoswap_torch.utils.registry import PIPELINE_REGISTRY
 from videoswap_torch.utils.vis_util import overlay_points
+
+
+def _in_mesh_scope(fn):
+    """Run a pipeline method with the pipeline's mesh in scope (the blend
+    masks outside the U-Net read it)."""
+    @functools.wraps(fn)
+    def wrapped(self, *args, **kwargs):
+        with sharding.mesh_scope(self.mesh):
+            return fn(self, *args, **kwargs)
+    return wrapped
 
 
 def make_target_prompt(source_prompt: str, swap_cfg: dict) -> str:
@@ -83,6 +96,7 @@ class VideoSwapPipeline:
     adapter: Optional[SparsePointAdapter] = None
     extra_token_embeds: Optional[torch.Tensor] = None   # ED-LoRA concept rows
     new_concept_cfg: Optional[dict] = None
+    mesh: Optional[Any] = None      # parallel.Mesh of a sharded pipeline
 
     @property
     def device(self) -> torch.device:
@@ -102,6 +116,35 @@ class VideoSwapPipeline:
             ids = torch.as_tensor(np.asarray(ids), device=self.device)
             return self.text_encoder(
                 ids, extra_token_embeds=self.extra_token_embeds)
+
+    # ------------------------------------------------------------ sharding
+    def _frame_split(self, f: int):
+        """(this rank's [start, stop) of f frames, the group to gather
+        over) when the frames split evenly over the mesh, else None."""
+        mesh = self.mesh
+        if mesh is None or mesh.size == 1 or f % mesh.size:
+            return None
+        n = f // mesh.size
+        return (mesh.index * n, (mesh.index + 1) * n), mesh.group('all')
+
+    def _vae_frames(self, fn, video):
+        """fn over (B, F, ...) `video`, each rank on its frames of the
+        mesh, gathered."""
+        split = self._frame_split(video.shape[1])
+        if split is None:
+            return fn(video)
+        (f0, f1), group = split
+        return torch.cat(sharding.all_gather(fn(video[:, f0:f1]), group),
+                         dim=1)
+
+    def _log_layout(self, stage: str, b: int, f: int, dedup: bool) -> None:
+        if self.mesh is None:
+            return
+        after = sharding.layout_for(2 * b if dedup else b, f, self.mesh)
+        pre = ('the CFG prefix replicated, then ' if dedup else '')
+        logging.getLogger('videoswap_torch').info(
+            f'sharded {stage}: mesh {self.mesh.describe()}; U-Net layout '
+            f'{pre}{after.describe()}; tp heads {self.mesh.tp}')
 
     # ------------------------------------------------------------- adapter
     def _adapter_states(self, conditions, size, t2i_guidance_scale, cfg):
@@ -129,6 +172,7 @@ class VideoSwapPipeline:
 
     # ------------------------------------------------------------ inversion
     @torch.no_grad()
+    @_in_mesh_scope
     def invert(self, video, prompt: str, num_inference_steps: int = 50,
                store_ctrl: AttnCtrl = NO_CTRL,
                callback: Optional[Callable[[int, torch.Tensor, torch.Tensor],
@@ -149,8 +193,9 @@ class VideoSwapPipeline:
         text = self.encode_prompt([prompt])
         ts = ddim_inverse_timesteps(self.sched.num_train_timesteps,
                                     num_inference_steps)
-        lat = self.vae.encode_video(pixels).to(text.dtype)
+        lat = self._vae_frames(self.vae.encode_video, pixels).to(text.dtype)
         z0 = lat
+        self._log_layout('invert', lat.shape[0], lat.shape[1], False)
         lat_hist, attn_hist = [], []
         for i, t in enumerate(ts):
             t_dev = torch.tensor(int(t), device=self.device)
@@ -188,6 +233,7 @@ class VideoSwapPipeline:
 
     # ------------------------------------------------------------- sampling
     @torch.no_grad()
+    @_in_mesh_scope
     def sample(self,
                prompt: str,
                video_length: int,
@@ -237,6 +283,7 @@ class VideoSwapPipeline:
                                   generator=generator, device=dev,
                                   dtype=torch.float32) \
                 * self.sched.init_noise_sigma
+            latents = sharding.broadcast(latents, self.mesh)
         lat = latents.to(device=dev, dtype=dtype)
 
         adapter_states = self._adapter_states(
@@ -248,6 +295,8 @@ class VideoSwapPipeline:
         # cross-attention, so the U-Net runs that prefix on batch 1 (no
         # controller reaches that prefix's >= 32^2-token site)
         dedup = bool(do_cfg and lat.shape[0] == 1 and h8 * w8 >= 1024)
+        self._log_layout('sample', 2 if do_cfg and not dedup else 1,
+                         video_length, dedup)
         ecfg = edit_bundle.cfg if edit_bundle is not None else None
         sums = dict(edit_bundle.init_sums) if ecfg is not None else {}
         prev_x0 = torch.zeros_like(lat) if use_dpm else None
@@ -292,7 +341,7 @@ class VideoSwapPipeline:
 
         if output_type == 'latent':
             return wrap(lat)
-        img = self.vae.decode_video(lat.float())
+        img = self._vae_frames(self.vae.decode_video, lat.float())
         # quantise on the device: a 4x smaller copy to the host
         video = torch.clamp(torch.round((img.float() + 1.0) * 127.5), 0, 255
                             ).to(torch.uint8).cpu().numpy()
@@ -357,18 +406,25 @@ class VideoSwapPipeline:
             ctrl = AttnCtrl(mode='store',
                             store_filter=lambda site, q: site.kind == 'cross')
             text = self.encode_prompt([prompt])
-            lat = self.vae.encode_video(pixels).to(text.dtype)
+            lat = self._vae_frames(self.vae.encode_video, pixels).to(
+                text.dtype)
             _, store = self.unet(lat, torch.tensor(261, device=self.device),
                                  text, ctrl=ctrl)
+        if self.mesh is not None:      # every head, for the head mean
+            tp = self.mesh.group('tp')
+            store = {k: torch.cat(sharding.all_gather(v, tp), dim=1)
+                     for k, v in store.items()}
         blend = p2p_sites.blend_sites(h8, w8)
         if not blend:
             return None
         ry, rx = p2p_sites.site_hw(blend[0], h8, w8)
-        show_cross_attention(self.tokenizer, prompt, store, ry, rx,
-                             os.path.join(save_dir, f'{key}_attention'))
+        if is_main_process():
+            show_cross_attention(self.tokenizer, prompt, store, ry, rx,
+                                 os.path.join(save_dir, f'{key}_attention'))
         return aggregate_attention(store, ry, rx)
 
     # ------------------------------------------------------------ validation
+    @_in_mesh_scope
     def validation(self, source_video, source_conditions, source_prompt,
                    editing_config: dict, train_dataset=None, save_dir=None,
                    output_type: str = 'pil',

@@ -17,8 +17,15 @@ inside it), save and metrics (with the CLIP scorer's build), and the
 run's peak device memory (above what the calling process held on the card
 when the run started).
 
-Not ported: `--shard` (multi-device inference, ROADMAP.md Queue 1 item 9);
-a command line that asks for it is refused.
+Sharded: `torchrun --standalone --nproc_per_node DP*SP*TP -m
+videoswap_torch.test -opt <yml> --shard DP,SP,TP [--device cpu]` runs the
+swap over a (dp, sp, tp) mesh of the ranks (parallel/): each rank builds
+the models on its device (`cuda:{LOCAL_RANK % device_count}`, or the CPU,
+where the ranks talk through gloo), the U-Net is tensor-parallel over tp
+and each rank runs its part of every call; the main process alone writes
+the experiment directory, the frames, `metrics.json`, the CLIP scores and
+the attention dumps, from the gathered results. A world size other than
+DP*SP*TP is refused.
 """
 
 from __future__ import annotations
@@ -34,6 +41,8 @@ import torch
 from videoswap_torch.builders import MIXED_PRECISION, build_models
 from videoswap_torch.data import build_dataset
 from videoswap_torch.pipelines import VideoSwapPipeline
+from videoswap_torch.parallel import dist as vdist
+from videoswap_torch.parallel import make_mesh, shard_pipeline
 from videoswap_torch.pipelines.videoswap_pipeline import make_target_prompt
 from videoswap_torch.utils.config import cfg_get, load_config, resolve_path
 from videoswap_torch.utils.device import cli_device
@@ -181,16 +190,28 @@ class StageClock:
         return out
 
 
+def parse_shard(shard: str) -> tuple:
+    shape = tuple(int(v) for v in shard.split(','))
+    if len(shape) != 3 or min(shape) < 1:
+        raise ValueError(f'--shard expects DP,SP,TP, got {shard!r}')
+    return shape
+
+
 def test(root_path: str, opt_path: str, device: str | None = None,
          shard: str | None = None) -> dict:
-    """Run a swap config. Returns {'opt', 'pipeline', 'dataset',
-    'results', 'metrics', 'timings', 'load_report'}."""
-    if shard:
-        raise NotImplementedError(
-            '--shard: multi-device inference is not ported (ROADMAP.md '
-            'Queue 1 item 9)')
+    """Run a swap config, sharded over the ranks of a torchrun world with
+    `shard` ('DP,SP,TP'). Returns {'opt', 'pipeline', 'dataset', 'results',
+    'metrics', 'timings', 'load_report'}; only the main process writes."""
+    shape = parse_shard(shard) if shard else None
     opt = load_config(opt_path)
     device = cli_device(device)
+    if shape is not None:
+        vdist.maybe_initialize_distributed(True, device.type)
+        if vdist.world_size() != int(np.prod(shape)):
+            raise ValueError(f'--shard {shard} needs {int(np.prod(shape))} '
+                             f'ranks; the world has {vdist.world_size()}')
+        device = vdist.rank_device(device.type)
+    main = vdist.is_main_process()
     set_path_logger(root_path, opt_path, opt, is_train=False)
     logger = get_logger()
     logger.info(dict2str(opt))
@@ -213,6 +234,11 @@ def test(root_path: str, opt_path: str, device: str | None = None,
         from videoswap_torch.edlora import apply_new_concept_cfg
         with open(resolve_path(root_path, concept_cfg)) as f:
             apply_new_concept_cfg(pipeline, json.load(f))
+    if shape is not None:
+        pipeline = shard_pipeline(pipeline, make_mesh(shape))
+        logger.info(f'sharded inference over mesh (dp,sp,tp)={shape}, '
+                    f'{vdist.world_size()} ranks, backend '
+                    f'{torch.distributed.get_backend()}')
     timings['load'] = clock.now() - t0
 
     t0 = clock.now()
@@ -241,24 +267,27 @@ def test(root_path: str, opt_path: str, device: str | None = None,
 
     t0 = clock.now()
     save_type = opt['val'].get('save_type', 'frame_gif')
-    save_video_to_dir(source_video, os.path.join(save_dir, 'source'),
-                      save_suffix='source', save_type=save_type)
-    for key, frames in results.items():
-        save_video_to_dir(frames, os.path.join(save_dir, key),
-                          save_suffix=key, save_type=save_type)
+    if main:
+        save_video_to_dir(source_video, os.path.join(save_dir, 'source'),
+                          save_suffix='source', save_type=save_type)
+        for key, frames in results.items():
+            save_video_to_dir(frames, os.path.join(save_dir, key),
+                              save_suffix=key, save_type=save_type)
     timings['save'] = clock.now() - t0
 
     t0 = clock.now()
-    clip_scorer = make_clip_scorer(opt, root_path, pipeline.tokenizer,
-                                   device)
-    prompts = None
-    if clip_scorer is not None:
-        prompts = {'source': dataset.prompt}
-        for key, swap_cfg in opt['val']['editing_config'].get(
-                'editing_prompts', {}).items():
-            prompts[key] = make_target_prompt(dataset.prompt, swap_cfg)
-    metrics = report_metrics(source_video, results, save_dir,
-                             clip_scorer=clip_scorer, prompts=prompts)
+    metrics = None
+    if main:
+        clip_scorer = make_clip_scorer(opt, root_path, pipeline.tokenizer,
+                                       device)
+        prompts = None
+        if clip_scorer is not None:
+            prompts = {'source': dataset.prompt}
+            for key, swap_cfg in opt['val']['editing_config'].get(
+                    'editing_prompts', {}).items():
+                prompts[key] = make_target_prompt(dataset.prompt, swap_cfg)
+        metrics = report_metrics(source_video, results, save_dir,
+                                 clip_scorer=clip_scorer, prompts=prompts)
     timings['metrics'] = clock.now() - t0
     if clock.cuda:
         timings['peak_gib'] = (torch.cuda.max_memory_allocated(device)
@@ -273,7 +302,9 @@ def test(root_path: str, opt_path: str, device: str | None = None,
         else:
             logger.info(f'stage {stage}: {v:.3f}'
                         + (' GiB' if stage == 'peak_gib' else ' s'))
-    logger.info(f'results saved to {save_dir}')
+    logger.info(f'results saved to {save_dir}' if main else
+                f'rank {vdist.rank()}: done (the main process writes)')
+    vdist.barrier('test')
     return dict(opt=opt, pipeline=pipeline, dataset=dataset, results=results,
                 metrics=metrics, timings=timings,
                 load_report=load_report)
@@ -287,10 +318,14 @@ def main(argv=None) -> None:
                         help="'cpu' runs the plain versions of the kernels "
                              "on the CPU; the default is 'cuda'")
     parser.add_argument('--shard', type=str, default=None,
-                        help='multi-device inference: not ported')
+                        help='DP,SP,TP: sharded inference over the ranks of '
+                             'a torchrun world of DP*SP*TP processes')
     args = parser.parse_args(argv)
-    test(os.path.abspath('.'), args.opt, device=args.device,
-         shard=args.shard)
+    try:
+        test(os.path.abspath('.'), args.opt, device=args.device,
+             shard=args.shard)
+    finally:
+        vdist.shutdown()
 
 
 if __name__ == '__main__':

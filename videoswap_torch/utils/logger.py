@@ -1,13 +1,14 @@
 """Experiment directories and logging (the port of
-videoswap_tpu/utils/logger.py, single-process: the port has no
-`parallel/`).
+videoswap_tpu/utils/logger.py).
 
 `set_path_logger` creates `experiments/<name>` (training) or
 `results/<name>` (testing) under the root, archive-renames an existing one
 with a timestamp (or, on a resume, keeps it in place), copies the config
 file there under a command-line header, records the paths in `opt['path']`
 and starts the log file. `MessageLogger` formats the training loop's
-`[name][Iter: n/N, lr] [eta, time] loss:` lines.
+`[name][Iter: n/N, lr] [eta, time] loss:` lines. In a multi-process run
+only the main process touches the file system; the others get the same
+paths and log to the console.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ import os
 import sys
 import time
 from datetime import datetime
+
+from videoswap_torch.parallel.dist import barrier, is_main_process
 
 LOGGER_NAME = 'videoswap_torch'
 
@@ -51,13 +54,19 @@ def set_path_logger(root_path: str, config_path: str, opt: dict,
 
     `reuse_existing` (the train CLI's `--resume`) keeps an existing
     experiment directory in place instead of archive-renaming it: the
-    rename would move away the very checkpoint the resume reads."""
+    rename would move away the very checkpoint the resume reads.
+
+    Multi-process: only the main process creates, renames and copies (the
+    reference gates on `accelerator.is_main_process`); every rank then
+    meets the others at a barrier, so none starts before the directory
+    exists and none renames another's."""
     name = opt['name']
     exp_root = os.path.join(root_path,
                             'experiments' if is_train else 'results', name)
-    if reuse_existing:
+    main = is_main_process()
+    if main and reuse_existing:
         os.makedirs(exp_root, exist_ok=True)
-    else:
+    elif main:
         mkdir_and_rename(exp_root)
     paths = {
         'exp_root': exp_root,
@@ -66,11 +75,13 @@ def set_path_logger(root_path: str, config_path: str, opt: dict,
         'log': os.path.join(exp_root, f'{"train" if is_train else "test"}_'
                             f'{name}_{get_time_str()}.log'),
     }
-    for k in ('models', 'visualization'):
-        os.makedirs(paths[k], exist_ok=True)
-    copy_opt_file(config_path, exp_root)
+    if main:
+        for k in ('models', 'visualization'):
+            os.makedirs(paths[k], exist_ok=True)
+        copy_opt_file(config_path, exp_root)
     opt.setdefault('path', {}).update(paths)
-    init_logger(paths['log'])
+    init_logger(paths['log'] if main else None)
+    barrier('set_path_logger')
     return paths
 
 
