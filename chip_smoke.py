@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (videoswap_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases build,kernels,unrouted,unet,small,dpm_small,sample,long_video,train_small,train,edlora_small,edlora,blend_small,blend,recipe,sharded,clip_attn,train_recipe,semantic_points,atlas_small,atlas,atlas_recipe]
+    python3 chip_smoke.py [--phases build,kernels,unrouted,unet,small,dpm_small,sample,long_video,train_small,train,edlora_small,edlora,blend_small,blend,recipe,sharded,sharded_train,clip_attn,train_recipe,semantic_points,atlas_small,atlas,atlas_recipe]
 
 Phases (all by default):
 
@@ -200,6 +200,30 @@ Phases (all by default):
                videoswap_torch.test --shard 1,2,2`: its frames against the
                recipe phase's unsharded ones (SHARD_CLI_TOL), and rank 0's
                files alone written. Needs the recipe phase before it;
+- sharded_train: the nineteenth slice's path, sharded training: the
+               unsharded references on the card in this process (the
+               adapter's two 16-frame 512x512 'edges' steps, and the same
+               with the motion modules layer-wise, the floor; one ED-LoRA
+               step at 512x512, SD-1.5 2D models, rank 4); then
+               SHARD_WORLD gloo ranks on cuda:0 run TRAIN_SHARD_CASES: the
+               adapter step (`pipelines.shard_trainer`) at (1, 2, 1),
+               (2, 1, 1) with the batch of 1 replicated, (1, 1, 2) and
+               (1, 2, 2); ED-LoRA (`shard_edlora_trainer`) at tp 2 and 4;
+               the atlas (atlas_swan nets, 768x448x72 clip, 10000 points,
+               one main and one inverse step) at dp 2 and 4. Checks: the
+               losses and reduced gradients against the references
+               (TRAIN_SHARD_*, EDLORA_SHARD_*, ATLAS_SHARD_*), every rank's
+               trainable state bit-equal after each step, the flash
+               backward's launches a rank as derived from the layout
+               (flash_bwd_expected) and the other kernels' the unsharded
+               step's, one hash launch a rank a main step; per case and
+               rank the seconds, peak GiB and each collective's bytes
+               forward and backward. Then `train --distributed`,
+               `train_edlora --shard 2` and `train_atlas --shard 2` under
+               `torchrun --nproc_per_node 2` against the same CLI run in
+               this process (the train CLI bit for bit, ED-LoRA within
+               EDLORA_SHARD_CLI_TOL, the atlas within fp32 rounding), rank
+               0's files alone written;
 - clip_attn:   the swap CLI's CLIP scorer (make_clip_scorer: ViT-L/14,
                random weights from the seeded CPU generator) on the 1009
                recipe CLI run's source and swap, with its tokenizer, GPU
@@ -355,8 +379,8 @@ ROOT = Path(__file__).resolve().parent
 PHASES = ('build', 'kernels', 'unrouted', 'unet', 'small', 'dpm_small',
           'sample', 'long_video', 'train_small', 'train', 'edlora_small',
           'edlora',
-          'blend_small', 'blend', 'recipe', 'sharded', 'clip_attn',
-          'train_recipe',
+          'blend_small', 'blend', 'recipe', 'sharded', 'sharded_train',
+          'clip_attn', 'train_recipe',
           'semantic_points', 'atlas_small', 'atlas', 'atlas_recipe')
 SEED = 0
 FRAMES, SIZE, POINTS = 16, 512, 10
@@ -2730,12 +2754,12 @@ def edlora_trainer(models, max_grad_norm=None):
         max_grad_norm=max_grad_norm)
 
 
-def edlora_small_inputs(trainer, cfg_tokenizer):
+def edlora_small_inputs(trainer, cfg_tokenizer, size=EDLORA_SMALL_SIZE):
     """The train params (the concept's warm start plus noise, down ~ U(+-1/
     sqrt(I)), up ~ N(0, 0.02^2): non-zero, so the merge matters), a
-    64x64 image and the 16 layer-variant ids, and two draws, all made on
-    the CPU from SEED + 8 and rounded to bf16: (params, batch, [draws,
-    draws])."""
+    size x size image (64x64 by default) and the 16 layer-variant ids, and
+    two draws, all made on the CPU from SEED + 8 and rounded to bf16:
+    (params, batch, [draws, draws])."""
     import numpy as np
     import torch
     from videoswap_torch.edlora_train import (init_concept_embedding,
@@ -2757,7 +2781,6 @@ def edlora_small_inputs(trainer, cfg_tokenizer):
                 'down': bf((torch.rand((LORA_RANK, i), generator=gen) * 2
                             - 1) * i ** -0.5),
                 'up': bf(torch.randn((o, LORA_RANK), generator=gen) * 0.02)}
-    size = EDLORA_SMALL_SIZE
     batch = {'pixels': bf(torch.rand((1, 1, size, size, 3), generator=gen)
                           * 2 - 1),
              'input_ids': torch.from_numpy(np.asarray(tokenize_layer_prompts(
@@ -4366,6 +4389,788 @@ def phase_sharded(report, state):
         log(f'# sharded CLI output: {cli["tail"]}')
     if fails:
         raise PhaseError(f'sharded: {fails}')
+
+
+# ---------------------------------------------------------- sharded_train
+# the sharded training paths on the one card: SHARD_WORLD ranks of one gloo
+# world time-share cuda:0 (NCCL refuses two ranks on one GPU); every mesh is
+# made first, by every rank, then each rank runs the cases that hold it in
+# this order (the pairs side by side, then the meshes of all four)
+TRAIN_SHARD_CASES = (
+    ('adapter', (1, 2, 1), (0, 1)), ('adapter', (2, 1, 1), (2, 3)),
+    ('adapter', (1, 1, 2), (0, 1)), ('edlora', (1, 1, 2), (2, 3)),
+    ('adapter', (1, 2, 2), (0, 1, 2, 3)),
+    ('edlora', (1, 1, 4), (0, 1, 2, 3)),
+    ('atlas', (2, 1, 1), (0, 1)), ('atlas', (4, 1, 1), (0, 1, 2, 3)))
+TRAIN_SHARD_STEPS = 2
+# a collective that waits longer fails the world (a rank that died, or
+# ranks out of step), well past the slowest collective of the phase
+TRAIN_SHARD_TIMEOUT = 300
+TRAIN_SHARD_KERNELS = ('flash_attention_fwd', 'flash_attention_bwd_dq',
+                       'flash_attention_bwd_dkv', 'geglu_ffn', 'geglu_gate',
+                       'temporal_attention', 'fused_temporal')
+# the adapter step sharded against unsharded, both bf16 on the card (16
+# frames 512x512, 'edges', two steps from the same state and draws): the
+# losses (relative) and the reduced adapter gradients (relative L2). What
+# differs is bf16 rounding: cuBLAS's products of other row counts, the tp
+# partial products rounded to bf16 and summed. Its floor is the unsharded
+# step with the motion modules layer-wise (FT_DISABLE: the same function in
+# other bf16 arithmetic), printed beside as `floor`: on the H100 at 700 W
+# loss 1.13e-4, gradient 4.74e-3; the sound readings at the three sharded
+# meshes 2.7e-5 to 1.0e-4 and 4.77e-3 to 4.84e-3 (at (2, 1, 1) with the
+# batch of 1 replicated: 0, the same kernels on the same rows). The limits
+# sit at about twice the floor
+TRAIN_SHARD_LOSS_TOL = 3e-4
+TRAIN_SHARD_GRAD_TOL = 1e-2
+# ED-LoRA tp against unsharded (512x512, bf16, rank 4, the attention sites, one
+# step): loss (relative) and each group's gradient (relative L2). Its floor
+# is the unsharded step with GEGLU's split route at every width (the same
+# function in other bf16 arithmetic), printed beside: on the H100 at 700 W
+# loss 6.0e-5, gradients 7.3e-3 (embeddings) and 4.8e-3 (factors); the
+# sound readings there: loss 1.8e-4 and 3.0e-4, gradients 8.3e-3 to
+# 1.38e-2 (the embeddings: a sum over every text and cross-attention
+# layer's bf16 backward, the tp partials summed in bf16). The limits sit at
+# about twice the sound readings
+EDLORA_SHARD_LOSS_TOL = 1e-3
+EDLORA_SHARD_GRAD_TOL = 3e-2
+# the atlas dp against unsharded (fp32, one main and one inverse step):
+# the JAX test's limits (loss terms rtol 5e-5, parameters rtol 1e-4 / atol
+# 3e-5), the entries whose gradient is below 1e-6 held to 2 lr (Adam's
+# first step moves a weight by lr g / (|g| + 1e-8): there the fp32 rounding
+# of g shows; tests/test_torch_atlas.py's rule)
+ATLAS_SHARD_LOSS_RTOL = 5e-5
+ATLAS_SHARD_RTOL, ATLAS_SHARD_ATOL = 1e-4, 3e-5
+
+
+def flash_bwd_expected(unet, h8: int, lora: bool = False) -> dict:
+    """The flash backward's launches in one training step at h8 x h8
+    latents, from the U-Net's layout: one dQ launch at each flash site
+    whose block needs a gradient, one dK/dV launch at each such
+    self-attention site and, where the text needs a gradient, at each
+    cross-attention site. Adapter training: every block but the level-0
+    down block (which comes before the adapter's first residual), the text
+    frozen; ED-LoRA (`lora`): every block, and the factors of to_k / to_v
+    give the text's keys and values a gradient."""
+    top = len(unet.down_blocks) - 1
+    blocks = ([(b, i, i > 0 or lora) for i, b in enumerate(unet.down_blocks)]
+              + [(unet.mid_block, top, True)]
+              + [(b, top - i, True) for i, b in enumerate(unet.up_blocks)])
+    dq = dkv = 0
+    for block, level, grad in blocks:
+        if not grad:
+            continue
+        n = sum(len(t.transformer_blocks)
+                for t in getattr(block, 'attentions', None) or ())
+        selfs = n * ((h8 >> level) ** 2 > 32)
+        dq += n + selfs
+        dkv += selfs + (n if lora else 0)
+    return {'flash_attention_bwd_dq': dq, 'flash_attention_bwd_dkv': dkv}
+
+
+def _digest(tensors) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def adapter_shard_steps(trainer, batch, draws, state0) -> dict:
+    """TRAIN_SHARD_STEPS `trainer.step`s on `batch` and `draws` from the
+    adapter state `state0` and a fresh AdamW: each step's loss, reduced
+    adapter gradient (flattened, fp32 on the CPU: the first rank's) and the
+    digest of the adapter's weights and AdamW state after it; the seconds
+    of each step, peak GiB, the launches and each collective's bytes a
+    step, forward and backward."""
+    import torch
+    from videoswap_torch.parallel import sharding
+    trainer.adapter.load_state_dict(state0)
+    trainer.optimizer = trainer.init_state()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    sharding.reset_moved()
+    out = {'loss': [], 'grad': [], 'digest': [], 'step_s': []}
+    for d in draws:
+        trainer.make_draws = lambda b, g, d=d: d
+        t0 = time.perf_counter()
+        loss = trainer.step(batch, None)
+        torch.cuda.synchronize()
+        out['step_s'].append(time.perf_counter() - t0)
+        out['loss'].append(loss.item())
+        out['grad'].append(torch.cat([p.grad.float().flatten().cpu()
+                                      for p in trainer.adapter.parameters()]))
+        out['digest'].append(_digest(sharding.optimizer_tensors(
+            trainer.optimizer)))
+    del trainer.make_draws
+    n = len(draws)
+    out.update(peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               launches={k: v / n for k, v in read_launches().items()},
+               moved_per_step={k: v / n for k, v in sharding.moved.items()},
+               moved_backward_per_step={
+                   k: v / n for k, v in sharding.moved_backward.items()})
+    return out
+
+
+def adapter_shard_inputs(trainer):
+    """The train phase's batch (16 frames 512x512, cached moments) and
+    TRAIN_SHARD_STEPS draws from SEED + 9 on the card, the same on every
+    rank."""
+    import torch
+    batch = full_train_batch(trainer)
+    gen = torch.Generator(device=trainer.device).manual_seed(SEED + 9)
+    return batch, [trainer.make_draws(batch, gen)
+                   for _ in range(TRAIN_SHARD_STEPS)]
+
+
+def edlora_shard_setup():
+    """The ED-LoRA path's 2D models at SD-1.5 width (bf16), its trainer
+    (its attention sites, rank LORA_RANK, clip 1) and the inputs of
+    edlora_small_inputs at 512x512: (trainer, inputs)."""
+    import torch
+    models = edlora_models('cuda', torch.bfloat16)
+    trainer = edlora_trainer(models, max_grad_norm=1.0)
+    return trainer, edlora_small_inputs(
+        trainer, copy.deepcopy(models['tokenizer']), size=512)
+
+
+def edlora_shard_step(trainer, inputs) -> dict:
+    """One `EDLoRATrainer.step` on the inputs' first draws from its params:
+    the loss, each group's reduced gradient before the clip (flattened,
+    fp32 on the CPU) and the digest of the params after; the seconds,
+    launches and peak GiB."""
+    import torch
+    from videoswap_torch.edlora_train import param_groups
+    params, batch, draws = inputs
+    tp = edlora_params_on(params, 'cuda')
+    groups = param_groups(tp)
+    opt = trainer.init_state(tp)
+    seen = {}
+    update = trainer.update
+
+    def recorded(optimizer):
+        seen.update({k: torch.cat([t.grad.float().flatten().cpu()
+                                   for t in v]) for k, v in groups.items()})
+        update(optimizer)
+    trainer.update = recorded
+    trainer.make_draws = lambda b, g: draws[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    loss = trainer.step(tp, opt, batch, None).item()
+    torch.cuda.synchronize()
+    del trainer.update, trainer.make_draws
+    return {'loss': loss, 'grad': seen, 's': time.perf_counter() - t0,
+            'digest': _digest(groups['emb'] + groups['lora']),
+            'launches': read_launches(),
+            'peak_gib': torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def atlas_shard_setup(mesh=None):
+    """The atlas phase's clip (72 frames 768x448, built on the card), the
+    atlas_swan nets from SEED, and a main and an inverse step's draws of
+    10000 points from SEED + 6: (trainer, draws)."""
+    import numpy as np
+    import torch
+    from videoswap_torch.atlas.trainer import AtlasTrainer
+    from videoswap_torch.builders import build_atlas_nets
+    nets = build_atlas_nets(ATLAS_MODELS, device='cuda', seed=SEED)
+    clip = atlas_clip(ATLAS_FRAMES, ATLAS_H, ATLAS_W, 'cuda')
+    trainer = AtlasTrainer(nets, clip, ATLAS_TRAIN,
+                           larger_dim=max(ATLAS_H, ATLAS_W),
+                           num_frames=ATLAS_FRAMES, device='cuda', mesh=mesh)
+    rs = np.random.RandomState(SEED + 6)
+    draws = [tuple(torch.from_numpy(rs.randint(0, hi, 10000)).cuda()
+                   for hi in (ATLAS_W, ATLAS_H, ATLAS_FRAMES))
+             for _ in range(2)]
+    return trainer, draws
+
+
+def atlas_shard_step(trainer, draws) -> dict:
+    """One main step and one inverse step: the loss terms, the weights
+    after and each weight's gradient (on the card), the hash kernel's
+    launches and the seconds."""
+    import torch
+    from videoswap_torch.atlas.trainer import INVERSE_NET, MAIN_NETS
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ld = {k: float(v) for k, v in trainer.step(1, draws=draws[0]).items()}
+    grads = {f'{n}.{k}': p.grad.detach().clone() for n in MAIN_NETS
+             for k, p in trainer.nets[n].named_parameters()}
+    ld['fg_inv_loss'] = float(trainer.inverse_step(draws=draws[1]))
+    grads.update({f'{INVERSE_NET}.{k}': p.grad.detach().clone()
+                  for k, p in trainer.nets[INVERSE_NET].named_parameters()})
+    torch.cuda.synchronize()
+    return {'losses': ld, 's': time.perf_counter() - t0,
+            'weights': {f'{n}.{k}': p.detach().clone()
+                        for n, net in trainer.nets.items()
+                        for k, p in net.named_parameters()},
+            'grads': grads,
+            'hash_launches': read_launches()['hash_table_grad'],
+            'digest': _digest([p for net in trainer.nets.values()
+                               for p in net.parameters()])}
+
+
+def atlas_shard_errors(got: dict, ref: dict) -> dict:
+    """The dp step against the unsharded one: the worst loss term
+    (relative), and over every weight the worst |difference| beyond
+    ATLAS_SHARD_RTOL / ATLAS_SHARD_ATOL (entries whose gradient, in either
+    run, is below 1e-6: beyond 2 lr), as a share of the limit (<= 1
+    passes)."""
+    lr = float(ATLAS_TRAIN['optimizer']['lr'])
+    loss = max(abs(got['losses'][k] - v) / abs(v)
+               for k, v in ref['losses'].items())
+    worst = 0.0
+    for k, w in ref['weights'].items():
+        d = (got['weights'][k] - w).abs()
+        tiny = (got['grads'][k].abs() < 1e-6) | (ref['grads'][k].abs() < 1e-6)
+        lim = (ATLAS_SHARD_ATOL + ATLAS_SHARD_RTOL * w.abs()).masked_fill(
+            tiny, 2 * lr)
+        worst = max(worst, float((d / lim).max()))
+    return {'loss': loss, 'weights': worst}
+
+
+def train_shard_rank(rank: int, world: int, init: str, plant, q):
+    """One rank of the sharded_train phase's world on cuda:0: every case of
+    TRAIN_SHARD_CASES that holds it, in order (see phase_sharded_train);
+    its readings into `q`."""
+    import traceback
+    try:
+        import datetime
+
+        import torch
+        sys.path.insert(0, str(ROOT))
+        torch.cuda.set_device(0)
+        torch.set_num_threads(2)        # four ranks on the host's cores
+        full_fp32()
+        from videoswap_torch.edlora_train import shard_edlora_trainer
+        from videoswap_torch.parallel import dist as vdist
+        from videoswap_torch.parallel import make_mesh
+        from videoswap_torch.pipelines import shard_trainer
+        backend = vdist.initialize(
+            'cuda', init, rank, world,
+            timeout=datetime.timedelta(seconds=TRAIN_SHARD_TIMEOUT))
+        ctx = contextlib.nullcontext()
+        if plant:
+            ctx = _fault_control().TRAIN_FAULTS[plant][0]()
+        out = {'backend': backend, 'cases': {}}
+        held = {}
+        with ctx:
+            meshes = [(case, shape, make_mesh(shape, ranks))
+                      for case, shape, ranks in TRAIN_SHARD_CASES]
+            for i, (case, shape, mesh) in enumerate(meshes):
+                if not mesh.member:
+                    continue
+                t0 = time.perf_counter()
+                if case == 'adapter':
+                    if 'adapter' not in held:
+                        tr = make_trainer(build_pipeline('cuda',
+                                                         torch.bfloat16))
+                        held['adapter'] = (tr, *adapter_shard_inputs(tr),
+                                           copy.deepcopy(
+                                               tr.adapter.state_dict()))
+                    tr, batch, draws, state0 = held['adapter']
+                    r = adapter_shard_steps(shard_trainer(tr, mesh), batch,
+                                            draws, state0)
+                    if mesh.index != 0:
+                        r['grad'] = None
+                    if not any(c == 'adapter' for c, _, m in meshes[i + 1:]
+                               if m.member):
+                        held.pop('adapter')
+                elif case == 'edlora':
+                    if 'edlora' not in held:
+                        held['edlora'] = edlora_shard_setup()
+                    tr, inputs = held['edlora']
+                    r = edlora_shard_step(shard_edlora_trainer(tr, mesh),
+                                          inputs)
+                    if mesh.index != 0:
+                        r['grad'] = None
+                else:
+                    held.pop('edlora', None)
+                    torch.cuda.empty_cache()
+                    if 'atlas_ref' not in held and rank == 0:
+                        tr, draws = atlas_shard_setup()
+                        held['atlas_ref'] = atlas_shard_step(tr, draws)
+                        del tr
+                    tr, draws = atlas_shard_setup(mesh)
+                    r = atlas_shard_step(tr, draws)
+                    del tr
+                    if rank == 0:
+                        ref = held['atlas_ref']
+                        r['errors'] = atlas_shard_errors(r, ref)
+                        r['ref_losses'] = ref['losses']
+                    r.pop('weights')
+                    r.pop('grads')
+                torch.cuda.empty_cache()
+                r['case_s'] = time.perf_counter() - t0
+                out['cases'][f'{case} {shape}'] = r
+        vdist.shutdown()
+        q.put((rank, True, out))
+    except BaseException:      # noqa: BLE001 - reported to the phase
+        q.put((rank, False, traceback.format_exc()))
+
+
+def run_train_shard_world(plant=None, timeout: float = 900.0) -> list:
+    """SHARD_WORLD ranks of train_shard_rank, spawned; their readings in
+    rank order. A rank that fails fails the phase; every rank is stopped."""
+    import queue
+
+    import torch.multiprocessing as mp
+    ctx = mp.get_context('spawn')
+    q = ctx.Queue()
+    init = f'tcp://127.0.0.1:{free_port()}'
+    procs = [ctx.Process(target=train_shard_rank,
+                         args=(r, SHARD_WORLD, init, plant, q))
+             for r in range(SHARD_WORLD)]
+    for p in procs:
+        p.start()
+    out = {}
+    try:
+        for _ in procs:
+            rank, ok, value = q.get(timeout=timeout)
+            if not ok:
+                raise PhaseError(f'sharded_train: rank {rank} failed:\n'
+                                 f'{value}')
+            out[rank] = value
+    except queue.Empty:
+        raise PhaseError(f'sharded_train: the world timed out after '
+                         f'{timeout} s')
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+    return [out[r] for r in range(SHARD_WORLD)]
+
+
+def train_shard_references() -> dict:
+    """The unsharded steps on the card, in this process, on models built
+    as the ranks build theirs (the phases before may have trained the
+    shared pipeline's adapter): the adapter's (and its floor, the same
+    steps with FT_DISABLE) and ED-LoRA's (and its floor, GEGLU's split
+    route at every width), with the flash backward's launches derived
+    from the layout."""
+    from unittest import mock
+
+    import torch
+    from videoswap_torch.ops import geglu_ffn as geglu
+    trainer = make_trainer(build_pipeline('cuda', torch.bfloat16))
+    state0 = copy.deepcopy(trainer.adapter.state_dict())
+    batch, draws = adapter_shard_inputs(trainer)
+    adapter = adapter_shard_steps(trainer, batch, draws, state0)
+    os.environ['FT_DISABLE'] = '1'
+    try:
+        floor = adapter_shard_steps(trainer, batch, draws, state0)
+    finally:
+        del os.environ['FT_DISABLE']
+    trainer.adapter.load_state_dict(state0)
+    expected = flash_bwd_expected(trainer.unet, SIZE // 8)
+    del trainer, batch
+    torch.cuda.empty_cache()
+    tr, inputs = edlora_shard_setup()
+    edlora = edlora_shard_step(tr, inputs)
+    with mock.patch.object(geglu, 'takes_fused_route', lambda c: False):
+        split = edlora_shard_step(tr, inputs)
+    edlora_expected = flash_bwd_expected(tr.unet, 512 // 8, True)
+    del tr, inputs
+    torch.cuda.empty_cache()
+    return {'adapter': adapter, 'floor': {
+        'loss': max(abs(a - b) / abs(b) for a, b in
+                    zip(floor['loss'], adapter['loss'])),
+        'grad': max(rel_err(a, b) for a, b in
+                    zip(floor['grad'], adapter['grad']))},
+        'edlora_floor': {
+            'loss': abs(split['loss'] - edlora['loss']) / abs(edlora['loss']),
+            'grad': {g: rel_err(split['grad'][g], v)
+                     for g, v in edlora['grad'].items()}},
+        'expected': expected, 'edlora': edlora,
+        'edlora_expected': edlora_expected}
+
+
+def train_shard_readings(ranks: list, ref: dict) -> dict:
+    """Each case's readings against the unsharded references: by rank the
+    seconds, peak GiB, bytes and launches; the errors (the mesh's first
+    rank's) and whether every rank ended with the same digest."""
+    out = {'backend': sorted({r['backend'] for r in ranks}),
+           'floor': ref['floor'], 'edlora_floor': ref['edlora_floor'],
+           'cases': {}}
+    for case, shape, group in TRAIN_SHARD_CASES:
+        key = f'{case} {shape}'
+        runs = {rk: ranks[rk]['cases'][key] for rk in group}
+        first = runs[group[0]]
+        c = {'case_s': {rk: round(v['case_s'], 2) for rk, v in runs.items()}}
+        if case == 'adapter':
+            a = ref['adapter']
+            c.update(
+                loss=max(abs(x - y) / abs(y)
+                         for x, y in zip(first['loss'], a['loss'])),
+                grad=max(rel_err(x, y)
+                         for x, y in zip(first['grad'], a['grad'])),
+                same_bits=all(len({v['digest'][i] for v in runs.values()})
+                              == 1 for i in range(TRAIN_SHARD_STEPS)),
+                by_rank={rk: {
+                    'step_s': [round(s, 3) for s in v['step_s']],
+                    'peak_gib': round(v['peak_gib'], 2),
+                    'moved_per_step': v['moved_per_step'],
+                    'moved_backward_per_step': v['moved_backward_per_step'],
+                    'launches': {k: v['launches'][k]
+                                 for k in TRAIN_SHARD_KERNELS}}
+                    for rk, v in runs.items()},
+                expected=dict(ref['expected'], **{
+                    k: a['launches'][k] for k in TRAIN_SHARD_KERNELS
+                    if k not in ref['expected']}))
+        elif case == 'edlora':
+            e = ref['edlora']
+            c.update(
+                loss=abs(first['loss'] - e['loss']) / abs(e['loss']),
+                grad={g: rel_err(first['grad'][g], e['grad'][g])
+                      for g in e['grad']},
+                same_bits=len({v['digest'] for v in runs.values()}) == 1,
+                s={rk: round(v['s'], 3) for rk, v in runs.items()},
+                peak_gib={rk: round(v['peak_gib'], 2)
+                          for rk, v in runs.items()},
+                launches={rk: {k: v['launches'][k] for k in
+                               ('flash_attention_fwd',
+                                'flash_attention_bwd_dq',
+                                'flash_attention_bwd_dkv', 'geglu_ffn',
+                                'geglu_gate')} for rk, v in runs.items()},
+                expected=ref['edlora_expected'])
+        else:
+            c.update(errors=first['errors'],
+                     same_bits=len({v['digest'] for v in runs.values()})
+                     == 1,
+                     s={rk: round(v['s'], 3) for rk, v in runs.items()},
+                     hash_launches={rk: v['hash_launches']
+                                    for rk, v in runs.items()},
+                     losses=first['losses'])
+        out['cases'][key] = c
+    return out
+
+
+def train_shard_fails(r) -> list:
+    fails = []
+    if r['backend'] != ['gloo']:
+        fails.append(f'backend {r["backend"]}')
+    for key, c in r['cases'].items():
+        kind = key.split(' ')[0]
+        if not c['same_bits']:
+            fails.append(f'{kind}: ranks differ {key}')
+        if kind == 'adapter':
+            if not (c['loss'] <= TRAIN_SHARD_LOSS_TOL
+                    and c['grad'] <= TRAIN_SHARD_GRAD_TOL):
+                fails.append(f'adapter: {key} vs unsharded')
+            for rk, v in c['by_rank'].items():
+                for k, n in v['launches'].items():
+                    if n <= 0 or n != c['expected'][k]:
+                        fails.append(f'adapter: launches {key} rank {rk} '
+                                     f'{k}')
+        elif kind == 'edlora':
+            if not (c['loss'] <= EDLORA_SHARD_LOSS_TOL and all(
+                    v <= EDLORA_SHARD_GRAD_TOL for v in c['grad'].values())):
+                fails.append(f'edlora: {key} vs unsharded')
+            for rk, v in c['launches'].items():
+                for k, n in c['expected'].items():
+                    if v[k] != n:
+                        fails.append(f'edlora: launches {key} rank {rk} {k}')
+        else:
+            e = c['errors']
+            if not (e['loss'] <= ATLAS_SHARD_LOSS_RTOL
+                    and e['weights'] <= 1.0):
+                fails.append(f'atlas: {key} vs unsharded')
+            if any(n != 1 for n in c['hash_launches'].values()):
+                fails.append(f'atlas: hash launches {key}')
+    return fails
+
+
+# the training CLIs under `torchrun --nproc_per_node 2` on the card (gloo,
+# the two ranks on cuda:0), each against the same CLI run in this process
+TRAIN_SHARD_CLI_RANKS = 2
+# the atlas CLI's clip (ATLAS_SMALL's frames, height, width) and cuts
+ATLAS_SHARD_CLI = {'datasets.res_x': 128, 'datasets.res_y': 96,
+                   'datasets.max_frames': 8, 'train.total_iter': 4,
+                   'train.pretrain_UV_mapping_iter': 1, 'val.val_freq': 4,
+                   'logger.print_freq': 2, 'logger.save_checkpoint_freq': 4}
+EDLORA_SHARD_CLI_STEPS = 2
+TRAIN_SHARD_CLI_STEPS = 2
+# the ED-LoRA CLI at tp = 2 against the single process: the change of the
+# factors and embeddings from their (seeded) init over two steps, relative
+# L2 by part. Adam moves each entry by about lr sign(g), so an entry whose
+# bf16 gradient sits near 0 may move the other way: the sound readings
+# (H100, 700 W) 6.5e-2 (embeddings) and 7.0e-2 (factors); about twice
+EDLORA_SHARD_CLI_TOL = 0.15
+
+
+def _cli_tree_files(root: Path) -> list:
+    """The files under `root`, a log's start time taken out of its name."""
+    return sorted(re.sub(r'_\d{8}_\d{6}\.log$', '.log',
+                         str(p.relative_to(root)))
+                  for p in root.rglob('*') if p.is_file())
+
+
+def torchrun_cli(module: str, yml: Path, root: Path, flags: list):
+    """`module` under torchrun with TRAIN_SHARD_CLI_RANKS ranks, `root` the
+    working directory, started: (Popen, its start time)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS='2')
+    cmd = [sys.executable, '-m', 'torch.distributed.run', '--standalone',
+           '--nproc_per_node', str(TRAIN_SHARD_CLI_RANKS), '-m', module,
+           '-opt', str(yml)] + flags
+    root.mkdir(parents=True, exist_ok=True)
+    return (subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True),
+            time.perf_counter())
+
+
+def torchrun_result(started) -> dict:
+    """A started torchrun_cli's seconds, exit code and output's tail."""
+    proc, t0 = started
+    out, _ = proc.communicate(timeout=600)
+    return {'seconds': time.perf_counter() - t0, 'code': proc.returncode,
+            'tail': out[-3000:]}
+
+
+def train_shard_cli_inputs(state, base: Path) -> dict:
+    """The three CLIs' configs under `base` ({cli: yml}): the 2001
+    training config without validation in the recipe tree; the ED-LoRA
+    phase's config on two 512x512 images; atlas_swan.yml on ATLAS_SMALL's
+    clip, its frames, masks and matching flows written here."""
+    import torch
+    from videoswap_torch import extract_flow
+    from videoswap_torch.utils.png import write_png
+    tree, _ = recipe_tree(state)
+    ymls = {'train': recipe_config(
+        ROOT, 'train', tree, TRAIN_RECIPE,
+        {'train.total_iter': TRAIN_SHARD_CLI_STEPS, 'val.val_freq': 100},
+        '_dist')}
+    images = base / 'concepts'
+    write_concept_images(images, 2, 512)
+    ymls['edlora'] = base / 'edlora_shard.yml'
+    ymls['edlora'].write_text(EDLORA_YAML.format(
+        steps=EDLORA_SHARD_CLI_STEPS, images=2, image_dir=images))
+    frames, height, width = ATLAS_SMALL
+    atree = base / 'atlas_tree'
+    clip = atlas_clip(frames, height, width, 'cuda')
+    for sub, arr in (('frames', (clip['video'] * 255).round().clamp(0, 255)),
+                     ('masks', clip['mask'] * 255)):
+        (atree / sub).mkdir(parents=True, exist_ok=True)
+        for i, a in enumerate(arr.to(torch.uint8).cpu().numpy()):
+            write_png(str(atree / sub / f'{i:05d}.png'), a)
+    (atree / 'annotation').mkdir()
+    (atree / 'annotation' / '00000.json').write_text('{}')
+    extract_flow.cli(['--frame_dir', str(atree / 'frames'), '--out_dir',
+                      str(atree / 'flows'), '--method', 'matching'])
+    ymls['atlas'] = atlas_recipe_config(atree, ATLAS_SHARD_CLI)
+    return ymls
+
+
+def train_shard_clis(state, base: Path) -> dict:
+    """The three training CLIs under torchrun, side by side, and each again
+    in this process meanwhile, in roots of their own under `base`: {cli:
+    readings}."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+    from videoswap_torch import train_atlas
+    from videoswap_torch import train_edlora as tcli
+    from videoswap_torch.edlora_train import EDLoRATrainer, param_groups
+    from videoswap_torch.train import train
+    ymls = train_shard_cli_inputs(state, base)
+    started = {
+        'train': torchrun_cli('videoswap_torch.train', ymls['train'],
+                              base / 'train_dist', ['--distributed']),
+        'edlora': torchrun_cli('videoswap_torch.train_edlora',
+                               ymls['edlora'], base / 'edlora_dist',
+                               ['--shard', '2']),
+        'atlas': torchrun_cli('videoswap_torch.train_atlas', ymls['atlas'],
+                              base / 'atlas_dist', ['--shard', '2'])}
+    single_s, seen = {}, {}
+
+    class Recording(EDLoRATrainer):
+        def init_train_params(self, generator, concept_emb, rank=4):
+            p = super().init_train_params(generator, concept_emb, rank)
+            seen['init'] = {k: [t.detach().cpu().clone() for t in v]
+                            for k, v in param_groups(p).items()}
+            return p
+
+    t0 = time.perf_counter()
+    train(str(base / 'train_single'), types.SimpleNamespace(
+        opt=str(ymls['train']), resume=False, device=None,
+        distributed=False))
+    single_s['train'] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with mock.patch.object(tcli, 'EDLoRATrainer', Recording):
+        edlora = tcli.train(str(base / 'edlora_single'),
+                            types.SimpleNamespace(opt=str(ymls['edlora']),
+                                                  device=None, shard=None))
+    single_s['edlora'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    atlas = train_atlas.train(str(base / 'atlas_single'),
+                              types.SimpleNamespace(opt=str(ymls['atlas']),
+                                                    device=None, shard=None))
+    single_s['atlas'] = time.perf_counter() - t0
+    out = {k: dict(torchrun_result(v), single_s=single_s[k])
+           for k, v in started.items()}
+
+    r = out['train']
+    if r['code'] == 0:
+        diffs = []
+        for rel in ('models/models_2/adapter.pth', 'models/train_state.pth'):
+            a, b = (torch.load(next((base / side / 'experiments').glob(
+                f'*/{rel}')), map_location='cpu', weights_only=True)
+                for side in ('train_dist', 'train_single'))
+            diffs += state_differences(a, b, rel)
+        r['differences'] = diffs
+
+    r = out['edlora']
+    if r['code'] == 0:
+        ckpt = Path(edlora['checkpoints'][EDLORA_SHARD_CLI_STEPS])
+        dist_ckpt = next((base / 'edlora_dist' / 'experiments').glob(
+            f'*/models/models_{EDLORA_SHARD_CLI_STEPS}/{ckpt.name}'))
+        a, b = (torch.load(p, map_location='cpu', weights_only=True)
+                for p in (dist_ckpt, ckpt))
+        e0 = seen['init']['emb'][0].flatten()
+        ea, eb = (next(iter(sd['new_concept_embedding'].values())).flatten()
+                  for sd in (a, b))
+        # the factors in the trainer's order: each site's down then up
+        tr = edlora['trainer']
+        keys = [(part, f'{s.torch_key[:-len(".weight")]}.lora_{f}.weight')
+                for part, ss in (('unet', tr.unet_sites),
+                                 ('text_encoder', tr.text_sites))
+                for s in ss for f in ('down', 'up')]
+        fa, fb = (torch.cat([sd[p][k].flatten() for p, k in keys])
+                  for sd in (a, b))
+        f0 = torch.cat([t.flatten() for t in seen['init']['lora']])
+        r['update_rel_l2'] = {'embeddings': rel_err(ea - e0, eb - e0),
+                              'factors': rel_err(fa - f0, fb - f0)}
+        r['same_concept_cfg'] = (
+            json.loads((dist_ckpt.parent / 'new_concept_cfg.json')
+                       .read_text())
+            == json.loads((ckpt.parent / 'new_concept_cfg.json')
+                          .read_text()))
+
+    r = out['atlas']
+    if r['code'] == 0:
+        last = max(atlas['checkpoints'])
+        a, b = (torch.load(p, map_location='cpu', weights_only=True)
+                for p in (next((base / 'atlas_dist' / 'experiments').glob(
+                    f'*/models/models_{last}.pth')),
+                    atlas['checkpoints'][last]))
+        # Adam moves a weight by at most about lr a step, so two runs whose
+        # rounding differs (fp32 sums of the points split in two) stay
+        # within 2 lr an update of each other: every UV mapping's
+        # pretraining iterations and the main iterations
+        lr = float(ATLAS_TRAIN['optimizer']['lr'])
+        steps = ATLAS_SHARD_CLI['train.total_iter'] + ATLAS_SMALL[0] * \
+            ATLAS_SHARD_CLI['train.pretrain_UV_mapping_iter']
+        x = torch.cat([a[k].flatten() for k in sorted(b)]).numpy()
+        y = torch.cat([b[k].flatten() for k in sorted(b)]).numpy()
+        r['far_share'] = float((~np.isclose(x, y, rtol=1e-3,
+                                            atol=1e-4)).mean())
+        r['worst'] = float(np.abs(x - y).max())
+        r['max_allowed'] = 2 * lr * steps
+    del edlora, atlas
+    torch.cuda.empty_cache()
+    for cli in out:
+        files = [_cli_tree_files(base / f'{cli}_{k}')
+                 for k in ('dist', 'single')]
+        out[cli]['same_files'] = files[0] == files[1]
+        out[cli]['logs'] = sum(f.endswith('.log') for f in files[0])
+    return out
+
+
+def train_shard_cli_fails(c) -> list:
+    fails = []
+    for cli, r in c.items():
+        if r['code'] != 0:
+            fails.append(f'cli {cli} exit {r["code"]}')
+            continue
+        if not r['same_files'] or r['logs'] != 1:
+            fails.append(f'cli {cli} files')
+    if c['train']['code'] == 0 and c['train']['differences']:
+        fails.append('cli train vs single process')
+    e = c['edlora']
+    if e['code'] == 0 and (not e['same_concept_cfg'] or any(
+            v > EDLORA_SHARD_CLI_TOL for v in e['update_rel_l2'].values())):
+        fails.append('cli edlora vs single process')
+    a = c['atlas']
+    if a['code'] == 0 and not a['worst'] <= a['max_allowed']:
+        fails.append('cli atlas vs single process')
+    return fails
+
+
+def sharded_train_run(state, plant=None, ref=None) -> tuple:
+    """The sharded_train phase's runs and checks (with `plant`, a fault of
+    scripts/fault_control.py's TRAIN_FAULTS, entered in every rank of the
+    world; the CLIs are not run; `ref`: train_shard_references, made here
+    when not given): (readings, the checks that failed)."""
+    import tempfile
+
+    import torch
+    from videoswap_torch.ops import _build
+    _build.library()              # built once, before the ranks start
+    sec = {}
+    if ref is None:
+        t0 = time.perf_counter()
+        ref = train_shard_references()
+        sec['unsharded references'] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_train_shard_world(plant)
+    sec['world (4 ranks)'] = time.perf_counter() - t0
+    r = train_shard_readings(ranks, ref)
+    fails = train_shard_fails(r)
+    for key, c in r['cases'].items():
+        log(f'# sharded_train {key}{" plant " + plant if plant else ""}: '
+            f'{json.dumps(c)}')
+    r['reference'] = {
+        'adapter_loss': ref['adapter']['loss'],
+        'adapter_step_s': ref['adapter']['step_s'],
+        'adapter_peak_gib': ref['adapter']['peak_gib'],
+        'adapter_launches': ref['adapter']['launches'],
+        'edlora_loss': ref['edlora']['loss'], 'edlora_s': ref['edlora']['s'],
+        'edlora_launches': ref['edlora']['launches']}
+    for k, n in ref['expected'].items():
+        if ref['adapter']['launches'][k] != n:
+            fails.append(f'adapter: unsharded launches {k}')
+    if plant is None:
+        with tempfile.TemporaryDirectory() as d:
+            t0 = time.perf_counter()
+            r['cli'] = train_shard_clis(state, Path(d))
+            sec['CLIs'] = time.perf_counter() - t0
+        fails += train_shard_cli_fails(r['cli'])
+    r['seconds'] = sec
+    r['launches'] = {k: v * TRAIN_SHARD_STEPS for k, v in ranks[0]['cases'][
+        f'adapter {TRAIN_SHARD_CASES[-4][1]}']['launches'].items()}
+    return r, fails
+
+
+def phase_sharded_train(report, state):
+    r, fails = sharded_train_run(state)
+    report['sharded_train'] = r
+    report['launches']['sharded_train'] = r.pop('launches')
+    sec = r['seconds']
+    cli = r.get('cli', {})
+    for name, c in cli.items():
+        shown = {k: v for k, v in c.items() if k != 'tail'}
+        log(f'# sharded_train CLI {name} (torchrun --nproc_per_node '
+            f'{TRAIN_SHARD_CLI_RANKS}): {json.dumps(shown)}')
+        if c['code'] != 0:
+            log(f'# sharded_train CLI {name} output: {c["tail"]}')
+    log(f'# sharded_train: floor (unsharded, motion modules layer-wise) '
+        f'{json.dumps(r["floor"])}; ED-LoRA floor (unsharded, GEGLU split '
+        f'route) {json.dumps(r["edlora_floor"])}; limits adapter loss '
+        f'{TRAIN_SHARD_LOSS_TOL:g} grad {TRAIN_SHARD_GRAD_TOL:g}, ED-LoRA '
+        f'{EDLORA_SHARD_LOSS_TOL:g} / {EDLORA_SHARD_GRAD_TOL:g}, atlas '
+        f'{ATLAS_SHARD_LOSS_RTOL:g} / {ATLAS_SHARD_RTOL:g} / '
+        f'{ATLAS_SHARD_ATOL:g}; reference {json.dumps(r["reference"])}; '
+        f'stage s {json.dumps({k: round(v, 2) for k, v in sec.items()})} '
+        f'{"FAIL " + str(fails) if fails else "ok"}')
+    if fails:
+        raise PhaseError(f'sharded_train: {fails}')
 
 
 # ---------------------------------------------------- CLIP and attention
@@ -6322,6 +7127,7 @@ def main() -> None:
                  'edlora': phase_edlora, 'blend_small': phase_blend_small,
                  'blend': phase_blend, 'recipe': phase_recipe,
                  'sharded': phase_sharded,
+                 'sharded_train': phase_sharded_train,
                  'clip_attn': phase_clip_attn,
                  'train_recipe': phase_train_recipe,
                  'semantic_points': phase_semantic_points}[phase](

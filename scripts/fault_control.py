@@ -138,6 +138,32 @@ sound and under each fault):
                       frames back in reverse order: the sample (tp splits
                       the locations) and the sharded CLI.
 
+The sharded training paths' faults, each planted in every rank of
+chip_smoke.py's sharded_train world and run against that phase's checks
+(`--only sharded_train` runs these alone; the unsharded references are
+taken once, the CLIs run with the sound world only); each is caught on the
+CPU too (tests/test_torch_sharded_train.py::test_fault_plant_is_caught):
+
+- column_entry_identity: the column-parallel entry's backward is the
+                      identity (each tp rank's input gradient holds only
+                      its own heads' and hidden units' part): the adapter
+                      step's gradient at the tp meshes;
+- gather_grad_summed: the gathers' backward (the motion modules' tp
+                      all-gather, the U-Net exit's) sums the gradient over
+                      the group instead of taking this rank's part: the
+                      adapter step's gradient at the tp meshes;
+- atlas_local_masked_mean: the atlas's masked means divide by the rank's
+                      own mask count, not the whole batch's: the atlas's
+                      loss terms at dp 2 and 4;
+- lora_grad_unsummed: the LoRA factors of the cut sites keep each rank's
+                      own gradient (not summed over tp): ED-LoRA's factor
+                      gradients at tp 2 and 4;
+- adapter_grad_counts_replicas: the adapter's gradient is summed over
+                      every rank of the mesh, replicated copies included
+                      (tp ranks, the rows of a batch of 1 on dp ranks): the
+                      adapter step's gradient at (2,1,1) B = 1 and the tp
+                      meshes.
+
 The train CLI's fault, run against the checks of chip_smoke.py's
 train_recipe phase (the 2001 training config, 2 steps, then --resume to 4,
 in the same tree):
@@ -814,9 +840,10 @@ def _merge_drops_alpha():
     from videoswap_torch import edlora_train as et
     real = et.merge_lora
 
-    def faulted(frozen, lora_params, sites, alpha):
+    def faulted(frozen, lora_params, sites, alpha, slicers=None):
         on_card = any(p['up'].is_cuda for p in lora_params.values())
-        return real(frozen, lora_params, sites, 1.0 if on_card else alpha)
+        return real(frozen, lora_params, sites, 1.0 if on_card else alpha,
+                    slicers)
     with mock.patch.object(et, 'merge_lora', faulted):
         yield
 
@@ -974,6 +1001,66 @@ SHARD_FAULTS = {
 }
 
 
+@contextlib.contextmanager
+def _column_entry_identity():
+    from videoswap_torch.parallel import sharding
+    with mock.patch.object(sharding, 'copy_to_tp', lambda x, group: x):
+        yield
+
+
+@contextlib.contextmanager
+def _gather_grad_summed():
+    from videoswap_torch.parallel import sharding
+
+    def faulted(g, group, part):
+        return part(sharding._sum(g, group, backward=True))
+    with mock.patch.object(sharding, 'gather_backward', faulted):
+        yield
+
+
+@contextlib.contextmanager
+def _atlas_local_masked_mean():
+    from videoswap_torch.atlas import losses
+    with mock.patch.object(losses, 'global_count', lambda m: m.sum()):
+        yield
+
+
+@contextlib.contextmanager
+def _lora_grad_unsummed():
+    from videoswap_torch import edlora_train as et
+    with mock.patch.object(et, 'factor_axes', lambda site, slicers: ()):
+        yield
+
+
+@contextlib.contextmanager
+def _adapter_grad_counts_replicas():
+    from videoswap_torch.parallel import sharding
+    from videoswap_torch.pipelines import trainer as tr
+
+    def faulted(self, batch):
+        if self.mesh is not None:
+            sharding.reduce_gradients(self.adapter.parameters(), self.mesh,
+                                      ('dp', 'sp', 'tp'))
+    with mock.patch.object(tr.VideoSwapTrainer, 'reduce_gradients',
+                           faulted):
+        yield
+
+
+# the sharded training paths' faults -> context managers planting them (in
+# every rank), and the check of chip_smoke.py's sharded_train phase that
+# must catch each (tests/test_torch_sharded_train.py catches each on the
+# CPU too)
+TRAIN_FAULTS = {
+    'sound': (contextlib.nullcontext, None),
+    'column_entry_identity': (_column_entry_identity, 'adapter'),
+    'gather_grad_summed': (_gather_grad_summed, 'adapter'),
+    'atlas_local_masked_mean': (_atlas_local_masked_mean, 'atlas'),
+    'lora_grad_unsummed': (_lora_grad_unsummed, 'edlora'),
+    'adapter_grad_counts_replicas': (_adapter_grad_counts_replicas,
+                                     'adapter'),
+}
+
+
 def shard_cli_command(plant: str):
     """chip_smoke.sharded_cli_command with `plant` entered in every rank
     (this script's --child-plant mode runs the swap CLI under it)."""
@@ -1031,6 +1118,36 @@ def shard_caught(rows: dict) -> tuple[bool, dict]:
     sound = rows.pop('sound')
     return (not sound['fails'],
             {name: SHARD_FAULTS[name][1] in row['checks']
+             for name, row in rows.items()})
+
+
+def train_shard_rows(state) -> dict:
+    """chip_smoke.py's sharded_train phase, sound (with its CLIs) and with
+    each fault of TRAIN_FAULTS planted in every rank of its world, against
+    one set of unsharded references: {fault: readings and the checks that
+    failed ('adapter', 'edlora', 'atlas', 'cli')}."""
+    import torch
+    ref = cs.train_shard_references()
+    rows = {}
+    for name in TRAIN_FAULTS:
+        plant = None if name == 'sound' else name
+        r, fails = cs.sharded_train_run(state, plant, ref)
+        torch.cuda.empty_cache()
+        rows[name] = {
+            'cases': {k: {m: c[m] for m in ('loss', 'grad', 'errors',
+                                            'same_bits') if m in c}
+                      for k, c in r['cases'].items()},
+            'fails': fails,
+            'checks': sorted({f.split(':')[0].split(' ')[0] for f in fails})}
+        cs.log(f'# sharded_train {name}: {json.dumps(rows[name])}')
+    return rows
+
+
+def train_shard_caught(rows: dict) -> tuple[bool, dict]:
+    rows = dict(rows)
+    sound = rows.pop('sound')
+    return (not sound['fails'],
+            {name: TRAIN_FAULTS[name][1] in row['checks']
              for name, row in rows.items()})
 
 
@@ -1455,7 +1572,7 @@ def main() -> None:
         return
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--only', choices=['long_video', 'sharded',
-                                       'shard_blocks'],
+                                       'shard_blocks', 'sharded_train'],
                     help='run only this group of faults')
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -1485,6 +1602,13 @@ def main() -> None:
             'sample': cs.SHARD_REL_TOL, 'cli': cs.SHARD_CLI_TOL},
             'sharded_faults': rows,
             'caught': caught}), flush=True)
+        sys.exit(0 if ok else 1)
+    if args.only == 'sharded_train':
+        rows = train_shard_rows({'pipe': pipe})
+        sound_ok, caught = train_shard_caught(rows)
+        ok = sound_ok and all(caught.values())
+        print(json.dumps({'ok': ok, 'sharded_train_faults': rows,
+                          'caught': caught}), flush=True)
         sys.exit(0 if ok else 1)
     if args.only == 'long_video':
         rows = long_video_rows(pipe)
@@ -1559,8 +1683,12 @@ def main() -> None:
     edlora_sound = edlora.pop('sound')
     long_video = long_video_rows(pipe)
     long_video_sound_ok, long_video_caught_ = long_video_caught(long_video)
-    sharded = shard_rows(sharded_state(pipe))
+    sharded_state_ = sharded_state(pipe)
+    sharded = shard_rows(sharded_state_)
     sharded_sound_ok, sharded_caught_ = shard_caught(sharded)
+    sharded_train = train_shard_rows(sharded_state_)
+    sharded_train_sound_ok, sharded_train_caught_ = train_shard_caught(
+        sharded_train)
     recipe = recipe_rows(pipe, cpu)
     atlas_recipe = atlas_recipe_rows()
     atlas_recipe_sound = atlas_recipe.pop('sound')
@@ -1625,6 +1753,7 @@ def main() -> None:
         caught[name] = EDLORA_FAULTS[name][1] in row['fails']
     caught.update(long_video_caught_)
     caught.update(sharded_caught_)
+    caught.update(sharded_train_caught_)
     ok = not any(v for k, v in sound.items() if k.endswith('_fails')) \
         and not sound['recipe_shapes_error'] \
         and not recipe_sound['dpm_small_fails'] \
@@ -1635,6 +1764,7 @@ def main() -> None:
         and not edlora_sound['fails'] \
         and long_video_sound_ok \
         and sharded_sound_ok \
+        and sharded_train_sound_ok \
         and all(caught.values())
     print(json.dumps({'ok': ok, 'unet_tol': cs.MODEL_REL_TOL,
                       'small_tol': cs.SAMPLE_REL_TOL,
@@ -1686,6 +1816,7 @@ def main() -> None:
                       'sharded_tols': {'sample': cs.SHARD_REL_TOL,
                                        'cli': cs.SHARD_CLI_TOL},
                       'sharded_faults': sharded,
+                      'sharded_train_faults': sharded_train,
                       'caught': caught}), flush=True)
     sys.exit(0 if ok else 1)
 

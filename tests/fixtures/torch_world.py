@@ -3,7 +3,8 @@ the spawned children import no JAX).
 
 `run_world(n, target, args, tmp)` spawns n processes that join one gloo
 process group through a FileStore under `tmp` (no port to clash with other
-xdist workers), runs `target(rank, *args)` in each with one torch thread,
+xdist workers; a collective waits at most COLLECTIVE_TIMEOUT, so that ranks
+that hang fail), runs `target(rank, *args)` in each with one torch thread,
 and returns every rank's return value, in rank order. A rank that raises
 fails the call with its traceback; the others are killed. `start_world`
 returns the started world, whose `results()` waits for it, so that the
@@ -12,6 +13,7 @@ caller can work meanwhile.
 
 from __future__ import annotations
 
+import datetime
 import os
 import queue
 import traceback
@@ -19,12 +21,15 @@ import traceback
 import torch
 import torch.multiprocessing as mp
 
+COLLECTIVE_TIMEOUT = datetime.timedelta(seconds=240)
+
 
 def _child(rank, n, store, target, args, q):
     torch.set_num_threads(1)
     try:
         from videoswap_torch.parallel import dist as vdist
-        vdist.initialize('cpu', f'file://{store}', rank, n)
+        vdist.initialize('cpu', f'file://{store}', rank, n,
+                         timeout=COLLECTIVE_TIMEOUT)
         out = target(rank, *args)
         vdist.shutdown()
         q.put((rank, True, out))

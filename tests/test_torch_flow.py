@@ -327,16 +327,12 @@ def test_auto_picks_what_the_jax_cli_picks(tmp_path, monkeypatch):
 
 
 def test_the_clis_refuse_what_is_not_ported_and_want_cuda(tmp_path):
-    """--method unimatch without a checkpoint on disk and --shard (named
-    by its ROADMAP item) are refused before anything runs; without
-    --device cpu the CLIs want a CUDA device and raise on a machine
-    without one."""
+    """--method unimatch without a checkpoint on disk is refused before
+    anything runs; without --device cpu the CLIs want a CUDA device and
+    raise on a machine without one."""
     with pytest.raises(FileNotFoundError, match='gmflow-scale2-regrefine6'):
         extract_flow.cli(['--frame_dir', str(tmp_path), '--out_dir',
                           str(tmp_path / 'o'), '--method', 'unimatch'])
-    with pytest.raises(NotImplementedError, match='Queue 1 item 9'):
-        train_atlas.main(['-opt', str(tmp_path / 'missing.yml'),
-                          '--shard', '4'])
     if torch.cuda.is_available():
         return
     with pytest.raises(RuntimeError, match='no CUDA device'):

@@ -387,18 +387,3 @@ def test_registries_are_separate():
     from videoswap_torch.utils.registry import MODEL_REGISTRY as TREG
     assert TREG.get('AnimateDiffUNet3DModel') is AnimateDiffUNet3DModel
     assert JREG.get('AnimateDiffUNet3DModel') is JUNet
-
-
-def _edlora_shard():
-    from videoswap_torch.train_edlora import train
-    train('.', type('A', (), {'opt': 'unused.yml', 'shard': 2})())
-
-
-@pytest.mark.parametrize('refused, error, item', [
-    (_edlora_shard, NotImplementedError, 9),
-], ids=['train_edlora_shard'])
-def test_unported_features_name_their_queue_item(refused, error, item):
-    """Each refusal of a feature the port lacks names its ROADMAP.md Queue 1
-    item (9: multi-device runs)."""
-    with pytest.raises(error, match=f'ROADMAP.md Queue 1 item {item}\\)'):
-        refused()

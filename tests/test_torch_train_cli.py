@@ -314,12 +314,11 @@ def test_train_cli_imports_with_jax_blocked():
 
 
 @pytest.mark.parametrize('argv, match', [
-    (['--distributed'], 'Queue 1 item 9'),
     (['--device', 'cuda'], 'no CUDA device'),
 ])
 def test_train_cli_refuses_what_is_not_ported(tmp_path, argv, match):
-    """`--distributed` and, here, the default device are refused with a
-    message, before any work."""
+    """Here, the default device is refused with a message, before any
+    work."""
     yml = tmp_path / 'x.yml'
     yml.write_text('name: x\n')
     res = subprocess.run(

@@ -4,16 +4,54 @@ The counterpart of videoswap_tpu/atlas/losses.py, function for function.
 The `*_pre` forms take precomputed evaluations (what the batched trainer
 step feeds them); the callable forms evaluate the nets themselves, for
 composition and tests. Data-dependent selections are masked means.
+
+Data parallel (`split_points(group, parts)`, the atlas trainer's dp mesh):
+each rank holds 1/parts of the step's points, and every mean is global:
+the rank's own sum over the whole batch's count (a mask's count summed over
+the group). A rank's loss is then its share of the global loss; the sum of
+the ranks' gradients is the global loss's.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
+
+from videoswap_torch.parallel import sharding
+
+_SPLITS: list = []
+
+
+@contextlib.contextmanager
+def split_points(group, parts: int):
+    """Means over points split in `parts` equal shards over `group`."""
+    _SPLITS.append((group, parts))
+    try:
+        yield
+    finally:
+        _SPLITS.pop()
+
+
+def mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean over every point of the step: `x.mean()`, or with the
+    points split over ranks, this rank's sum over the whole count."""
+    if not _SPLITS:
+        return x.mean()
+    return x.sum() / (x.numel() * _SPLITS[-1][1])
+
+
+def global_count(m: torch.Tensor) -> torch.Tensor:
+    """The number of selected points in the whole step (no gradient)."""
+    n = m.sum()
+    if _SPLITS:
+        n = sharding.all_reduce_sum(n.detach(), _SPLITS[-1][0], n.dtype)
+    return n
 
 
 def masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     m = mask.float()
-    return (values * m).sum() / torch.clamp(m.sum(), min=1.0)
+    return (values * m).sum() / torch.clamp(global_count(m), min=1.0)
 
 
 def safe_norm(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -44,24 +82,24 @@ def reconstruct_rgb(fg_uv, bg_uv, alpha, f_atlas):
 
 
 def rgb_loss(rgb_out: torch.Tensor, rgb_gt: torch.Tensor) -> torch.Tensor:
-    return _norm2(rgb_out - rgb_gt).mean()
+    return mean(_norm2(rgb_out - rgb_gt))
 
 
 def alpha_bce_loss(alpha: torch.Tensor,
                    alpha_gt: torch.Tensor) -> torch.Tensor:
-    return torch.mean(-alpha_gt * torch.log(alpha)
+    return mean(-alpha_gt * torch.log(alpha)
                       - (1 - alpha_gt) * torch.log(1 - alpha))
 
 
 def sparsity_loss(rgb_fg: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     """Penalise FG atlas colours where alpha ~ 0."""
-    return _norm2(rgb_fg * (1.0 - alpha)).mean()
+    return mean(_norm2(rgb_fg * (1.0 - alpha)))
 
 
 def gradient_loss_pre(rgb_out, rgb_out_x1, rgb_out_y1, dx_gt, dy_gt):
     d_out_x = rgb_out_x1 - rgb_out
     d_out_y = rgb_out_y1 - rgb_out
-    return torch.mean(_norm2(dx_gt - d_out_x) + _norm2(dy_gt - d_out_y))
+    return mean(_norm2(dx_gt - d_out_x) + _norm2(dy_gt - d_out_y))
 
 
 def gradient_loss(xyf, rgb_out, dx_gt, dy_gt, fg_map, bg_map, f_alpha,
@@ -103,8 +141,8 @@ def rigidity_loss_all(uv, uv_xm, uv_ym, derivative_amount: int,
 def rigidity_loss_pre(uv, uv_xm, uv_ym, derivative_amount: int,
                       larger_dim: int,
                       uv_mapping_scale: float) -> torch.Tensor:
-    return rigidity_loss_all(uv, uv_xm, uv_ym, derivative_amount,
-                             larger_dim, uv_mapping_scale).mean()
+    return mean(rigidity_loss_all(uv, uv_xm, uv_ym, derivative_amount,
+                                  larger_dim, uv_mapping_scale))
 
 
 def rigidity_loss(xyf, uv, uv_map, derivative_amount: int, larger_dim: int,

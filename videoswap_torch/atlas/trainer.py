@@ -16,17 +16,31 @@ The counterpart of videoswap_tpu/atlas/trainer.py `AtlasTrainer`, in fp32:
   FG UVs with the FG mapping held fixed;
 - coordinates come from a `torch.Generator` on the device; `step` and
   `inverse_step` also take explicit draws (x, y, f), so that a test can
-  feed both packages the same ones.
+  feed both packages the same ones;
+- data parallel over a mesh (N, 1, 1) (`mesh`, the JAX package's dp mesh):
+  every rank draws the whole batch from the same generator and keeps its
+  1/N of the points, at the JAX package's three sites (UV pretraining, the
+  main step, the inverse step); every mean is global (`losses.split_points`:
+  the rank's own sum over the whole batch's count); the nets' gradients,
+  the hash tables' included (the hash-grid kernel's fp32 result on the
+  rank's own points), are summed over the ranks in fp32, in the same order
+  on every rank, so every rank ends a step with the same bits; the loss
+  terms it returns are the ranks' shares summed. The sum of fp32 shares is
+  not the unsharded step's bits (that would need the kernel's int64
+  fixed-point tables summed before their conversion); it is within fp32
+  rounding of it.
 
-Not ported: the JAX package's data-parallel mesh and its `lax.scan`
-dispatch batching; `run_steps` is a Python loop.
+`run_steps` is a Python loop, where the JAX package scans its dispatches.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
+
+from videoswap_torch.parallel import sharding
 
 from . import losses
 from .imlp import init_imlp
@@ -52,11 +66,18 @@ def fuse_data(data: dict, device) -> torch.Tensor:
 
 class AtlasTrainer:
     def __init__(self, nets: dict, data: dict, train_opt: dict,
-                 larger_dim: int, num_frames: int, device=None):
+                 larger_dim: int, num_frames: int, device=None, mesh=None):
         """nets: name -> IMLP (moved to `device`); data: the arrays of
-        `load_input_data` (numpy or tensors); device: None means 'cuda'."""
+        `load_input_data` (numpy or tensors); device: None means 'cuda';
+        mesh: a (N, 1, 1) `parallel.Mesh` to split each step's points over
+        (the nets' weights are then broadcast from its first rank)."""
         self.device = torch.device('cuda' if device is None else device)
         self.nets = {n: net.to(self.device) for n, net in nets.items()}
+        if mesh is not None and (mesh.sp, mesh.tp) != (1, 1):
+            raise ValueError(f'the atlas splits points over dp alone, not '
+                             f'{mesh.describe()}')
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self.replicate()
         self.train_opt = train_opt
         self.larger_dim, self.num_frames = larger_dim, num_frames
         self.lr = float(train_opt.get('optimizer', {}).get('lr', 1e-4))
@@ -82,6 +103,44 @@ class AtlasTrainer:
         """Seeded weights on flax's scales, net by net."""
         for net in self.nets.values():
             init_imlp(net, generator)
+        self.replicate()
+
+    def replicate(self) -> None:
+        """Data parallel: every net's weights from the mesh's first rank."""
+        for net in self.nets.values():
+            sharding.replicate_tree(list(net.parameters()), self.mesh)
+
+    # ------------------------------------------------------- data parallel
+    def _points(self):
+        """The means' split of the points over the mesh (a no-op
+        without one)."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return losses.split_points(self.mesh.group('all'), self.mesh.dp)
+
+    def _own(self, *arrs):
+        """This rank's 1/dp of (batch,)-leading draws."""
+        if self.mesh is None:
+            return arrs
+        n, dp = arrs[0].shape[0], self.mesh.dp
+        if n % dp:
+            raise ValueError(f'sample_batch_size {n} must divide dp={dp}')
+        k = self.mesh.coord[0] * (n // dp)
+        return tuple(a[k:k + n // dp] for a in arrs)
+
+    def _reduce(self, params) -> None:
+        """The ranks' gradients of `params` summed over dp."""
+        sharding.reduce_gradients(params, self.mesh, ('dp',))
+
+    def _gathered(self, ld: dict) -> dict:
+        """The loss terms of every rank's points summed (detached)."""
+        if self.mesh is None:
+            return {k: v.detach() for k, v in ld.items()}
+        keys = list(ld)
+        total = sharding.sum_distinct(torch.stack(
+            [torch.as_tensor(ld[k]).detach().float() for k in keys]),
+            self.mesh, ('dp',))
+        return dict(zip(keys, total.unbind(0)))
 
     def init_opt_state(self) -> None:
         """Fresh Adams: one for the main nets, one for the inverse net."""
@@ -113,13 +172,15 @@ class AtlasTrainer:
         opt = torch.optim.Adam(net.parameters(), lr=1e-4)
         loss = torch.zeros(())
         for _ in range(iters * self.num_frames):
-            xyt = self._xyt(*self.sample(generator, batch))
-            loss = losses.safe_norm(xyt[:, :2] * self.uv_scale
-                                    - net(xyt)).mean()
+            xyt = self._xyt(*self._own(*self.sample(generator, batch)))
+            with self._points():
+                loss = losses.mean(losses.safe_norm(
+                    xyt[:, :2] * self.uv_scale - net(xyt)))
             opt.zero_grad(set_to_none=True)
             loss.backward()
+            self._reduce(net.parameters())
             opt.step()
-        return loss.item()
+        return self._gathered({'loss': loss})['loss'].item()
 
     # ----------------------------------------------------------------- step
     def loss_fn(self, global_step: int, x, y, f):
@@ -210,29 +271,38 @@ class AtlasTrainer:
         return total, ld
 
     def step(self, global_step: int, generator=None, draws=None) -> dict:
-        """One main iteration: sample (or take `draws`), losses, backward,
-        Adam. Returns the loss terms (detached, on the device). The
-        gradients stay on the parameters until the next step."""
-        x, y, f = draws if draws is not None else self.sample(generator)
-        total, ld = self.loss_fn(global_step, x, y, f)
+        """One main iteration: sample (or take the whole batch's `draws`),
+        losses, backward, Adam. Returns the loss terms (detached, on the
+        device). The gradients stay on the parameters until the next
+        step."""
+        x, y, f = self._own(*(draws if draws is not None
+                              else self.sample(generator)))
+        with self._points():
+            total, ld = self.loss_fn(global_step, x, y, f)
         self.opt_main.zero_grad(set_to_none=True)
         total.backward()
+        self._reduce([p for n in MAIN_NETS
+                      for p in self.nets[n].parameters()])
         self.opt_main.step()
-        return {k: v.detach() for k, v in ld.items()}
+        return self._gathered(ld)
 
     def inverse_step(self, generator=None, draws=None) -> torch.Tensor:
         """One inverse-mapping iteration on the FG pixels of the draws."""
-        x, y, f = draws if draws is not None else self.sample(generator)
+        x, y, f = self._own(*(draws if draws is not None
+                              else self.sample(generator)))
         xyt = self._xyt(x, y, f)
         fg_mask = self.fused[f, y, x, MASK]
         with torch.no_grad():
             uv = self.nets['FG_UV_Mapping'](xyt)
         pred = self.nets[INVERSE_NET](torch.cat([uv, xyt[:, 2:]], dim=-1))
-        loss = losses.masked_mean(losses.safe_norm(pred - xyt), fg_mask == 1)
+        with self._points():
+            loss = losses.masked_mean(losses.safe_norm(pred - xyt),
+                                      fg_mask == 1)
         self.opt_inv.zero_grad(set_to_none=True)
         loss.backward()
+        self._reduce(self.nets[INVERSE_NET].parameters())
         self.opt_inv.step()
-        return loss.detach()
+        return self._gathered({'loss': loss})['loss']
 
     def run_steps(self, start_step: int, n: int,
                   generator: torch.Generator) -> dict:

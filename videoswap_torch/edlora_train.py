@@ -33,6 +33,17 @@ off by default): at batch 1 the activations fit.
 The step's random draws are explicit, as in pipelines/trainer.py:
 `make_draws` returns them and `loss_fn` takes them, so that a test can
 feed the JAX package's draws.
+
+Tensor parallel (`shard_edlora_trainer(trainer, mesh)`, the mesh (1, 1,
+N)): the frozen U-Net and text encoder hold this rank's tp shards
+(`parallel.sharding.shard_unet`, `shard_text_encoder`); the factors and
+the concept embeddings stay replicated, and each site's `up @ down` is cut
+with its weight's slicer before the sum. A cut site's factor gradient
+covers only its rank's rows or columns and is summed over tp; every other
+gradient is whole on each rank already (the column-parallel entries sum
+the embeddings' over tp) and is not summed again. Each group is clipped by
+the global norm of the reduced gradients, so every rank ends a step with
+the same bits.
 """
 
 from __future__ import annotations
@@ -41,6 +52,9 @@ import math
 from dataclasses import dataclass, field
 from typing import Any, NamedTuple, Optional, Sequence
 
+import copy
+import dataclasses
+
 import numpy as np
 import torch
 from torch.func import functional_call
@@ -48,6 +62,7 @@ from torch.func import functional_call
 from videoswap_torch.edlora import (_TEXT_LORA, _UNET_LORA, NUM_EDLORA_LAYERS,
                                     _eligible, bind_concept_prompt)
 from videoswap_torch.models.converters import clip_key_map
+from videoswap_torch.parallel import sharding
 from videoswap_torch.pipelines.trainer import sample_biased_timestep
 from videoswap_torch.schedulers import add_noise, get_velocity
 
@@ -103,16 +118,27 @@ def init_lora_params(generator: torch.Generator, module: torch.nn.Module,
 
 
 def merge_lora(frozen: dict, lora_params: dict, sites: Sequence[LoRASite],
-               alpha: float) -> dict:
+               alpha: float, slicers: Optional[dict] = None) -> dict:
     """{parameter name: W + alpha * up @ down} over the sites, the update
-    cast to W's dtype before the sum (differentiable in the factors)."""
+    cast to W's dtype before the sum (differentiable in the factors).
+    `slicers` {parameter name: full -> local} cut the update of a
+    tensor-parallel model's weight to this rank's shard."""
     out = {}
     for site in sites:
         w = frozen[site.name]
         p = lora_params[site.torch_key]
         delta = (p['up'] @ p['down']).to(w.dtype)            # [O, I]
+        if slicers and site.name in slicers:
+            delta = slicers[site.name](delta)
         out[site.name] = w + alpha * delta.reshape(w.shape)
     return out
+
+
+def factor_axes(site: LoRASite, slicers: dict) -> tuple:
+    """The mesh axes a site's factor gradient is summed over: tp where its
+    weight is cut (each rank's update covers its own rows or columns),
+    none where the weight is whole on every rank."""
+    return ('tp',) if site.name in slicers else ()
 
 
 # ---------------------------------------------------------------------------
@@ -234,6 +260,7 @@ class EDLoRATrainer:
     tune_cfg: dict = field(default_factory=dict)
     optimizer_cfg: dict = field(default_factory=dict)
     max_grad_norm: Optional[float] = None
+    mesh: Any = None                  # set by shard_edlora_trainer
 
     def __post_init__(self):
         if self.tune_cfg.get('attn_impl', 'flash') != 'flash':
@@ -244,6 +271,10 @@ class EDLoRATrainer:
             m.requires_grad_(False)
         self.unet.set_gradient_checkpointing(self.tune_cfg.get('remat',
                                                                False))
+        self.slicers = {
+            'unet': getattr(self.unet, 'tp_slicers', None) or {},
+            'text_encoder': getattr(self.text_encoder, 'tp_slicers',
+                                    None) or {}}
         self.frozen = {
             'unet': {s.name: self.unet.get_parameter(s.name)
                      for s in self.unet_sites},
@@ -311,7 +342,7 @@ class EDLoRATrainer:
         draws = {k: torch.as_tensor(v, device=dev) for k, v in draws.items()}
         text_eff = merge_lora(self.frozen['text_encoder'],
                               train_params['text_lora'], self.text_sites,
-                              self.alpha)
+                              self.alpha, self.slicers['text_encoder'])
         # the extra rows in registration order (the dict's order)
         extra = torch.cat(list(train_params['concept_emb'].values()))
         text = functional_call(self.text_encoder, text_eff,
@@ -329,7 +360,8 @@ class EDLoRATrainer:
             noisy = add_noise(self.sched, latents, noise, draws['t'])
         dtype = self.unet.conv_in.weight.dtype
         unet_eff = merge_lora(self.frozen['unet'], train_params['unet_lora'],
-                              self.unet_sites, self.alpha)
+                              self.unet_sites, self.alpha,
+                              self.slicers['unet'])
         pred = functional_call(self.unet, unet_eff,
                                (noisy.to(dtype), draws['t'], text),
                                strict=False)
@@ -363,8 +395,47 @@ class EDLoRATrainer:
         optimizer.zero_grad(set_to_none=True)
         loss = self.loss_fn(train_params, batch, draws)
         loss.backward()
+        self.reduce_gradients(train_params)
         self.update(optimizer)
         return loss.detach()
+
+    def reduce_gradients(self, train_params: dict) -> None:
+        """Tensor parallel: each cut site's factor gradients summed over tp
+        (`factor_axes`); the rest, whole on every rank, taken from the
+        mesh's first rank, so that every rank holds the same bits."""
+        if self.mesh is None:
+            return
+        by_axes = {}
+        for part, model, sites in (('unet_lora', 'unet', self.unet_sites),
+                                   ('text_lora', 'text_encoder',
+                                    self.text_sites)):
+            for site in sites:
+                p = train_params[part][site.torch_key]
+                by_axes.setdefault(factor_axes(
+                    site, self.slicers[model]), []).extend(
+                        (p['down'], p['up']))
+        by_axes.setdefault((), []).extend(
+            train_params['concept_emb'].values())
+        for axes, params in sorted(by_axes.items()):
+            sharding.reduce_gradients(params, self.mesh, axes)
+
+
+def shard_edlora_trainer(trainer: EDLoRATrainer, mesh) -> EDLoRATrainer:
+    """Tensor-parallel ED-LoRA training over `mesh` (the JAX package's
+    `shard_edlora_trainer`): a new trainer on copies of the frozen U-Net
+    and text encoder cut to this rank's tp shards; the VAE is shared.
+    Broadcast the train params from the mesh's first rank
+    (`parallel.replicate_tree`) before the first step."""
+    if not mesh.member:
+        raise ValueError(f'this rank is not in the mesh {mesh.describe()}')
+    unet = copy.deepcopy(trainer.unet)
+    unet.tp_slicers = sharding.shard_unet(unet, mesh)
+    unet.mesh = mesh
+    text_encoder = copy.deepcopy(trainer.text_encoder)
+    text_encoder.tp_slicers = sharding.shard_text_encoder(text_encoder,
+                                                          mesh)
+    return dataclasses.replace(trainer, unet=unet,
+                               text_encoder=text_encoder, mesh=mesh)
 
 
 def param_groups(train_params: dict) -> dict:

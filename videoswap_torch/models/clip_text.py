@@ -1,7 +1,14 @@
 """CLIP text encoder (the ViT-L/14 text tower of SD-1.5), the port of
 videoswap_tpu/models/clip_text.py: 12 layers, width 768, 12 heads,
 quick-gelu, causal mask, final LayerNorm. Plain PyTorch: the JAX package
-runs it on XLA, with no kernel."""
+runs it on XLA, with no kernel.
+
+Tensor parallel (`parallel.sharding.shard_text_encoder` sets `tp_group`):
+an attention holds its rank's heads, q_proj, k_proj and v_proj their rows
+and out_proj its columns; an MLP holds its rank's fc1 rows and fc2 columns.
+The input enters through the column-parallel entry (its gradient summed
+over the tp group), and out_proj's and fc2's partial results are summed over
+the group, each bias added on tp rank 0 alone."""
 
 from __future__ import annotations
 
@@ -10,6 +17,7 @@ from typing import NamedTuple, Optional
 import torch
 from torch import nn
 
+from videoswap_torch.parallel import sharding
 from videoswap_torch.utils.registry import MODEL_REGISTRY
 
 
@@ -27,7 +35,13 @@ def quick_gelu(x):
     return x * torch.sigmoid(1.702 * x)
 
 
+def _tp_exit(y: torch.Tensor, group) -> torch.Tensor:
+    return y if group is None else sharding.all_reduce_sum(y, group, y.dtype)
+
+
 class CLIPAttention(nn.Module):
+    tp_group = None
+
     def __init__(self, cfg: CLIPTextConfig):
         super().__init__()
         d = cfg.hidden_size
@@ -38,9 +52,12 @@ class CLIPAttention(nn.Module):
         self.out_proj = nn.Linear(d, d)
 
     def forward(self, x, causal_mask=None):
-        b, s, d = x.shape
+        b, s, _ = x.shape
+        x = sharding.copy_to_tp(x, self.tp_group)
+        q = self.q_proj(x)
+        d = q.shape[-1]                       # this rank's heads' width
         dh = d // self.heads
-        q = self.q_proj(x) * dh ** -0.5
+        q = q * dh ** -0.5
         q, k, v = (t.reshape(b, s, self.heads, dh).transpose(1, 2)
                    for t in (q, self.k_proj(x), self.v_proj(x)))
         logits = torch.einsum('bhqd,bhkd->bhqk', q.float(), k.float())
@@ -48,17 +65,21 @@ class CLIPAttention(nn.Module):
             logits = logits.masked_fill(~causal_mask, -1e9)
         probs = torch.softmax(logits, dim=-1).to(v.dtype)
         out = torch.einsum('bhqk,bhkd->bhqd', probs, v)
-        return self.out_proj(out.transpose(1, 2).reshape(b, s, d))
+        return _tp_exit(self.out_proj(out.transpose(1, 2).reshape(b, s, d)),
+                        self.tp_group)
 
 
 class CLIPMLP(nn.Module):
+    tp_group = None
+
     def __init__(self, cfg: CLIPTextConfig):
         super().__init__()
         self.fc1 = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
         self.fc2 = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
 
     def forward(self, x):
-        return self.fc2(quick_gelu(self.fc1(x)))
+        x = sharding.copy_to_tp(x, self.tp_group)
+        return _tp_exit(self.fc2(quick_gelu(self.fc1(x))), self.tp_group)
 
 
 class CLIPEncoderLayer(nn.Module):

@@ -59,11 +59,13 @@ class Attention(nn.Module):
 
     Tensor parallel (`parallel.sharding.shard_unet` sets `tp_group`): the
     module holds `heads` of the heads and the matching rows of to_q, to_k,
-    to_v and columns of to_out.0; the out-projection's partial sums are
-    all-reduced over the tp group in their own dtype, its bias held by tp
-    rank 0 alone. (The partials are rounded to bf16 on the card already,
-    and where ranks share a card gloo stages every byte through the host:
-    a bf16 sum moves half the bytes of an fp32 one; PERF.md, PR 18.)"""
+    to_v and columns of to_out.0; the inputs enter through the
+    column-parallel entry (their gradient summed over the tp group), the
+    out-projection's partial sums are all-reduced over the tp group in
+    their own dtype, its bias held by tp rank 0 alone. (The partials are
+    rounded to bf16 on the card already, and where ranks share a card gloo
+    stages every byte through the host: a bf16 sum moves half the bytes of
+    an fp32 one; PERF.md, PR 18.)"""
 
     tp_group = None
 
@@ -81,8 +83,10 @@ class Attention(nn.Module):
     def forward(self, hidden_states: torch.Tensor,
                 encoder_hidden_states: Optional[torch.Tensor] = None,
                 edit_fn: Optional[Callable] = None, want_probs: bool = False):
+        hidden_states = sharding.copy_to_tp(hidden_states, self.tp_group)
         ctx = (hidden_states if encoder_hidden_states is None
-               else encoder_hidden_states)
+               else sharding.copy_to_tp(encoder_hidden_states,
+                                        self.tp_group))
         q = self.to_q(hidden_states)
         k = self.to_k(ctx)
         v = self.to_v(ctx)
@@ -110,9 +114,9 @@ class FeedForward(nn.Module):
     """GEGLU feed-forward, diffusers layout (net.0.proj, net.2), run through
     the fused GEGLU kernel (ops/geglu_ffn.py). Tensor parallel (`tp_group`
     set): the module holds H = 4C / tp hidden units, net.0.proj's rows as
-    [a | gate] of those units, and the kernel's partial result is
-    all-reduced in its own dtype, as Attention's (net.2's bias on tp rank 0
-    alone)."""
+    [a | gate] of those units; its input enters through the column-parallel
+    entry and the kernel's partial result is all-reduced in its own dtype,
+    as Attention's (net.2's bias on tp rank 0 alone)."""
 
     tp_group = None
 
@@ -125,6 +129,7 @@ class FeedForward(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c = x.shape[-1]
+        x = sharding.copy_to_tp(x, self.tp_group)
         proj, out = self.net[0].proj, self.net[2]
         y = geglu_ffn(x.reshape(-1, c).contiguous(), proj.weight, proj.bias,
                       out.weight, out.bias)
@@ -149,13 +154,14 @@ def group_norm_reduced(x: torch.Tensor, groups: int, weight: torch.Tensor,
                        bias: torch.Tensor, eps: float, group) -> torch.Tensor:
     """`group_norm` of a tensor whose non-batch axes are split over the
     ranks of `group` (equal parts): the mean, then the variance about it,
-    each summed in fp32 over the ranks."""
+    each summed in fp32 over the ranks (and their gradients summed back:
+    every rank's part consumes the global statistics)."""
     n, c = x.shape[0], x.shape[-1]
     xf = x.float().reshape(n, -1, groups, c // groups)
     count = xf.shape[1] * xf.shape[3] * dist.get_world_size(group)
-    mean = sharding.all_reduce_sum(xf.sum(dim=(1, 3)), group) / count
+    mean = sharding.reduce_stats(xf.sum(dim=(1, 3)), group) / count
     d = xf - mean[:, None, :, None]
-    var = sharding.all_reduce_sum((d * d).sum(dim=(1, 3)), group) / count
+    var = sharding.reduce_stats((d * d).sum(dim=(1, 3)), group) / count
     y = (d * torch.rsqrt(var + eps)[:, None, :, None]).reshape(x.shape)
     return (y * weight.float() + bias.float()).to(x.dtype)
 

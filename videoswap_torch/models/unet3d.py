@@ -13,7 +13,9 @@ Sharded (`mesh` set by `parallel.sharding.shard_pipeline`): the forward
 takes and returns whole tensors; inside, each rank runs the rows and frames
 its layout gives it (`parallel.sharding.video_spec`, the JAX package's
 `constrain_frames`), the CFG-deduplicated prefix replicated, and the
-result is gathered over (dp, sp) at the end.
+result is gathered over (dp, sp) at the end. A training step
+(`pipelines.shard_trainer`) calls `forward_local` on its rank's part and
+keeps its part of the result; the collectives carry the gradients.
 """
 
 from __future__ import annotations
@@ -100,13 +102,16 @@ class _Block(nn.Module):
     two the JAX package wraps in `nn.remat`) are recomputed in the backward
     pass when `remat` is set and a graph is being recorded: every op
     (`remat` True), or every op but the flash forward, whose outputs are
-    kept (`remat` 'save_flash')."""
+    kept (`remat` 'save_flash'). In a sharded call the recompute issues the
+    layer's collectives again, in the forward's order on every rank."""
 
     remat: bool | str = False
 
     def _run(self, layer, *args, **kwargs):
         if not (self.remat and torch.is_grad_enabled()):
             return layer(*args, **kwargs)
+        # a sharded call's recompute runs under the call's layout again
+        layer = sharding.rerun_in_scope(layer)
         if self.remat == 'save_flash':
             return checkpoint(layer, *args, use_reentrant=False,
                               context_fn=_save_flash_context, **kwargs)
@@ -401,6 +406,21 @@ class AnimateDiffUNet3DModel(nn.Module):
         if ctrl.stores:
             return after.gather(out[0]), out[1]
         return after.gather(out)
+
+    def forward_local(self, sample: torch.Tensor, timesteps,
+                      encoder_hidden_states: torch.Tensor,
+                      adapter_residuals: Optional[Sequence[torch.Tensor]],
+                      layout) -> torch.Tensor:
+        """The sharded call on this rank's part alone (training): `sample`
+        and the residuals are its part of the (B, F, ...) batch under
+        `layout` (a `parallel.sharding.Layout` on `self.mesh`), the text is
+        whole; returns its part of eps, ungathered (the trainer sums its
+        loss over the parts)."""
+        run = sharding.VideoRun(self.mesh, layout, layout)
+        with sharding.video_run(run):
+            return self._forward(sample, timesteps,
+                                 layout.take_rows(encoder_hidden_states),
+                                 adapter_residuals, False, NO_CTRL, None)
 
     def _forward(self, sample, timesteps, encoder_hidden_states,
                  adapter_residuals, cfg_prefix_dedup, ctrl, features):

@@ -7,6 +7,8 @@ itself (`initialize(..., init_method=, rank=, world_size=)`).
 
 - `maybe_initialize_distributed` starts the process group when a
   multi-process run is requested (a flag, or torchrun's `WORLD_SIZE` > 1);
+  `join_world(n, what)` starts it for a run that needs exactly n ranks
+  and refuses any other world;
 - `is_main_process`, `rank`, `world_size`, `barrier`: the IO gate and the
   synchronisation of the reference's accelerate run;
 - every function is a no-op in a single-process run.
@@ -15,6 +17,10 @@ The backend follows the layout of the devices, never a silent fallback:
 NCCL where every local rank has a GPU of its own, gloo where ranks share
 one GPU (NCCL refuses two ranks on one device) or run on the CPU. Each
 rank's device is `cuda:{LOCAL_RANK % device_count}`.
+
+Every collective waits at most `TIMEOUT` (or the `timeout` given to
+`initialize`): a rank that died, or ranks that issue their collectives in
+different orders, fail the run instead of stalling it.
 """
 
 from __future__ import annotations
@@ -27,6 +33,8 @@ import torch
 import torch.distributed as dist
 
 log = logging.getLogger('videoswap_torch')
+
+TIMEOUT = datetime.timedelta(minutes=10)
 
 
 def distributed_requested(flag: bool = False) -> bool:
@@ -76,7 +84,8 @@ def choose_backend(device_type: str, local_world: int) -> str:
 
 def initialize(device_type: str = 'cuda', init_method: str = 'env://',
                rank: int | None = None,
-               world_size: int | None = None) -> str:
+               world_size: int | None = None,
+               timeout: datetime.timedelta | None = None) -> str:
     """Start the process group; returns the backend. `init_method`, `rank`
     and `world_size` default to torchrun's environment."""
     if is_initialized():
@@ -87,7 +96,7 @@ def initialize(device_type: str = 'cuda', init_method: str = 'env://',
     backend = choose_backend(device_type, local_world)
     kw = {} if rank is None else {'rank': rank, 'world_size': n}
     dist.init_process_group(backend, init_method=init_method,
-                            timeout=datetime.timedelta(minutes=10), **kw)
+                            timeout=timeout or TIMEOUT, **kw)
     if device_type == 'cuda':
         torch.cuda.set_device(rank_device('cuda'))
     log.info('process group: rank %d of %d, backend %s (%d local ranks, '
@@ -107,6 +116,17 @@ def maybe_initialize_distributed(flag: bool = False,
         return False
     initialize(device_type)
     return True
+
+
+def join_world(n: int, what: str, device_type: str = 'cuda') -> None:
+    """Start the process group of a run that needs exactly `n` ranks (a
+    torchrun world of `n` processes); any other world is refused before it
+    starts."""
+    have = int(os.environ.get('WORLD_SIZE', '1'))
+    if have != n:
+        raise ValueError(f'{what} needs {n} ranks; the world has {have} '
+                         f'(run it under torchrun --nproc_per_node {n})')
+    maybe_initialize_distributed(n > 1, device_type)
 
 
 def shutdown() -> None:

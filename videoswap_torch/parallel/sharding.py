@@ -1,5 +1,5 @@
-"""Sharding rules and the collectives of the sharded swap (the port of
-videoswap_tpu/parallel/sharding.py).
+"""Sharding rules and the collectives of the sharded swap and of sharded
+training (the port of videoswap_tpu/parallel/sharding.py).
 
 The JAX package states layouts and lets GSPMD insert the collectives. Here
 every rank holds its own shard of each activation and the collectives are
@@ -25,10 +25,20 @@ written out:
   switch from frame to location sharding with an all-to-all over sp and
   split the locations over (sp, tp) (`frames_to_locations`); stored
   attention maps are gathered over (dp, sp) at once (`gather_folded`), and
-  stay head-sharded over tp.
+  stay head-sharded over tp. A training step calls the U-Net on its part
+  (`forward_local`) with the trainer batch's layout (`batch_layout`,
+  `shard_batch`: B over dp, F over sp where they divide).
+- **Gradients**: every collective an activation's gradient crosses is an
+  autograd Function with the backward its place needs (see the
+  collectives below); a value computed from a rank's own shard is summed
+  over the ranks whose shards differ and never over replicated copies
+  (`sum_distinct`, `reduce_gradients`), the same bits on every rank.
+- **CLIP over tp** (`shard_text_encoder`): q_proj, k_proj, v_proj and
+  mlp.fc1 column parallel, out_proj and mlp.fc2 row parallel, for
+  tensor-parallel ED-LoRA training.
 
-Collectives count the bytes each rank sends (`moved`). Every function is an
-identity where no mesh is active.
+Collectives count the bytes each rank sends, forward (`moved`) and backward
+(`moved_backward`). Every function is an identity where no mesh is active.
 """
 
 from __future__ import annotations
@@ -47,63 +57,309 @@ _COL_PARALLEL = ('to_q', 'to_k', 'to_v', 'net_0_proj', 'q_proj', 'k_proj',
                  'v_proj', 'mlp_fc1')
 _ROW_PARALLEL = ('to_out_0', 'net_2', 'out_proj', 'mlp_fc2')
 
-# bytes this rank sent through each collective since the last reset
+# bytes this rank sent through each collective since the last reset: in
+# the forward pass (`moved`) and in the backward pass (`moved_backward`)
 moved = {'all_reduce': 0, 'all_gather': 0, 'all_to_all': 0, 'broadcast': 0}
+moved_backward = dict(moved)
 
 
 def reset_moved() -> None:
-    for k in moved:
-        moved[k] = 0
+    for d in (moved, moved_backward):
+        for k in d:
+            d[k] = 0
 
 
 # ------------------------------------------------------------ collectives
+#
+# Each collective that a gradient crosses is an autograd Function whose
+# backward matches where it sits (torch.distributed.nn's all_reduce and
+# all_gather sum their gradients, which would count a gradient tp times
+# wherever the output feeds replicated compute):
+#
+# - `all_reduce_sum` (the row-parallel exit): sum forward, identity backward;
+# - `copy_to_tp` (the column-parallel entry): identity forward, sum backward;
+# - `reduce_stats` (GroupNorm statistics over sp): sum both ways;
+# - `all_to_all`: the inverse all-to-all backward;
+# - `gather_parts` (the tp all-gather of `locations_to_frames`,
+#   `Layout.gather`): this rank's own part of the gradient, nothing summed.
 
 def _size(group) -> int:
     return 1 if group is None else dist.get_world_size(group)
 
 
-def all_reduce_sum(x: torch.Tensor, group, dtype=torch.float32
-                   ) -> torch.Tensor:
-    """Sum over `group` in `dtype` (the result's dtype)."""
-    y = x.to(dtype).contiguous()
-    if group is None:
-        return y
-    moved['all_reduce'] += y.numel() * y.element_size()
+def _count(kind: str, t: torch.Tensor, backward: bool) -> None:
+    (moved_backward if backward else moved)[kind] += (t.numel()
+                                                      * t.element_size())
+
+
+def _sum(x: torch.Tensor, group, backward: bool = False) -> torch.Tensor:
+    """A new tensor: the sum of `x` over `group` (the caller's is never
+    written)."""
+    y = x.contiguous().clone()
+    _count('all_reduce', y, backward)
     dist.all_reduce(y, group=group)
     return y
 
 
+class _SumForward(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dtype):
+        ctx.dtype = x.dtype
+        return _sum(x.to(dtype), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype), None, None
+
+
+class _SumBackward(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(g, ctx.group, backward=True), None
+
+
+class _SumBoth(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(g, ctx.group, backward=True), None
+
+
+def all_reduce_sum(x: torch.Tensor, group, dtype=torch.float32
+                   ) -> torch.Tensor:
+    """Sum over `group` in `dtype` (the result's dtype); the gradient passes
+    to `x` as it is (a row-parallel exit: every rank's partial feeds the
+    same sum)."""
+    if group is None:
+        return x.to(dtype)
+    return _SumForward.apply(x, group, dtype)
+
+
+def copy_to_tp(x: torch.Tensor, group) -> torch.Tensor:
+    """The column-parallel entry: `x` as it is, its gradient summed over
+    `group` (each tp rank's input gradient holds its own heads' or hidden
+    units' part)."""
+    if group is None:
+        return x
+    return _SumBackward.apply(x, group)
+
+
+def reduce_stats(x: torch.Tensor, group) -> torch.Tensor:
+    """Statistics summed over `group` (fp32), gradient summed too: every
+    rank's own frames consume the global statistics."""
+    if group is None:
+        return x
+    return _SumBoth.apply(x, group)
+
+
+def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise maximum over `group` (no gradient)."""
+    if group is None:
+        return x
+    y = x.detach().contiguous().clone()
+    _count('all_reduce', y, False)
+    dist.all_reduce(y, op=dist.ReduceOp.MAX, group=group)
+    return y
+
+
 def all_gather(x: torch.Tensor, group) -> list:
-    """Every rank's `x` (same shape on each), in group-rank order."""
+    """Every rank's `x` (same shape on each), in group-rank order (no
+    gradient: `gather_parts` carries one)."""
     x = x.contiguous()
     if group is None:
         return [x]
     out = [torch.empty_like(x) for _ in range(_size(group))]
-    moved['all_gather'] += x.numel() * x.element_size()
+    _count('all_gather', x, False)
     dist.all_gather(out, x, group=group)
     return out
 
 
+def gather_backward(g: torch.Tensor, group, part) -> torch.Tensor:
+    """The gradient of a gathered tensor for this rank's input: `part`, its
+    own part of `g`, nothing summed (every rank holds the whole gradient of
+    the gathered tensor, which feeds replicated compute)."""
+    return part(g)
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, assemble, part):
+        ctx.group, ctx.part = group, part
+        return assemble(all_gather(x, group))
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather_backward(g, ctx.group, ctx.part), None, None, None
+
+
+def gather_parts(x: torch.Tensor, group) -> torch.Tensor:
+    """(group size, *x.shape): every rank's `x`, stacked in group-rank
+    order; the gradient is this rank's own entry."""
+    if group is None:
+        return x[None]
+    index = dist.get_rank(group)
+    return _Gather.apply(x, group, torch.stack, lambda g: g[index])
+
+
+def _all_to_all(inp: torch.Tensor, group, backward: bool) -> torch.Tensor:
+    inp = inp.contiguous()
+    out = torch.empty_like(inp)
+    _count('all_to_all', inp, backward)
+    dist.all_to_all_single(out, inp, group=group)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, inp, group):
+        ctx.group = group
+        return _all_to_all(inp, group, False)
+
+    @staticmethod
+    def backward(ctx, g):
+        # chunk j of the gradient goes back to the rank it came from
+        return _all_to_all(g, ctx.group, True), None
+
+
 def all_to_all(chunks: list, group) -> list:
-    """chunks[j] goes to group rank j; returns what each rank sent here."""
+    """chunks[j] goes to group rank j; returns what each rank sent here.
+    The gradient takes the inverse all-to-all."""
     if group is None:
         return list(chunks)
-    inp = torch.stack(chunks).contiguous()
-    out = torch.empty_like(inp)
-    moved['all_to_all'] += inp.numel() * inp.element_size()
-    dist.all_to_all_single(out, inp, group=group)
-    return list(out.unbind(0))
+    return list(_AllToAll.apply(torch.stack(chunks), group).unbind(0))
 
 
 def broadcast(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
-    """The mesh's first rank's `x` on every rank of the mesh."""
+    """The mesh's first rank's `x` on every rank of the mesh (in place)."""
     group = None if mesh is None else mesh.group('all')
     if group is None:
         return x
     x = x.contiguous()
-    moved['broadcast'] += x.numel() * x.element_size()
+    _count('broadcast', x, False)
     dist.broadcast(x, src=mesh.ranks[0], group=group)
     return x
+
+
+# -------------------------------------------- sums over distinct shards
+#
+# A value that each rank computed from its own shard is summed over the
+# ranks whose shards differ (the mesh `axes` the value is split over) and
+# never over replicated copies. Every rank gathers the mesh's values and
+# adds the same copies in the same order, so every rank ends with the same
+# bits.
+
+def representatives(mesh: Mesh, axes) -> list:
+    """The mesh indices whose values are summed: every coordinate on
+    `axes`, the first on every other axis, in row-major order."""
+    names = ('dp', 'sp', 'tp')
+    out = []
+    for i in range(mesh.size):
+        d, r = divmod(i, mesh.sp * mesh.tp)
+        s, t = divmod(r, mesh.tp)
+        if all(c == 0 for n, c in zip(names, (d, s, t)) if n not in axes):
+            out.append(i)
+    return out
+
+
+def _distinct_sum(x: torch.Tensor, mesh: Mesh, axes) -> torch.Tensor:
+    parts = all_gather(x.detach(), mesh.group('all'))
+    out = None
+    for i in representatives(mesh, axes):
+        out = parts[i] if out is None else out + parts[i]
+    return out
+
+
+class _DistinctSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return _distinct_sum(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def sum_distinct(x: torch.Tensor, mesh: Optional[Mesh], axes
+                 ) -> torch.Tensor:
+    """The sum of `x` over the ranks whose shards differ on `axes` (each
+    rank's own `x` gets the whole gradient: a loss's partial sums)."""
+    if mesh is None or mesh.size == 1:
+        return x
+    return _DistinctSum.apply(x, mesh, tuple(axes))
+
+
+def distinct_axes(layout: 'Layout') -> tuple:
+    """The mesh axes over which `layout`'s rows or frames differ: a
+    value computed from a rank's part sums over these and no other."""
+    m, (rows, frames) = layout.mesh, layout.spec
+    out = []
+    if rows in ('dp', ('dp', 'sp')) and m.dp > 1:
+        out.append('dp')
+    if (rows == ('dp', 'sp') or rows == 'sp' or frames == 'sp') \
+            and m.sp > 1:
+        out.append('sp')
+    return tuple(out)
+
+
+@torch.no_grad()
+def reduce_gradients(params, mesh: Optional[Mesh], axes) -> None:
+    """Each parameter's `.grad` summed over the ranks whose shards differ
+    on the mesh `axes` (a gradient held whole on every rank: `axes` = (),
+    the mesh's first rank's copy), in place. A missing gradient counts as
+    zeros. One gather for all of them."""
+    params = list(params)
+    if mesh is None or mesh.size == 1 or not params:
+        return
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+             for p in params]
+    flat = torch.cat([g.reshape(-1).float() for g in grads])
+    total = _distinct_sum(flat, mesh, tuple(axes))
+    i = 0
+    for p, g in zip(params, grads):
+        n = g.numel()
+        p.grad = total[i:i + n].view_as(g).to(g.dtype)
+        i += n
+
+
+@torch.no_grad()
+def replicate_tree(tensors, mesh: Optional[Mesh]) -> None:
+    """The mesh's first rank's values of `tensors` (parameters, optimizer
+    state) on every rank of the mesh, in place: every rank starts from the
+    same trainable state."""
+    group = None if mesh is None else mesh.group('all')
+    if group is None:
+        return
+    # NCCL moves device tensors only (an optimizer's step counts live on
+    # the CPU)
+    dev = (torch.device('cuda', torch.cuda.current_device())
+           if dist.get_backend(group) == 'nccl' else None)
+    for t in tensors:
+        if not torch.is_tensor(t):
+            continue
+        buf = t.detach().to(dev or t.device, copy=True).contiguous()
+        broadcast(buf, mesh)
+        t.data.copy_(buf)
+
+
+def optimizer_tensors(optimizer: torch.optim.Optimizer) -> list:
+    """The optimizer's parameters and every tensor of its state, in a fixed
+    order (the same on every rank)."""
+    out = []
+    for group in optimizer.param_groups:
+        for p in group['params']:
+            out.append(p)
+            st = optimizer.state.get(p, {})
+            out += [st[k] for k in sorted(st) if torch.is_tensor(st[k])]
+    return out
 
 
 # ------------------------------------------------------------------ rules
@@ -208,18 +464,23 @@ class Layout:
         return x[r0:r1]
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
-        """The whole (B, F, ...) tensor from every rank's part `x`."""
+        """The whole (B, F, ...) tensor from every rank's part `x`; the
+        gradient is this rank's part of the whole's."""
         if self.replicated:
             return x
-        pieces = all_gather(x, self.mesh.group('dpsp'))
-        out = x.new_empty((self.b, self.f, *x.shape[2:]))
-        i = 0
-        for d in range(self.mesh.dp):
-            for s in range(self.mesh.sp):
-                (r0, r1), (f0, f1) = self.slices_at(d, s)
-                out[r0:r1, f0:f1] = pieces[i]
-                i += 1
-        return out
+        (r0, r1), (f0, f1) = self.rows, self.frames
+
+        def assemble(pieces):
+            out = x.new_empty((self.b, self.f, *x.shape[2:]))
+            i = 0
+            for d in range(self.mesh.dp):
+                for s in range(self.mesh.sp):
+                    (a0, a1), (b0, b1) = self.slices_at(d, s)
+                    out[a0:a1, b0:b1] = pieces[i]
+                    i += 1
+            return out
+        return _Gather.apply(x, self.mesh.group('dpsp'), assemble,
+                             lambda g: g[r0:r1, f0:f1])
 
     def describe(self) -> str:
         return (f'B={self.b} F={self.f} spec {self.spec}: rows '
@@ -229,6 +490,35 @@ class Layout:
 def layout_for(b: int, f: int, mesh: Mesh, replicate: bool = False):
     spec = (None, None) if replicate else video_spec(b, f, mesh)
     return Layout(mesh=mesh, b=b, f=f, spec=spec)
+
+
+def batch_layout(b: int, f: int, mesh: Mesh) -> Layout:
+    """The trainer batch's layout (the JAX package's `batch_sharding`: B
+    over dp, F over sp), an axis split only where its extent divides (B = 1
+    with dp > 1 stays replicated): `video_sharding`'s rule."""
+    return Layout(mesh=mesh, b=b, f=f, spec=video_sharding((b, f), mesh))
+
+
+_VIDEO_KEYS = ('pixels', 'latent_mean', 'latent_logvar')
+
+
+def shard_batch(batch: dict, mesh: Mesh) -> dict:
+    """This rank's part of a trainer batch (the JAX package's rule):
+    `pixels` and the cached `latent_mean` / `latent_logvar` (B, F, ...) by
+    `batch_layout`, `pred_tracks` (F, P, 2) over sp, everything else
+    replicated."""
+    video = next(batch[k] for k in _VIDEO_KEYS if k in batch)
+    lay = batch_layout(video.shape[0], video.shape[1], mesh)
+    f0, f1 = lay.frames
+    out = {}
+    for k, v in batch.items():
+        if k in _VIDEO_KEYS:
+            out[k] = lay.take(v)
+        elif k == 'pred_tracks':
+            out[k] = v[f0:f1]
+        else:
+            out[k] = v
+    return out
 
 
 # ------------------------------------------------------------ U-Net calls
@@ -273,6 +563,24 @@ def scoped_mesh() -> Optional[Mesh]:
     if _RUNS:
         return _RUNS[-1].mesh
     return _MESHES[-1] if _MESHES else None
+
+
+def rerun_in_scope(fn):
+    """`fn` wrapped to run under the U-Net call's layout active now: a
+    segment recomputed in the backward pass (outside the call) issues the
+    same collectives as its forward did."""
+    run = active()
+    if run is None:
+        return fn
+    layout, after = run.layout, run.after
+
+    def wrapped(*args, **kwargs):
+        again = VideoRun(run.mesh, layout, after)
+        with video_run(again):
+            out = fn(*args, **kwargs)
+        run.layout = again.layout          # a CFG doubling inside `fn`
+        return out
+    return wrapped
 
 
 def stats_group():
@@ -369,9 +677,13 @@ def frames_to_locations(x: torch.Tensor, split: dict) -> tuple:
     """(b, f_local, L, c) frame-sharded -> (this rank's (b, F, q, c)
     location chunk with every frame, L). Chunk k = s * tp + t of the
     locations padded to n chunks; rank (s, t) receives its chunk of the
-    other sp ranks' frames through an all-to-all over sp."""
+    other sp ranks' frames through an all-to-all over sp. Differentiable:
+    the inverse all-to-all backward, and x's gradient summed over tp."""
     b, fl, el, c = x.shape
     n, t = split['n'], split['t']
+    # the tp ranks hold the same x and take different locations: the
+    # gradient of x is the sum of their chunks'
+    x = copy_to_tp(x, split['tg'])
     q = -(-el // n)
     if q * n != el:
         x = torch.cat([x, x.new_zeros((b, fl, q * n - el, c))], dim=2)
@@ -392,7 +704,7 @@ def locations_to_frames(y: torch.Tensor, split: dict, el: int
     step = f // nf
     chunks = [y[:, s2 * step:(s2 + 1) * step] for s2 in range(nf)]
     recv = torch.stack(all_to_all(chunks, split['fg']))   # [s2] my frames
-    per_t = all_gather(recv, split['tg'])                 # [t'][s2]
+    per_t = gather_parts(recv, split['tg'])               # [t'][s2]
     blocks = [per_t[t2][s2] for s2 in range(nf) for t2 in range(tp)]
     out = torch.cat(blocks, dim=2)
     return out[:, :, :el]
@@ -474,6 +786,55 @@ def shard_unet(unet, mesh: Mesh) -> dict:
         put(f'{name}ff.net.2.', out, 'weight', lambda w: _row(w, t, tp))
         put(f'{name}ff.net.2.', out, 'bias', lambda b: bias_on_rank(b, t))
         ff.tp_group = group
+    return slicers
+
+
+@torch.no_grad()
+def shard_text_encoder(text_encoder, mesh: Mesh) -> dict:
+    """Cut the CLIP text encoder's attention and MLP weights (in place) to
+    tp rank t's shards: q_proj, k_proj, v_proj and mlp.fc1 keep their output
+    rows and those rows' biases (column parallel), out_proj and mlp.fc2
+    their input columns, the bias on tp rank 0 alone (row parallel); the
+    heads split over tp. Returns {state-dict key: full -> local} for each
+    tensor cut, as `shard_unet` does."""
+    from videoswap_torch.models.clip_text import CLIPAttention, CLIPMLP
+    tp, t = mesh.tp, mesh.coord[2]
+    group = mesh.group('tp')
+    slicers = {}
+    if tp == 1:
+        return slicers
+
+    def put(name, lin, attr, fn):
+        p = getattr(lin, attr)
+        p.data = fn(p.data).contiguous()
+        slicers[f'{name}{attr}'] = fn
+
+    def col(w):
+        return _col(w, t, tp)
+
+    for name, mod in text_encoder.named_modules():
+        name = f'{name}.' if name else ''
+        if isinstance(mod, CLIPAttention):
+            if mod.heads % tp:
+                raise ValueError(f'{mod.heads} heads do not split over '
+                                 f'tp={tp}')
+            for pn in ('q_proj', 'k_proj', 'v_proj'):
+                for attr in ('weight', 'bias'):
+                    put(f'{name}{pn}.', getattr(mod, pn), attr, col)
+            out, out_name = mod.out_proj, 'out_proj'
+            mod.heads //= tp
+        elif isinstance(mod, CLIPMLP):
+            if mod.fc1.out_features % tp:
+                raise ValueError(f'{mod.fc1.out_features} hidden units do '
+                                 f'not split over tp={tp}')
+            for attr in ('weight', 'bias'):
+                put(f'{name}fc1.', mod.fc1, attr, col)
+            out, out_name = mod.fc2, 'fc2'
+        else:
+            continue
+        put(f'{name}{out_name}.', out, 'weight', lambda w: _row(w, t, tp))
+        put(f'{name}{out_name}.', out, 'bias', lambda b: bias_on_rank(b, t))
+        mod.tp_group = group
     return slicers
 
 

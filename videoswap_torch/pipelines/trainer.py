@@ -23,10 +23,23 @@ The step's random draws are made explicit: `make_draws(batch, generator)`
 returns them, and `loss_fn(batch, draws)` is the loss for given draws, so
 that a test can feed the JAX package's draws (its `jax.random.split(rng, 4)`
 in `build_loss_fn`) and compare loss and adapter gradient.
+
+Sharded (`shard_trainer(trainer, mesh)`, the JAX package's `shard_params` +
+`shard_batch` under a (dp, sp, tp) mesh): every rank takes the whole batch
+and the whole draws (the same seed on every rank) and keeps its part,
+`parallel.sharding.shard_batch`'s (B over dp, F over sp where they divide);
+the VAE sample, the adapter and the U-Net run on that part (the U-Net with
+its tp shards, `forward_local`); the masked MSE's numerator and mask count
+are summed over the ranks whose parts differ; the adapter's gradient is
+summed over the same ranks and never over replicated copies (tp ranks, or
+the rows of a batch of 1 on dp ranks), so that every rank ends a step with
+the same bits of adapter weights and AdamW state.
 """
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import math
 from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
@@ -36,6 +49,7 @@ import torch
 from videoswap_torch.models import AnimateDiffUNet3DModel, SparsePointAdapter
 from videoswap_torch.models.clip_text import CLIPTextModel
 from videoswap_torch.models.vae import AutoencoderKL
+from videoswap_torch.parallel import sharding
 from videoswap_torch.schedulers import (DiffusionSchedule, add_noise,
                                         get_velocity)
 from videoswap_torch.utils.registry import PIPELINE_REGISTRY
@@ -65,6 +79,7 @@ class VideoSwapTrainer:
     tune_cfg: dict = field(default_factory=dict)
     optimizer_cfg: dict = field(default_factory=dict)
     max_grad_norm: Optional[float] = None
+    mesh: Any = None                  # set by shard_trainer
 
     def __post_init__(self):
         if self.tune_cfg.get('attn_impl', 'flash') != 'flash':
@@ -118,10 +133,18 @@ class VideoSwapTrainer:
         """Masked MSE (fp32 scalar) for one batch and given draws. batch:
         'input_ids' (B, 77), 'pred_tracks' (F, P, 2), 'point_embedding'
         (P, E), and either 'latent_mean'/'latent_logvar' (B, F, h, w, 4)
-        cached moments or 'pixels' (B, F, H, W, 3) in [-1, 1]."""
+        cached moments or 'pixels' (B, F, H, W, 3) in [-1, 1]. Sharded, the
+        whole batch and draws: each rank runs its part."""
         dev = self.device
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
         draws = {k: torch.as_tensor(v, device=dev) for k, v in draws.items()}
+        lay = None
+        if self.mesh is not None:
+            b, f = self._latent_shape(batch)[:2]
+            lay = sharding.batch_layout(b, f, self.mesh)
+            batch = sharding.shard_batch(batch, self.mesh)
+            draws = {k: lay.take(v) if k in ('vae_eps', 'noise') else v
+                     for k, v in draws.items()}
         with torch.no_grad():
             if 'latent_mean' in batch:
                 mean, logvar = batch['latent_mean'], batch['latent_logvar']
@@ -133,21 +156,32 @@ class VideoSwapTrainer:
             noisy = add_noise(self.sched, latents, noise, draws['t'])
             text = self.text_encoder(batch['input_ids'])
         size = (mean.shape[3] * 8, mean.shape[2] * 8)           # (W, H)
+        loss_type = self.tune_cfg.get('loss_type', 'global')
         states, mask = self.adapter(
             batch['pred_tracks'].float(), size, batch['point_embedding'],
-            point_mask=draws['keep'],
-            loss_type=self.tune_cfg.get('loss_type', 'global'))
+            point_mask=draws['keep'], loss_type=loss_type)
+        if lay is not None and loss_type == 'local' and lay.frame_sharded:
+            # the union over every frame's points: over the sp ranks' too
+            mask = sharding.all_reduce_max(mask, self.mesh.group('sp'))
         dtype = self.unet.conv_in.weight.dtype
-        pred = self.unet(noisy, draws['t'], text,
-                         adapter_residuals=[s[None].to(dtype)
-                                            for s in states])
+        residuals = [s[None].to(dtype) for s in states]
+        if lay is None:
+            pred = self.unet(noisy, draws['t'], text,
+                             adapter_residuals=residuals)
+        else:
+            pred = self.unet.forward_local(noisy, draws['t'], text,
+                                           residuals, lay)
         if self.sched.prediction_type == 'epsilon':
             target = noise
         else:
             target = get_velocity(self.sched, latents, noise, draws['t'])
         se = (pred.float() - target.float()) ** 2
         m = mask[None].expand(se.shape)
-        return (se * m).sum() / m.sum()
+        if lay is None:
+            return (se * m).sum() / m.sum()
+        axes = sharding.distinct_axes(lay)
+        return (sharding.sum_distinct((se * m).sum(), self.mesh, axes)
+                / sharding.sum_distinct(m.sum(), self.mesh, axes))
 
     def step(self, batch, generator: torch.Generator) -> torch.Tensor:
         """One AdamW update of the adapter; returns the loss (detached)."""
@@ -155,11 +189,23 @@ class VideoSwapTrainer:
         self.optimizer.zero_grad(set_to_none=True)
         loss = self.loss_fn(batch, draws)
         loss.backward()
+        self.reduce_gradients(batch)
         if self.max_grad_norm:
             torch.nn.utils.clip_grad_norm_(self.adapter.parameters(),
                                            self.max_grad_norm)
         self.optimizer.step()
         return loss.detach()
+
+    def reduce_gradients(self, batch) -> None:
+        """Sharded: the adapter's gradient summed over the ranks whose parts
+        of the batch differ (`distinct_axes`), the same bits on every
+        rank."""
+        if self.mesh is None:
+            return
+        b, f = self._latent_shape(batch)[:2]
+        lay = sharding.batch_layout(b, f, self.mesh)
+        sharding.reduce_gradients(self.adapter.parameters(), self.mesh,
+                                  sharding.distinct_axes(lay))
 
     # ------------------------------------------------------------- lr sched
     @staticmethod
@@ -180,3 +226,22 @@ class VideoSwapTrainer:
             return lambda step: lr * 0.5 * (
                 1.0 + math.cos(math.pi * ramp(step, total_iter)))
         raise ValueError(f'unknown lr_scheduler: {kind}')
+
+
+def shard_trainer(trainer: VideoSwapTrainer, mesh) -> VideoSwapTrainer:
+    """Sharded adapter training over `mesh` (the analogue of
+    `parallel.shard_pipeline`, and of the JAX package's trainer under
+    `shard_params` + `shard_batch`): a new trainer whose U-Net (a copy)
+    holds this rank's tp shards and runs this rank's part of each batch.
+    The VAE, the text encoder, the adapter and its AdamW are shared with
+    `trainer`; the adapter's weights and AdamW state are broadcast from the
+    mesh's first rank, so every rank starts from the same state."""
+    if not mesh.member:
+        raise ValueError(f'this rank is not in the mesh {mesh.describe()}')
+    unet = copy.deepcopy(trainer.unet)
+    unet.tp_slicers = sharding.shard_unet(unet, mesh)
+    unet.mesh = mesh
+    out = dataclasses.replace(trainer, unet=unet, mesh=mesh)
+    out.optimizer = trainer.optimizer
+    sharding.replicate_tree(sharding.optimizer_tensors(out.optimizer), mesh)
+    return out

@@ -23,8 +23,13 @@ with `logger.checkpoint_backend: orbax`, a step-indexed checkpoint under
 AdamW state and the step from the train state (or the latest step-indexed
 checkpoint); the noise generator restarts from `manual_seed`, as train.py
 restarts its key. It runs on the GPU unless `--device cpu` is given.
-`--distributed` (multi-device training) is not ported (ROADMAP.md Queue 1
-item 9) and is refused.
+
+`--distributed` runs it as one rank of a torchrun world (`torchrun
+--nproc_per_node N -m videoswap_torch.train -opt <yaml> --distributed`), as
+train.py runs under its multi-host launch: the process group is started,
+every rank runs the same unsharded steps from the same seed, and only rank
+0 writes the log, the checkpoints and the validation output (the other
+ranks wait for its validation at a barrier).
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from videoswap_torch.builders import (MIXED_PRECISION, build_models,
                                       save_train_state, train_state_dict)
 from videoswap_torch.data import build_dataset
 from videoswap_torch.data.frame_point_dataset import infinite_batches
+from videoswap_torch.parallel import dist as vdist
 from videoswap_torch.pipelines import VideoSwapPipeline, VideoSwapTrainer
 from videoswap_torch.utils.config import load_config, resolve_path
 from videoswap_torch.utils.device import cli_device
@@ -95,11 +101,11 @@ def train(root_path: str, args) -> dict:
     'trainer', 'dataset', 'start_step', 'start_state' (the
     adapter and AdamW state the loop started from, on the CPU), 'losses',
     'step_s', 'validation' ({step: {'s', 'peak_gib', 'resident_gib'}})}."""
-    if getattr(args, 'distributed', False):
-        raise NotImplementedError(
-            '--distributed: multi-device training is not ported (ROADMAP.md '
-            'Queue 1 item 9)')
     device = cli_device(getattr(args, 'device', None))
+    if vdist.maybe_initialize_distributed(getattr(args, 'distributed', False),
+                                          device.type):
+        device = vdist.rank_device(device.type)
+    writes = vdist.is_main_process()
     resume = getattr(args, 'resume', False)
     opt = load_config(args.opt)
     set_path_logger(root_path, args.opt, opt, is_train=True,
@@ -187,16 +193,19 @@ def train(root_path: str, args) -> dict:
                         'step_time': timer.times[-1]})
 
         if global_step % val_freq == 0 and 'val' in opt:
-            validation[global_step] = run_validation(opt, trainer, dataset,
-                                                     global_step)
+            if writes:
+                validation[global_step] = run_validation(
+                    opt, trainer, dataset, global_step)
+            vdist.barrier()
 
         if global_step % save_freq == 0 or global_step == total_iter:
             save_adapter_checkpoint(
                 os.path.join(opt['path']['models'], f'models_{global_step}',
                              'adapter.pth'), trainer.adapter)
             if ckpt_mgr is not None:
-                ckpt_mgr.save(global_step, train_state_dict(
-                    trainer.adapter, trainer.optimizer, global_step))
+                if writes:
+                    ckpt_mgr.save(global_step, train_state_dict(
+                        trainer.adapter, trainer.optimizer, global_step))
             else:
                 save_train_state(resume_path, trainer.adapter,
                                  trainer.optimizer, global_step)
@@ -209,6 +218,7 @@ def train(root_path: str, args) -> dict:
             f'p90 {s["p90_s"]:.3f}s over {s["steps"]} steps '
             f'(total {s["total_s"]:.1f}s)')
     logger.info('training done')
+    vdist.barrier()
     return dict(opt=opt, trainer=trainer, dataset=dataset,
                 start_step=start_step, start_state=start_state,
                 losses=losses, step_s=list(timer.times),
@@ -271,8 +281,12 @@ def main(argv=None) -> None:
                         help="'cpu' runs the plain versions of the kernels "
                              "on the CPU; the default is 'cuda'")
     parser.add_argument('--distributed', action='store_true',
-                        help='multi-device training: not ported')
-    train(os.path.abspath('.'), parser.parse_args(argv))
+                        help='one rank of a torchrun world: the same steps '
+                             'on every rank, rank 0 writes')
+    try:
+        train(os.path.abspath('.'), parser.parse_args(argv))
+    finally:
+        vdist.shutdown()
 
 
 if __name__ == '__main__':

@@ -21,9 +21,14 @@ package writes flax's `.msgpack`).
 
 Relative dataset paths resolve against the working directory. A
 `manual_seed` of 0 is the seed 0 (the JAX CLI's `or` draws a random seed
-for it). It runs on the GPU unless `--device cpu` is given. `--shard`
-(data-parallel atlas training) is not ported (ROADMAP.md Queue 1 item 9)
-and is refused.
+for it). It runs on the GPU unless `--device cpu` is given.
+
+`--shard N` trains data-parallel over the N ranks of a torchrun world
+(`torchrun --nproc_per_node N -m videoswap_torch.train_atlas -opt <yaml>
+--shard N`; any other world is refused): the mesh (N, 1, 1), each
+iteration's points split over the ranks (`AtlasTrainer(mesh=...)`). Only
+rank 0 evaluates and writes the log, the validation files and the
+checkpoints.
 """
 
 from __future__ import annotations
@@ -40,6 +45,8 @@ from videoswap_torch.atlas.data import load_input_data
 from videoswap_torch.atlas.evaluate import evaluate_model
 from videoswap_torch.atlas.trainer import AtlasTrainer
 from videoswap_torch.builders import build_atlas_nets, save_atlas_checkpoint
+from videoswap_torch.parallel import dist as vdist
+from videoswap_torch.parallel import make_mesh
 from videoswap_torch.utils.config import load_config, resolve_path
 from videoswap_torch.utils.device import cli_device
 from videoswap_torch.utils.logger import (MessageLogger, dict2str,
@@ -97,11 +104,14 @@ def train(root_path: str, args) -> dict:
     loss terms}), 'validation' ({step: {'psnr', 's'}}), 'checkpoints'
     ({step: path}), 'pretrain' ({net: final loss}), 'times' (s per
     stage: load, pretrain, iterations, validation, save)}."""
-    if getattr(args, 'shard', None):
-        raise NotImplementedError(
-            '--shard: data-parallel atlas training is not ported (ROADMAP.md '
-            'Queue 1 item 9)')
+    shard = getattr(args, 'shard', None)
     device = cli_device(getattr(args, 'device', None))
+    mesh = None
+    if shard:
+        vdist.join_world(int(shard), f'--shard {shard}', device.type)
+        device = vdist.rank_device(device.type)
+        mesh = make_mesh((int(shard), 1, 1))
+    writes = vdist.is_main_process()
     opt = load_config(args.opt)
     set_path_logger(root_path, args.opt, opt, is_train=True)
     logger = get_logger()
@@ -128,7 +138,10 @@ def train(root_path: str, args) -> dict:
         train_opt.setdefault('sample_batch_size',
                              opt['datasets']['sample_batch_size'])
     trainer = AtlasTrainer(nets, data, train_opt, larger_dim=larger_dim,
-                           num_frames=num_frames, device=device)
+                           num_frames=num_frames, device=device, mesh=mesh)
+    if mesh is not None:
+        logger.info(f'atlas training dp-sharded over {shard} ranks '
+                    f'(backend {torch.distributed.get_backend()})')
     views = clip_views(trainer)
     gen = torch.Generator(device=device).manual_seed(seed)
     clock.add('load')
@@ -165,7 +178,7 @@ def train(root_path: str, args) -> dict:
             logged[global_step] = {k: float(v) for k, v in ld.items()}
             msg({'iter': global_step, 'lrs': [lr], **logged[global_step]})
 
-        if global_step % val_freq == 0:
+        if global_step % val_freq == 0 and writes:
             save_dir = os.path.join(opt['path']['visualization'],
                                     f'Iter_{global_step}')
             value = evaluate_model(
@@ -194,6 +207,7 @@ def train(root_path: str, args) -> dict:
     logger.info('stage times (s): ' + ', '.join(
         f'{k} {v:.3f}' for k, v in clock.times.items()))
     logger.info('training done')
+    vdist.barrier()
     return dict(opt=opt, trainer=trainer, seed=seed, logged=logged,
                 validation=validation, checkpoints=checkpoints,
                 pretrain=pretrain, times=clock.times)
@@ -204,11 +218,15 @@ def main(argv=None) -> None:
     parser.add_argument('-opt', type=str, required=True,
                         help='Path to option YAML file.')
     parser.add_argument('--shard', type=int, default=None,
-                        help='data-parallel over N devices: not ported')
+                        help='N: data-parallel over the N ranks of a '
+                             'torchrun world')
     parser.add_argument('--device', type=str, default=None,
                         help="'cpu' runs the plain version of the hash "
                              "kernel on the CPU; the default is 'cuda'")
-    train(os.path.abspath('.'), parser.parse_args(argv))
+    try:
+        train(os.path.abspath('.'), parser.parse_args(argv))
+    finally:
+        vdist.shutdown()
 
 
 if __name__ == '__main__':

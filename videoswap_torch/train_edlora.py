@@ -40,8 +40,15 @@ line; every `logger.save_checkpoint_freq` steps and at the last one
 `lora_path` names; its name keeps 'edlora', which turns the per-layer
 concepts on at load) and `new_concept_cfg.json` beside it; the step-time
 summary at the end. It runs on the GPU unless `--device cpu` is given.
-`--shard` (tensor-parallel training over several devices) is not ported
-(ROADMAP.md Queue 1 item 9) and is refused.
+
+`--shard N` trains tensor-parallel over the N ranks of a torchrun world
+(`torchrun --nproc_per_node N -m videoswap_torch.train_edlora -opt <yaml>
+--shard N`; any other world is refused): the mesh (1, 1, N), the frozen
+U-Net and text encoder cut over tp, the factors and embeddings broadcast
+from rank 0 and kept the same on every rank (`shard_edlora_trainer`).
+Only rank 0 writes the log, the checkpoints and the concept config. The
+backend is NCCL where each rank has a GPU of its own, gloo where ranks
+share one (parallel/dist.py).
 """
 
 from __future__ import annotations
@@ -58,9 +65,12 @@ from videoswap_torch.builders import MIXED_PRECISION, build_models
 from videoswap_torch.data import build_dataset
 from videoswap_torch.edlora_train import (EDLoRATrainer,
                                           init_concept_embedding, lora_sites,
-                                          register_concepts,
+                                          param_groups, register_concepts,
                                           save_edlora_checkpoint,
+                                          shard_edlora_trainer,
                                           tokenize_layer_prompts)
+from videoswap_torch.parallel import dist as vdist
+from videoswap_torch.parallel import make_mesh, replicate_tree
 from videoswap_torch.utils.config import load_config, resolve_path
 from videoswap_torch.utils.device import cli_device
 from videoswap_torch.utils.logger import (MessageLogger, dict2str,
@@ -75,11 +85,11 @@ def train(root_path: str, args) -> dict:
     means 'cuda'), `shard`. Returns {'opt', 'trainer', 'train_params',
     'optimizer', 'new_concept_cfg', 'dataset', 'losses', 'step_s',
     'checkpoints' (the files written, by step)}."""
-    if getattr(args, 'shard', None):
-        raise NotImplementedError(
-            '--shard: tensor-parallel ED-LoRA training is not ported '
-            '(ROADMAP.md Queue 1 item 9)')
+    shard = getattr(args, 'shard', None)
     device = cli_device(getattr(args, 'device', None))
+    if shard:
+        vdist.join_world(int(shard), f'--shard {shard}', device.type)
+        device = vdist.rank_device(device.type)
     opt = load_config(args.opt)
     set_path_logger(root_path, args.opt, opt, is_train=True)
     logger = get_logger()
@@ -136,6 +146,13 @@ def train(root_path: str, args) -> dict:
     gen = torch.Generator(device=device).manual_seed(seed)
     train_params = trainer.init_train_params(
         gen, concept_emb, rank=int(train_opt.get('lora_rank', 4)))
+    if shard:
+        mesh = make_mesh((1, 1, int(shard)))
+        trainer = shard_edlora_trainer(trainer, mesh)
+        groups = param_groups(train_params)
+        replicate_tree(groups['emb'] + groups['lora'], mesh)
+        logger.info(f'ED-LoRA training tp-sharded over {shard} ranks '
+                    f'(backend {torch.distributed.get_backend()})')
     optimizer = trainer.init_state(train_params)
 
     # per image: the caption's 16 layer-variant ids, and the VAE posterior
@@ -181,8 +198,10 @@ def train(root_path: str, args) -> dict:
             ckpt = os.path.join(mdir, CHECKPOINT)
             save_edlora_checkpoint(ckpt, train_params, unet_sites,
                                    text_sites)
-            with open(os.path.join(mdir, 'new_concept_cfg.json'), 'w') as f:
-                json.dump(new_concept_cfg, f, indent=2)
+            if vdist.is_main_process():
+                with open(os.path.join(mdir, 'new_concept_cfg.json'),
+                          'w') as f:
+                    json.dump(new_concept_cfg, f, indent=2)
             checkpoints[global_step] = ckpt
             logger.info(f'saved ED-LoRA checkpoint: {ckpt}')
 
@@ -193,6 +212,7 @@ def train(root_path: str, args) -> dict:
             f'p90 {s["p90_s"]:.3f}s over {s["steps"]} steps '
             f'(total {s["total_s"]:.1f}s)')
     logger.info('ED-LoRA training done')
+    vdist.barrier()
     return dict(opt=opt, trainer=trainer, train_params=train_params,
                 optimizer=optimizer, new_concept_cfg=new_concept_cfg,
                 dataset=dataset, losses=losses, step_s=list(timer.times),
@@ -207,8 +227,12 @@ def main(argv=None) -> None:
                         help="'cpu' runs the plain versions of the kernels "
                              "on the CPU; the default is 'cuda'")
     parser.add_argument('--shard', type=int, default=None,
-                        help='tensor-parallel training: not ported')
-    train(os.path.abspath('.'), parser.parse_args(argv))
+                        help='N: tensor-parallel training over the N ranks '
+                             'of a torchrun world')
+    try:
+        train(os.path.abspath('.'), parser.parse_args(argv))
+    finally:
+        vdist.shutdown()
 
 
 if __name__ == '__main__':
